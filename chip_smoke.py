@@ -7,12 +7,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: requires CUDA (there is no CPU fallback), prints the card's name
    and power limit, and turns TF32 off so fp32 comparisons are real fp32;
-2. build: compiles the kernels of itrx_torch/csrc with nvcc for sm_90a;
+2. build: compiles the kernels of itrx_torch/csrc with nvcc for sm_90a, one
+   nvcc per source, all started together;
 3. kernel vs plain: each kernel's wrapper against its plain PyTorch version
-   on the same inputs on the card, at the main path's widths and at ragged
+   on the same inputs on the card, at the main paths' widths and at ragged
    sizes, with stated tolerances, and each one's time beside the plain
-   version's (CUDA events, after warm-up);
-4. the slice at full width: SCAN t2i evaluation of an f30k-1K-shaped
+   version's (CUDA events, after warm-up).  The GRU adjoint is held to
+   autograd through the plain GRU (all five gradients, both directions);
+4. the evaluation slice at full width: SCAN t2i evaluation of an f30k-1K-shaped
    synthetic split (1000 images x 36 x 2048 regions, 5000 captions) through
    get_model -> evaluate_split (encode_data -> cal_sims -> cal_recall) with
    encode_bf16 and eval_bf16, weights from torch.Generator().manual_seed(0);
@@ -20,7 +22,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    timed one by one and must reproduce evaluate_split's ranks.  The witness:
    the bf16 kernel grid must match the plain fp32 grid on the same embeddings
    (max abs diff <= SLICE_MAX_DIFF) and rank like it (per-caption top-1
-   agreement >= 0.95).
+   agreement >= 0.95);
+5. the training slice at full width: SCAN's published f30k t2i training
+   configuration (bi_gru, max_violation, batch 128, embed 1024, 36 x 2048
+   regions, Adam 2e-4, clip 2.0, fp32) for one epoch of a synthetic split
+   (50 steps) through itrx_torch.train.loop.fit, with one validation and
+   checkpoint mid-epoch and one at its end.  The launch counters show that
+   the GRU forward, the GRU adjoint and (in validation) xattn ran; every
+   loss is finite and the loss falls; evalrank_single on model_best.pth.tar
+   reproduces its best_rsum; the first step's loss and every gradient on the
+   card match the same step on a CPU copy of the model (the plain path).
+   Then the median step time and a profile of a few steps.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -29,23 +41,29 @@ The line before the last is a JSON object of the kernels; the last line is
 from __future__ import annotations
 
 import json
+import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from itrx.configs import parse_cli
-from itrx.data.precomp import get_test_loader
+from itrx.data.precomp import get_loaders, get_test_loader
 from itrx.data.synthetic import generate
 from itrx_torch.eval import engine, metrics
 from itrx_torch.models import get_model
 from itrx_torch.ops import kernels
-from itrx_torch.ops.kernels.gru import gru_scan_fused
+from itrx_torch.ops.kernels import gru as kgru
+from itrx_torch.ops.kernels.gru import gru_bwd_fused, gru_scan_fused
 from itrx_torch.ops.kernels.xattn import xattn_t2i_fused, xattn_t2i_plain
-from itrx_torch.ops.rnn import gru_scan
+from itrx_torch.ops.rnn import gru_bwd_plain, gru_fwd_plain, gru_scan
+from itrx_torch.train.loop import fit, make_train_step, prefetch
+from itrx_torch.utils.checkpoint import load_checkpoint
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEV = torch.device("cuda", 0)
@@ -61,10 +79,26 @@ GRU_BF16_ATOL = 1e-4  # also bf16 rounding flips of the carry
 XATTN_FP32_ATOL = 1e-6
 XATTN_BF16_ATOL = 1e-5
 SLICE_MAX_DIFF = 1e-5  # bf16 kernel grid vs the fp32 plain grid on its values
+# GRU adjoint (fp32): max|g_kernel - g_plain| / max|g_plain| per tensor.  The
+# two sides differ by fp32 summation order through 48 steps; a gradient that
+# loses one timestep's cotangent is printed beside each reading and must
+# exceed the limit.
+GRU_BWD_REL = 1e-5
+# training witness, card vs CPU copy (fp32, plain path on the CPU): the loss
+# (relative) and every parameter's gradient (max abs error over the tensor's
+# largest entry); the attention chain (softmax at lambda 9, LogSumExp at 6)
+# amplifies summation-order differences to ~1e-5 of a tensor's scale
+TRAIN_LOSS_REL = 1e-5
+TRAIN_GRAD_REL = 1e-3
+TRAIN_STEPS = 50  # one epoch of the synthetic train split at batch 128
+TRAIN_VAL_STEP = 30  # one validation + checkpoint mid-epoch, one at the end
 REPLACES = {
     "gru": "itrx/ops/pallas/gru.py:37 (_fwd_kernel)",
+    "gru_bwd": "itrx/ops/pallas/gru.py:68 (_bwd_kernel)",
     "xattn": "itrx/ops/pallas/xattn.py:43 (_kernel)",
 }
+SOURCES = {"gru": "gru.cu", "gru_bwd": "gru_bwd.cu", "xattn": "xattn.cu"}
+COUNTERS = {"gru": gru_scan_fused, "gru_bwd": gru_bwd_fused, "xattn": xattn_t2i_fused}
 
 
 def log(*a):
@@ -116,13 +150,46 @@ def phase_device() -> str:
     return card
 
 
+def rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def check_rel(name: str, got, want, limit: float) -> float:
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite values")
+    err = rel_err(got.float(), want.float())
+    log(f"  {name}: rel_err {err:.3e} (limit {limit:g})")
+    if not err <= limit:
+        raise AssertionError(f"{name}: rel_err {err} > limit {limit}")
+    return err
+
+
+def reset_counters():
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_counters() -> dict:
+    return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
 def phase_build():
-    for name in ("gru", "xattn"):
+    def timed_build(name):
         t0 = time.perf_counter()
+        kernels.build(name)
+        return time.perf_counter() - t0
+
+    names = [os.path.splitext(src)[0] for src in SOURCES.values()]
+    with ThreadPoolExecutor(len(names)) as ex:
+        seconds = dict(zip(names, ex.map(timed_build, names)))
+    for name in names:
         kernels.load(name)
-        dt = time.perf_counter() - t0
         info = kernels.library_path(name).with_suffix(".log")
-        log(f"build {name}: {dt:.2f} s (nvcc sm_90a, {kernels.library_path(name).name})")
+        log(f"build {name}: {seconds[name]:.2f} s (nvcc sm_90a, in parallel, "
+            f"{kernels.library_path(name).name})")
         if info.exists():
             for line in info.read_text().splitlines():
                 if "registers" in line or "spill" in line:
@@ -166,6 +233,83 @@ def phase_gru(g) -> dict:
     log(f"  time bf16 (B=128, L=24, H=1024, one direction): kernel {res['ms']:.3f} ms, "
         f"plain {res['plain_ms']:.3f} ms; fp32: kernel {res['ms_fp32']:.3f} ms, "
         f"plain {res['plain_ms_fp32']:.3f} ms")
+    return res
+
+
+def phase_gru_bwd(g, b=128, l=48, d=300, h=1024) -> dict:
+    """The GRU adjoint kernel (and the forward's residual mode) against the
+    plain versions, at the training path's widths: B=128, L=48 (the caption
+    length of scripts/train_bench.py), D=300, H=1024, fp32, ragged lengths
+    1..48, both directions."""
+    log(f"GRU adjoint kernel vs plain (B={b}, L={l}, D={d}, H={h}, fp32, ragged 1..{l})")
+    x, mask, w_ih, w_hh, b_ih, b_hh = _gru_inputs(g, b, l, d, h)
+    g_out = torch.randn(b, l, h, generator=g).to(DEV)
+    g_fin = torch.randn(b, h, generator=g).to(DEV)
+    names = ("dx", "dW_ih", "dW_hh", "db_ih", "db_hh")
+
+    def grads(fn, reverse, cot_out):
+        ps = [t.detach().clone().requires_grad_() for t in (x, w_ih, w_hh, b_ih, b_hh)]
+        o, fin = fn(ps[0], mask, *ps[1:], reverse=reverse)
+        return torch.autograd.grad((o * cot_out).sum() + (fin * g_fin).sum(), ps)
+
+    res = {"rel_err": {}}
+    dropped = g_out.clone()
+    dropped[:, l // 2] = 0.0
+    for reverse in (False, True):
+        tag = "reverse" if reverse else "forward"
+        got = grads(gru_scan_fused, reverse, g_out)
+        want = grads(gru_scan, reverse, g_out)
+        lost = grads(gru_scan, reverse, dropped)
+        for name, a, w, c in zip(names, got, want, lost):
+            err = check_rel(f"gru {tag} {name} (kernel fwd+bwd vs autograd of plain)",
+                            a, w, GRU_BWD_REL)
+            wrong = rel_err(c, w)
+            log(f"    the plain {name} with timestep {l // 2}'s cotangent dropped: "
+                f"rel_err {wrong:.3e}")
+            if not wrong > GRU_BWD_REL:
+                raise AssertionError(f"the limit {GRU_BWD_REL} does not separate a lost "
+                                     f"timestep ({wrong}) in {name}")
+            res["rel_err"][f"{tag} {name}"] = err
+
+        # the two kernel bodies on the same residuals
+        gates_x = (x @ w_ih.t() + b_ih).contiguous()
+        k_out, k_fin, hall, ghall = kgru._launch(gates_x, mask, w_hh, b_hh, reverse,
+                                                 residuals=True)
+        p_out, p_fin, p_hall, p_ghall = gru_fwd_plain(gates_x, mask, w_hh, b_hh, reverse)
+        check(f"gru {tag} residual hall (h_t-1)", hall, p_hall, GRU_FP32_ATOL)
+        check(f"gru {tag} residual ghall (gh)", ghall, p_ghall, GRU_FP32_ATOL)
+        check(f"gru {tag} outputs with residuals", k_out, p_out, GRU_FP32_ATOL)
+        kb = gru_bwd_fused(gates_x, mask, hall, ghall, g_out, g_fin, w_hh, reverse)
+        pb = gru_bwd_plain(gates_x, mask, hall, ghall, g_out, g_fin, w_hh, reverse)
+        for name, a, w in zip(("ggx", "ghn", "g_h0"), kb, pb):
+            err = check_rel(f"gru_bwd {tag} {name} (kernel vs gru_bwd_plain)", a, w,
+                            GRU_BWD_REL)
+            res["rel_err"][f"{tag} {name}"] = err
+            if name == "ggx" and not reverse:
+                res["max_abs_err"] = float((a - w).abs().max())
+        # both cotangents absent: zero gradients
+        z = gru_bwd_fused(gates_x, mask, hall, ghall, None, None, w_hh, reverse)
+        if any(float(t.abs().max()) != 0.0 for t in z):
+            raise AssertionError("gru_bwd with no cotangent gave non-zero gradients")
+
+    gates_x = (x @ w_ih.t() + b_ih).contiguous()
+    _, _, hall, ghall = kgru._launch(gates_x, mask, w_hh, b_hh, False, residuals=True)
+    res["ms"] = cuda_ms(lambda: gru_bwd_fused(gates_x, mask, hall, ghall, g_out, g_fin, w_hh))
+    res["plain_ms"] = cuda_ms(
+        lambda: gru_bwd_plain(gates_x, mask, hall, ghall, g_out, g_fin, w_hh))
+    res["fwd_residuals_ms"] = cuda_ms(
+        lambda: kgru._launch(gates_x, mask, w_hh, b_hh, False, residuals=True))
+    res["fwd_ms"] = cuda_ms(
+        lambda: kgru._launch(gates_x, mask, w_hh, b_hh, False, residuals=False))
+    res["fwd_plain_ms"] = cuda_ms(lambda: gru_fwd_plain(gates_x, mask, w_hh, b_hh))
+    res["fwd_bwd_ms"] = cuda_ms(lambda: grads(gru_scan_fused, False, g_out), reps=10)
+    res["fwd_bwd_plain_ms"] = cuda_ms(lambda: grads(gru_scan, False, g_out), reps=10)
+    log(f"  time (one direction, B={b}, L={l}, H={h}, fp32): adjoint kernel "
+        f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms; forward kernel with "
+        f"residuals {res['fwd_residuals_ms']:.3f} ms, without {res['fwd_ms']:.3f} ms, "
+        f"plain {res['fwd_plain_ms']:.3f} ms; forward+backward through autograd "
+        f"(input projection included): kernels {res['fwd_bwd_ms']:.3f} ms, plain "
+        f"{res['fwd_bwd_plain_ms']:.3f} ms")
     return res
 
 
@@ -244,16 +388,18 @@ def phase_slice(data_root: str, card: str) -> dict:
 
     # the main path, counted: the entry point a user calls, which maps
     # encode_bf16 / eval_bf16 to dtypes and runs encode -> sims -> recall
-    gru_scan_fused.launches = 0
-    xattn_t2i_fused.launches = 0
+    reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ev = engine.evaluate_split(model, dataset, cfg, device=DEV)
     torch.cuda.synchronize()
     ev_first = time.perf_counter() - t0
-    launches = {"gru": gru_scan_fused.launches, "xattn": xattn_t2i_fused.launches}
+    launches = read_counters()
     log(f"  main path (evaluate_split) launches: {launches}")
-    for k, n in launches.items():
+    if launches["gru_bwd"]:
+        raise AssertionError("evaluation launched the GRU adjoint kernel")
+    for k in ("gru", "xattn"):
+        n = launches[k]
         if n <= 0:
             raise AssertionError(f"the main path never launched the {k} kernel")
 
@@ -339,21 +485,193 @@ def phase_slice(data_root: str, card: str) -> dict:
     return out
 
 
+def _losses_from_events(save_dir: str) -> tuple[list, list]:
+    """(every logged training loss, every validation rsum) from the run's
+    MetricWriter log, in order."""
+    losses, rsums = [], []
+    with open(os.path.join(save_dir, "events.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if "Loss" in rec:
+                losses.append(rec["Loss"])
+            if "r_sum" in rec:
+                rsums.append(rec["r_sum"])
+    return losses, rsums
+
+
+def _first_step_witness(cfg, batch) -> dict:
+    """The first training step's loss and gradients on the card (GRU kernels,
+    plain attention) against the same step on a CPU copy (plain path
+    throughout), from one seed's weights and one batch."""
+    def step_on(dev):
+        model = get_model(cfg, device=dev,
+                          generator=torch.Generator().manual_seed(cfg["seed"]))
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        loss, _ = model.loss(b, train=True)
+        loss.backward()
+        with torch.no_grad():
+            e = model.embed(b)
+            scores = model.similarity(e["img"], e["cap"], e["cap_mask"], train=True)
+        grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+        return loss.detach().cpu(), grads, scores.cpu()
+
+    (lk, gk, sk), (lc, gc, sc) = step_on(DEV), step_on(torch.device("cpu"))
+    loss_err = abs(float(lk) - float(lc)) / abs(float(lc))
+    log(f"  first step loss: card {float(lk):.7f}, cpu {float(lc):.7f}, rel_err "
+        f"{loss_err:.3e} (limit {TRAIN_LOSS_REL:g})")
+    # hardest negatives (max_violation): a near-tie that the two devices break
+    # differently would move a row's gradient; report how many agree
+    hn_agree = float(((sk - 1e9 * torch.eye(len(sk))).argmax(1)
+                      == (sc - 1e9 * torch.eye(len(sc))).argmax(1)).float().mean())
+    log(f"  hardest-negative captions agreeing card vs cpu: {hn_agree:.4f}")
+    if not loss_err <= TRAIN_LOSS_REL:
+        raise AssertionError(f"first-step loss differs card vs cpu by {loss_err}")
+    grad_errs = {}
+    for k in gc:
+        grad_errs[k] = check_rel(f"first step grad {k} (card vs cpu)", gk[k], gc[k],
+                                 TRAIN_GRAD_REL)
+    return {"loss_card": float(lk), "loss_cpu": float(lc), "loss_rel_err": loss_err,
+            "grad_rel_err_max": max(grad_errs.values()),
+            "hardest_negative_agreement": hn_agree}
+
+
+def _profile_steps(step_fn, batches) -> dict:
+    """Device time by kernel and the idle share over a few steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            step_fn(b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        # user annotations (Optimizer.step#...) are ranges on the device
+        # timeline that overlap its kernels, not device work of their own
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            rows.append((us, e.count, e.key))
+    rows.sort(reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    out = {"steps": len(batches), "wall_ms": wall * 1e3, "device_ms": busy_us / 1e3,
+           "idle_share": 1.0 - busy_us / 1e6 / wall if rows else None,
+           "top_kernels_ms": [[k[:90], round(us / 1e3, 3), n] for us, n, k in rows[:15]]}
+    if not rows:
+        log("  profiler: no device events (device time not measured)")
+    return out
+
+
+def phase_train(root: str, card: str) -> dict:
+    log("training slice: SCAN f30k t2i training configuration at full width")
+    t0 = time.perf_counter()
+    n_images = TRAIN_STEPS * 128 // 5  # 5 captions per image
+    generate(os.path.join(root, "f30k_precomp"), n_images=n_images, img_dim=2048,
+             splits=("train", "dev"), seed=1, n_concepts_range=(2, 10))
+    cfg = parse_cli(
+        ["with", "SCAN", "data_name=f30k_precomp", f"data_path={root}",
+         f"vocab_path={os.path.join(REPO, 'itrx', 'vocab')}", "vocab_type=json",
+         "bi_gru=True", "max_violation=True", "num_epochs=1",
+         f"val_step={TRAIN_VAL_STEP}", "log_step=1", f"save_path={root}/runs", "seed=0"],
+    )
+    train_ds, val_ds, vocab_size = get_loaders(cfg)
+    cfg["vocab_size"] = vocab_size
+    log(f"  data set-up: {time.perf_counter() - t0:.1f} s ({len(train_ds)} train / "
+        f"{len(val_ds)} dev captions, vocab {vocab_size}); batch {cfg['batch_size']}, "
+        f"embed {cfg['embed_size']}, word_dim {cfg['word_dim']}, img_dim {cfg['img_dim']}, "
+        f"lr {cfg['learning_rate']}, clip {cfg['grad_clip']}, train_bf16 "
+        f"{cfg['train_bf16']}")
+
+    first = next(train_ds.train_batches(cfg["batch_size"], cfg["seed"], 0))
+    witness = _first_step_witness(cfg, first)
+
+    # the main path, counted: the port's train entry
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, best_rsum = fit(cfg, train_ds, val_ds, device=DEV)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_counters()
+    log(f"  main path (fit, 1 epoch) launches: {launches}; {fit_s:.2f} s")
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the training path never launched the {k} kernel")
+    if state.step != TRAIN_STEPS:
+        raise AssertionError(f"fit ran {state.step} steps, expected {TRAIN_STEPS}")
+
+    losses, rsums = _losses_from_events(cfg["save_dir"])
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"expected {TRAIN_STEPS} finite losses, got {losses}")
+    first10, last10 = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    log(f"  loss: first {losses[0]:.4f}, mean of first 10 {first10:.4f}, of last 10 "
+        f"{last10:.4f}; validation rsums {rsums}")
+    if not last10 < first10:
+        raise AssertionError(f"the loss did not fall: {first10} -> {last10}")
+    if len(rsums) != 2:
+        raise AssertionError(f"expected one validation mid-epoch and one at its end, "
+                             f"got {rsums}")
+
+    best = os.path.join(cfg["save_dir"], "model_best.pth.tar")
+    for path in (best, os.path.join(cfg["save_dir"], "epo0_checkpoint.pth.tar")):
+        if not os.path.exists(path):
+            raise AssertionError(f"missing checkpoint {path}")
+    ckpt = load_checkpoint(best)
+    ev = engine.evalrank_single(best, split="dev", device=DEV)
+    log(f"  evalrank_single(model_best.pth.tar): rsum {ev['rsum']}, checkpoint "
+        f"best_rsum {ckpt['best_rsum']} (Eiters {ckpt['Eiters']})")
+    if abs(ev["rsum"] - ckpt["best_rsum"]) > 1e-6 or ckpt["best_rsum"] != best_rsum:
+        raise AssertionError("evalrank_single does not reproduce the checkpoint's best_rsum")
+
+    # step time after warm-up (host clock, each step ending in a synchronize)
+    step_fn = make_train_step(state)
+    it = prefetch(train_ds.train_batches(cfg["batch_size"], cfg["seed"], 1), DEV)
+    times = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(next(it))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = statistics.median(times[2:])
+    prof = _profile_steps(step_fn, [next(it) for _ in range(3)])
+    out = {
+        "card": card,
+        "steps": TRAIN_STEPS,
+        "fit_seconds": fit_s,
+        "step_seconds_median": step_s,
+        "step_seconds": times,
+        "samples_per_sec": cfg["batch_size"] / step_s,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "loss_first": losses[0], "loss_mean_first10": first10,
+        "loss_mean_last10": last10, "val_rsums": rsums, "best_rsum": best_rsum,
+        "witness": witness, "profile": prof, "launches": launches,
+    }
+    log("training result: " + json.dumps(out))
+    return out
+
+
 def main():
     card = phase_device()
     phase_build()
     g = torch.Generator().manual_seed(0)
-    results = {"gru": phase_gru(g), "xattn": phase_xattn(g)}
+    results = {"gru": phase_gru(g), "gru_bwd": phase_gru_bwd(g), "xattn": phase_xattn(g)}
     with tempfile.TemporaryDirectory(prefix="itrx_smoke_") as data_root:
-        sl = phase_slice(data_root, card)
+        phase_slice(data_root, card)
+    with tempfile.TemporaryDirectory(prefix="itrx_smoke_train_") as root:
+        tr = phase_train(root, card)
     log(f"card: {card}")
     print(json.dumps({"kernels": [
         {
             "name": name,
             "route": "cuda",
-            "source": f"itrx_torch/csrc/{name}.cu",
+            "source": f"itrx_torch/csrc/{SOURCES[name]}",
             "replaces": REPLACES[name],
-            "launches": sl["launches"][name],
+            "launches": tr["launches"][name],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],

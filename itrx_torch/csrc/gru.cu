@@ -1,4 +1,4 @@
-// Masked GRU recurrence, forward only, for sm_90a.
+// Masked GRU recurrence, forward, for sm_90a.
 //
 // Replaces itrx/ops/pallas/gru.py::_fwd_kernel (the TPU kernel keeps the
 // whole (H, 3H) recurrent weight resident in VMEM and runs one timestep per
@@ -19,6 +19,12 @@
 // Weight types: fp32 (exact mode) and bf16 (production mode; the carry is
 // rounded to bf16 before the product, as the TPU kernel's bf16 dot does).
 // The carry itself is always fp32.
+//
+// Residuals for the backward (csrc/gru_bwd.cu), written only when the
+// caller passes the buffers (training): hall[b, t] = h_{t-1}, the fp32
+// carry entering step t, and ghall[b, t] = h_{t-1} . W_hh^T + b_hh, as the
+// TPU kernel saves them.  Without them the arithmetic and the writes are
+// those of the inference path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,6 +53,8 @@ gru_step_kernel(const float* __restrict__ gx,      // (B, L, 3H) input gates
                 const float* __restrict__ h_prev,  // (B, H); nullptr = zero carry
                 float* __restrict__ h_next,        // (B, H)
                 float* __restrict__ out,           // (B, L, H)
+                float* __restrict__ hall,          // (B, L, H) or nullptr
+                float* __restrict__ ghall,         // (B, L, 3H) or nullptr
                 int B, int L, int H, int t) {
   __shared__ float hs[kRows][kK + 1];
   __shared__ float ws[3 * kUnits][kK + 1];
@@ -105,9 +113,17 @@ gru_step_kernel(const float* __restrict__ gx,      // (B, L, 3H) input gates
     const float* g = gx + ((size_t)b * L + t) * 3 * H;
     const float m = mask[(size_t)b * L + t];
     const float hp = h_prev != nullptr ? h_prev[(size_t)b * H + j] : 0.0f;
-    const float r = sigmoid(g[j] + acc[i][0] + bh_r);
-    const float z = sigmoid(g[H + j] + acc[i][1] + bh_z);
-    const float n = tanhf(g[2 * H + j] + r * (acc[i][2] + bh_n));
+    const float gh_r = acc[i][0] + bh_r, gh_z = acc[i][1] + bh_z, gh_n = acc[i][2] + bh_n;
+    if (hall != nullptr) {
+      const size_t bt = (size_t)b * L + t;
+      hall[bt * H + j] = hp;
+      ghall[bt * 3 * H + j] = gh_r;
+      ghall[bt * 3 * H + H + j] = gh_z;
+      ghall[bt * 3 * H + 2 * H + j] = gh_n;
+    }
+    const float r = sigmoid(g[j] + gh_r);
+    const float z = sigmoid(g[H + j] + gh_z);
+    const float n = tanhf(g[2 * H + j] + r * gh_n);
     const float h_new = (1.0f - z) * n + z * hp;
     h_next[(size_t)b * H + j] = m * h_new + (1.0f - m) * hp;
     out[((size_t)b * L + t) * H + j] = m * h_new;
@@ -116,8 +132,8 @@ gru_step_kernel(const float* __restrict__ gx,      // (B, L, 3H) input gates
 
 template <typename W>
 int run(const float* gx, const float* mask, const W* whh, const float* bhh,
-        float* hbuf, float* out, int B, int L, int H, int reverse,
-        cudaStream_t stream) {
+        float* hbuf, float* out, float* hall, float* ghall, int B, int L, int H,
+        int reverse, cudaStream_t stream) {
   const dim3 grid((H + kUnits - 1) / kUnits, (B + kRows - 1) / kRows);
   float* h0 = hbuf;
   float* h1 = hbuf + (size_t)B * H;
@@ -127,7 +143,7 @@ int run(const float* gx, const float* mask, const W* whh, const float* bhh,
     const float* hp = step == 0 ? nullptr : ((step & 1) ? h0 : h1);
     float* hn = (step & 1) ? h1 : h0;
     gru_step_kernel<W><<<grid, kThreads, 0, stream>>>(gx, mask, whh, bhh, hp, hn,
-                                                      out, B, L, H, t);
+                                                      out, hall, ghall, B, L, H, t);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -140,11 +156,13 @@ extern "C" {
 
 // gx (B, L, 3H) fp32; mask (B, L) fp32; whh (3H, H) fp32 or bf16
 // (whh_bf16 != 0); bhh (3H) fp32; hbuf (2, B, H) fp32 scratch whose buffer
-// (L-1)&1 holds the final carry; out (B, L, H) fp32.  L launches on
-// `stream` of CUDA device `device`.  Returns cudaGetLastError().
+// (L-1)&1 holds the final carry; out (B, L, H) fp32; hall (B, L, H) and
+// ghall (B, L, 3H) fp32, both nullptr or both set (residuals for the
+// backward).  L launches on `stream` of CUDA device `device`.  Returns
+// cudaGetLastError().
 int itrx_gru_fwd(const void* gx, const void* mask, const void* whh, int whh_bf16,
-                 const void* bhh, void* hbuf, void* out, int B, int L, int H,
-                 int reverse, int device, void* stream) {
+                 const void* bhh, void* hbuf, void* out, void* hall, void* ghall,
+                 int B, int L, int H, int reverse, int device, void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -152,11 +170,13 @@ int itrx_gru_fwd(const void* gx, const void* mask, const void* whh, int whh_bf16
     return run<__nv_bfloat16>(static_cast<const float*>(gx), static_cast<const float*>(mask),
                               static_cast<const __nv_bfloat16*>(whh),
                               static_cast<const float*>(bhh), static_cast<float*>(hbuf),
-                              static_cast<float*>(out), B, L, H, reverse, s);
+                              static_cast<float*>(out), static_cast<float*>(hall),
+                              static_cast<float*>(ghall), B, L, H, reverse, s);
   }
   return run<float>(static_cast<const float*>(gx), static_cast<const float*>(mask),
                     static_cast<const float*>(whh), static_cast<const float*>(bhh),
-                    static_cast<float*>(hbuf), static_cast<float*>(out), B, L, H, reverse, s);
+                    static_cast<float*>(hbuf), static_cast<float*>(out),
+                    static_cast<float*>(hall), static_cast<float*>(ghall), B, L, H, reverse, s);
 }
 
 const char* itrx_cuda_error_string(int code) {

@@ -1,5 +1,5 @@
 """Evaluation engine (counterpart of itrx/eval/engine.py: `encode_data`,
-`cal_sims`, `evaluate_split` without fold5).
+`cal_sims`, `evaluate_split` and `evalrank_single`, without fold5).
 
 encode -> length-bucketed similarity grid -> Recall@K, all on `device`.
 """
@@ -110,7 +110,7 @@ def cal_sims(model, img_embs, cap_embs, cap_mask,
     if compute_dtype is not None:
         img_embs = img_embs.to(compute_dtype)
         cap_embs = cap_embs.to(compute_dtype)
-    kernel = model.fused_eval_active(img_embs.device)
+    kernel = model.fused_eval_active(img_embs.device, train=False)
     sims = torch.zeros(ni, nc, dtype=torch.float32, device=img_embs.device)
     for in_bucket, b in buckets:
         idx = torch.from_numpy(in_bucket).to(img_embs.device)
@@ -119,7 +119,7 @@ def cal_sims(model, img_embs, cap_embs, cap_mask,
         tile = len(in_bucket) if kernel else max(PLAIN_ATTN_BYTES // (ni * r * b * 4), 1)
         for j0 in range(0, len(in_bucket), tile):
             sims[:, idx[j0:j0 + tile]] = model.similarity(
-                img_embs, caps_b[j0:j0 + tile], mask_b[j0:j0 + tile]
+                img_embs, caps_b[j0:j0 + tile], mask_b[j0:j0 + tile], train=False
             )
     if verbose:
         if sims.is_cuda:
@@ -140,3 +140,29 @@ def evaluate_split(model, dataset, config: dict, device="cpu") -> dict:
     res = metrics.cal_recall(sims, cap_ratio=dataset.im_div)
     res["data_name"] = config["data_name"]
     return res
+
+
+def evalrank_single(model_path: str, data_path: str | None = None, split: str = "dev",
+                    fold5: bool = False, device="cpu") -> dict:
+    """Offline evaluation of one checkpoint (a `.pth.tar` of
+    itrx_torch.utils.checkpoint): the model is rebuilt from the checkpoint's
+    `_config`, its weights loaded, and `split` evaluated on `device`."""
+    from itrx.data import precomp
+
+    from ..models import get_model
+    from ..utils.checkpoint import load_checkpoint, load_state_list
+
+    if fold5:
+        raise NotImplementedError("fold5 evaluation is not ported yet: ROADMAP queue 1 item 4")
+    ckpt = load_checkpoint(model_path)
+    config = dict(ckpt["_config"])
+    print("Best model: Epoch = {}, Eiters = {}, Rsum = {:.2f}, R1 = {:.2f}".format(
+        ckpt["epoch"], ckpt["Eiters"], ckpt["best_rsum"], ckpt["best_r1"]))
+    if data_path is not None:
+        config["data_path"] = data_path
+    model = get_model(config, device=device)
+    load_state_list(model, ckpt["model"])
+    print(f"Loading dataset : {config['data_name']} ......")
+    dataset, _ = precomp.get_test_loader(split, config)
+    print("Computing results...")
+    return evaluate_split(model, dataset, config, device=device)

@@ -44,6 +44,8 @@ def get_model(config: dict, device="cpu", generator: torch.Generator | None = No
         agg_func=config["agg_func"],
         lambda_lse=config["lambda_lse"],
         lambda_softmax=config["lambda_softmax"],
+        margin=config["margin"],
+        max_violation=config["max_violation"],
         generator=generator,
     )
     return model.to(device).eval()

@@ -1,5 +1,5 @@
-"""SCAN (counterpart of itrx/models/methods.py::SCAN, `embed` and
-`similarity`)."""
+"""SCAN (counterpart of itrx/models/methods.py::SCAN: `embed`,
+`similarity` and `loss`)."""
 
 from __future__ import annotations
 
@@ -8,19 +8,22 @@ from torch import nn
 
 from ..ops import attention
 from ..ops.kernels.xattn import xattn_t2i_fused
+from ..ops.losses import contrastive_hinge
 from .img_encoders import EncoderImagePrecomp
 from .txt_encoders import EncoderText
 
 
 class SCAN(nn.Module):
     """Stacked cross-attention: region embeddings (B, 36, E), per-word
-    caption embeddings (B, L, E), and a t2i score grid."""
+    caption embeddings (B, L, E), a t2i score grid, and the hinge loss on
+    the in-batch grid."""
 
     def __init__(self, vocab_size: int, img_dim: int = 2048, embed_size: int = 1024,
                  word_dim: int = 300, bi_gru: bool = False, no_imgnorm: bool = False,
                  no_txtnorm: bool = True, cross_attn: str = "t2i",
                  raw_feature_norm: str = "clipped_l2norm", agg_func: str = "LogSumExp",
                  lambda_lse: float = 6.0, lambda_softmax: float = 9.0,
+                 margin: float = 0.2, max_violation: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         if cross_attn != "t2i":
@@ -32,6 +35,8 @@ class SCAN(nn.Module):
         self.agg_func = agg_func
         self.lambda_lse = lambda_lse
         self.lambda_softmax = lambda_softmax
+        self.margin = margin
+        self.max_violation = max_violation
         self.img_enc = EncoderImagePrecomp(img_dim, embed_size, no_imgnorm, generator)
         self.txt_enc = EncoderText(vocab_size, word_dim, embed_size,
                                    use_bi_gru=bi_gru, no_txtnorm=no_txtnorm,
@@ -45,22 +50,32 @@ class SCAN(nn.Module):
     def forward(self, batch: dict) -> dict:
         return self.embed(batch)
 
-    def fused_eval_active(self, device: torch.device) -> bool:
+    def fused_eval_active(self, device: torch.device, train: bool = False) -> bool:
         """True when `similarity` on tensors of `device` runs the CUDA kernel:
-        the published t2i variants (clipped_l2norm with LogSumExp or Mean) on
-        a CUDA device.  Other variants take the plain path, as the JAX
-        package sends them to its XLA path."""
+        evaluation (`not train`; the kernel has no backward) of the
+        published t2i variants (clipped_l2norm with LogSumExp or Mean) on a
+        CUDA device.  Other variants, and training, take the plain path, as
+        the JAX package sends them to its XLA path."""
         return (
-            torch.device(device).type == "cuda"
+            not train
+            and torch.device(device).type == "cuda"
             and self.raw_feature_norm == "clipped_l2norm"
             and self.agg_func in ("LogSumExp", "Mean")
         )
 
-    def similarity(self, img, cap, cap_mask):
+    def similarity(self, img, cap, cap_mask, train: bool = False):
         kw = dict(agg_func=self.agg_func, lambda_lse=self.lambda_lse,
                   lambda_softmax=self.lambda_softmax)
-        if self.fused_eval_active(img.device):
+        if self.fused_eval_active(img.device, train=train):
             return xattn_t2i_fused(img, cap, cap_mask, **kw)
         return attention.xattn_score_t2i(
             img, cap, cap_mask, raw_feature_norm=self.raw_feature_norm, **kw
         )
+
+    def loss(self, batch: dict, train: bool = True):
+        """The training objective: (hinge loss on the in-batch grid,
+        {"Loss": loss})."""
+        e = self.embed(batch)
+        scores = self.similarity(e["img"], e["cap"], e["cap_mask"], train=train)
+        loss = contrastive_hinge(scores, self.margin, self.max_violation)
+        return loss, {"Loss": loss}

@@ -68,7 +68,17 @@ def xattn_t2i_fused(images, captions, cap_mask, *, lambda_lse: float = 6.0,
     """(Ni, 36, D) x (Nc, L, D) with cap_mask (Nc, L) -> (Ni, Nc) fp32.
 
     A CPU tensor takes `xattn_t2i_plain`; a CUDA tensor launches the kernel
-    (fp32 or bf16 inputs, fp32 arithmetic); any other device raises."""
+    (fp32 or bf16 inputs, fp32 arithmetic); any other device raises.  The
+    kernel is forward-only, as in the JAX package: with grad enabled and an
+    input that requires grad it raises on every device."""
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (images, captions, cap_mask)
+    ):
+        raise RuntimeError(
+            "xattn_t2i_fused: the kernel is forward-only (it has no backward); "
+            "training similarity is the plain path, "
+            "itrx_torch.ops.attention.xattn_score_t2i"
+        )
     if agg_func not in ("LogSumExp", "Mean"):
         raise ValueError(f"xattn_t2i_fused: unsupported agg_func {agg_func}")
     if images.device.type == "cpu":
