@@ -12,18 +12,27 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. kernel vs plain: each kernel's wrapper against its plain PyTorch version
    on the same inputs on the card, at the main paths' widths and at ragged
    sizes, with stated tolerances, and each one's time beside the plain
-   version's (CUDA events, after warm-up).  The GRU adjoint is held to
-   autograd through the plain GRU (all five gradients, both directions);
-4. the evaluation slice at full width: SCAN t2i evaluation of an f30k-1K-shaped
-   synthetic split (1000 images x 36 x 2048 regions, 5000 captions) through
-   get_model -> evaluate_split (encode_data -> cal_sims -> cal_recall) with
-   encode_bf16 and eval_bf16, weights from torch.Generator().manual_seed(0);
-   the launch counters show that both kernels ran.  The phases are then
-   timed one by one and must reproduce evaluate_split's ranks.  The witness:
-   the bf16 kernel grid must match the plain fp32 grid on the same embeddings
-   (max abs diff <= SLICE_MAX_DIFF) and rank like it (per-caption top-1
-   agreement >= 0.95);
-5. the training slice at full width: SCAN's published f30k t2i training
+   version's, its bound (bytes or operations at the H100's data-sheet
+   rates) and, for the GRU kernels, cuDNN's GRU (CUDA events, after
+   warm-up).  The GRU adjoint is held to autograd through the plain GRU
+   (all five gradients, both directions);
+4. the evaluation slices at full width on an f30k-1K-shaped synthetic split
+   (1000 images x 36 x 2048 regions, 5000 captions) through get_model ->
+   evaluate_split (encode_data -> cal_sims -> cal_recall) with encode_bf16
+   and eval_bf16, weights from torch.Generator().manual_seed(0): SCAN t2i
+   LSE (bench.py's) and SCAN's published i-t AVG (bi_gru, Mean,
+   lambda_softmax 4).  The launch counters show which kernels ran.  The
+   phases are then timed one by one and must reproduce evaluate_split's
+   ranks.  The witness: the bf16 kernel grid must match the plain fp32 grid
+   on the same embeddings (max abs diff <= SLICE_MAX_DIFF) and rank like it
+   (per-caption top-1 agreement >= 0.95);
+5. the ensemble: a t2i LSE and an i-t AVG checkpoint with random weights
+   through evalrank_ensemble, whose ranks must be cal_recall of the two
+   averaged grids; then fold5 on a coco-testall-shaped split (5000 images,
+   25000 captions) through evalrank_ensemble(..., fold5=True): each fold's
+   recall must be that of its own averaged grid, Mean_metrics the mean of
+   the five parts;
+6. the training slice at full width: SCAN's published f30k t2i training
    configuration (bi_gru, max_violation, batch 128, embed 1024, 36 x 2048
    regions, Adam 2e-4, clip 2.0, fp32) for one epoch of a synthetic split
    (50 steps) through itrx_torch.train.loop.fit, with one validation and
@@ -50,20 +59,23 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
-from itrx.configs import parse_cli
-from itrx.data.precomp import get_loaders, get_test_loader
-from itrx.data.synthetic import generate
+from itrx_torch.configs import parse_cli
+from itrx_torch.data.precomp import get_loaders, get_test_loader
+from itrx_torch.data.synthetic import generate
 from itrx_torch.eval import engine, metrics
 from itrx_torch.models import get_model
 from itrx_torch.ops import kernels
 from itrx_torch.ops.kernels import gru as kgru
 from itrx_torch.ops.kernels.gru import gru_bwd_fused, gru_scan_fused
-from itrx_torch.ops.kernels.xattn import xattn_t2i_fused, xattn_t2i_plain
+from itrx_torch.ops.kernels.xattn import (xattn_i2t_fused, xattn_i2t_plain,
+                                          xattn_t2i_fused, xattn_t2i_plain)
 from itrx_torch.ops.rnn import gru_bwd_plain, gru_fwd_plain, gru_scan
 from itrx_torch.train.loop import fit, make_train_step, prefetch
-from itrx_torch.utils.checkpoint import load_checkpoint
+from itrx_torch.train.state import create_train_state
+from itrx_torch.utils.checkpoint import load_checkpoint, load_state_list, save_checkpoint
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEV = torch.device("cuda", 0)
@@ -96,9 +108,23 @@ REPLACES = {
     "gru": "itrx/ops/pallas/gru.py:37 (_fwd_kernel)",
     "gru_bwd": "itrx/ops/pallas/gru.py:68 (_bwd_kernel)",
     "xattn": "itrx/ops/pallas/xattn.py:43 (_kernel)",
+    "xattn_i2t": "itrx/ops/pallas/xattn.py:228 (_kernel_i2t)",
 }
-SOURCES = {"gru": "gru.cu", "gru_bwd": "gru_bwd.cu", "xattn": "xattn.cu"}
-COUNTERS = {"gru": gru_scan_fused, "gru_bwd": gru_bwd_fused, "xattn": xattn_t2i_fused}
+SOURCES = {"gru": "gru.cu", "gru_bwd": "gru_bwd.cu", "xattn": "xattn.cu",
+           "xattn_i2t": "xattn_i2t.cu"}
+COUNTERS = {"gru": gru_scan_fused, "gru_bwd": gru_bwd_fused, "xattn": xattn_t2i_fused,
+            "xattn_i2t": xattn_i2t_fused}
+# SCAN's published i-t settings (kuanghuei/SCAN README): i-t AVG (the eval
+# slice) is agg_func=Mean lambda_softmax=4; i-t LSE adds lambda_lse=5
+I2T_SOFTMAX = 4.0
+I2T_LSE = 5.0
+# bounds: the least time an H100 SXM could take (NVIDIA's data sheet, dense,
+# at the 700 W limit): bytes over the HBM rate, operations over the peak of
+# their type; the larger of the two
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
+# fold5: coco testall, 5 folds of 1000 images x 5000 captions
+FOLD5_MEAN_ATOL = 1e-9  # the mean of the parts, summed in another order
 
 
 def log(*a):
@@ -131,6 +157,35 @@ def check(name: str, got, want, atol: float) -> float:
     if not err <= atol:
         raise AssertionError(f"{name}: max_abs_err {err} > atol {atol}")
     return err
+
+
+def bound(n_bytes: float, ops: dict) -> dict:
+    """{"bound_ms", "bound_by"}: bytes moved once over the HBM rate against
+    operations over the peak rate of their type (ops: {type: count}; units of
+    different types may run at once, so the slowest type bounds)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max(n / PEAK_OPS_PER_S[k] for k, n in ops.items())
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def cudnn_gru(w_ih, w_hh, b_ih, b_hh, dtype):
+    """torch.nn.GRU (cuDNN) holding the same weights, in `dtype`: the
+    library yardstick of the GRU kernels (timed here, used nowhere in the
+    port)."""
+    h3, d = w_ih.shape
+    m = torch.nn.GRU(d, h3 // 3, batch_first=True).to(DEV)
+    with torch.no_grad():
+        for name, w in (("weight_ih_l0", w_ih), ("weight_hh_l0", w_hh),
+                        ("bias_ih_l0", b_ih), ("bias_hh_l0", b_hh)):
+            getattr(m, name).copy_(w)
+    m = m.to(dtype)
+    m.flatten_parameters()
+    return m
 
 
 def phase_device() -> str:
@@ -230,9 +285,35 @@ def phase_gru(g) -> dict:
                                                dot_dtype=torch.bfloat16))
     res["ms_fp32"] = cuda_ms(lambda: gru_scan_fused(x, mask, w_ih, w_hh, b_ih, b_hh))
     res["plain_ms_fp32"] = cuda_ms(lambda: gru_scan(x, mask, w_ih, w_hh, b_ih, b_hh))
+    # the library yardstick: cuDNN's GRU on the same padded batch (it runs
+    # every step of every row; the masked kernel freezes the carry past each
+    # length), input projection included as in the kernel's call
+    with torch.no_grad():
+        lib16 = cudnn_gru(w_ih, w_hh, b_ih, b_hh, torch.bfloat16)
+        lib32 = cudnn_gru(w_ih, w_hh, b_ih, b_hh, torch.float32)
+        res["library_ms"] = cuda_ms(lambda: lib16(xb))
+        res["library_ms_fp32"] = cuda_ms(lambda: lib32(x))
+    res["library_call"] = "torch.nn.GRU (cuDNN) forward, same padded batch and dtype"
+    b, l, d = x.shape
+    h = w_hh.shape[1]
+    n_valid = float(mask.sum())
+    # inputs and weights read once, outputs and final state written once (in
+    # x's dtype), over the valid steps only: the input projection and the
+    # recurrent product (2 n_valid (D + H) 3H).  In bf16 mode both products
+    # take bf16 operands (the kernel rounds the carry to bf16), so both count
+    # at the bf16 tensor-core peak; in fp32 mode at the fp32 peak.
+    ops = 2 * n_valid * (d + h) * 3 * h
+    res.update(bound(nbytes(xb, mask, wib, whb, bib, bhb) + 2 * (b * l * h + b * h),
+                     {"bf16": ops}))
+    b32 = bound(nbytes(x, mask, w_ih, w_hh, b_ih, b_hh) + 4 * (b * l * h + b * h),
+                {"fp32": ops})
+    res["bound_ms_fp32"], res["bound_by_fp32"] = b32["bound_ms"], b32["bound_by"]
     log(f"  time bf16 (B=128, L=24, H=1024, one direction): kernel {res['ms']:.3f} ms, "
-        f"plain {res['plain_ms']:.3f} ms; fp32: kernel {res['ms_fp32']:.3f} ms, "
-        f"plain {res['plain_ms_fp32']:.3f} ms")
+        f"plain {res['plain_ms']:.3f} ms, cuDNN {res['library_ms']:.3f} ms, bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']}); fp32: kernel "
+        f"{res['ms_fp32']:.3f} ms, plain {res['plain_ms_fp32']:.3f} ms, cuDNN (TF32 off) "
+        f"{res['library_ms_fp32']:.3f} ms, bound {res['bound_ms_fp32']:.4f} ms "
+        f"({res['bound_by_fp32']})")
     return res
 
 
@@ -304,12 +385,35 @@ def phase_gru_bwd(g, b=128, l=48, d=300, h=1024) -> dict:
     res["fwd_plain_ms"] = cuda_ms(lambda: gru_fwd_plain(gates_x, mask, w_hh, b_hh))
     res["fwd_bwd_ms"] = cuda_ms(lambda: grads(gru_scan_fused, False, g_out), reps=10)
     res["fwd_bwd_plain_ms"] = cuda_ms(lambda: grads(gru_scan, False, g_out), reps=10)
+    # the library yardstick: cuDNN's GRU forward + backward under autograd on
+    # the same padded batch (fp32, TF32 off); no single call computes the
+    # adjoint alone, so it stands beside the kernels' forward + backward
+    lib = cudnn_gru(w_ih, w_hh, b_ih, b_hh, torch.float32)
+    xg = x.detach().clone().requires_grad_()
+
+    def lib_fwd_bwd():
+        o, fin = lib(xg)
+        return torch.autograd.grad((o * g_out).sum() + (fin[0] * g_fin).sum(),
+                                   [xg, *lib.parameters()])
+
+    res["library_ms"] = cuda_ms(lib_fwd_bwd, reps=10)
+    res["library_call"] = ("torch.nn.GRU (cuDNN) forward + backward under autograd, "
+                           "beside the kernels' forward + backward (fwd_bwd_ms)")
+    n_valid = float(mask.sum())
+    # the adjoint alone: gates_x, mask, the residuals, both cotangents and W_hh
+    # read once, the gate gradients and the initial state's written once;
+    # (B, 3H) x (3H, H) by fp32 FMAs per valid step
+    res.update(bound(
+        nbytes(gates_x, mask, hall, ghall, g_out, g_fin, w_hh) + 4 * (
+            gates_x.numel() + hall.numel() + b * h),
+        {"fp32": 2 * n_valid * 3 * h * h}))
     log(f"  time (one direction, B={b}, L={l}, H={h}, fp32): adjoint kernel "
         f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms; forward kernel with "
         f"residuals {res['fwd_residuals_ms']:.3f} ms, without {res['fwd_ms']:.3f} ms, "
         f"plain {res['fwd_plain_ms']:.3f} ms; forward+backward through autograd "
         f"(input projection included): kernels {res['fwd_bwd_ms']:.3f} ms, plain "
-        f"{res['fwd_bwd_plain_ms']:.3f} ms")
+        f"{res['fwd_bwd_plain_ms']:.3f} ms, cuDNN {res['library_ms']:.3f} ms; adjoint "
+        f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
     return res
 
 
@@ -322,6 +426,26 @@ def _xattn_inputs(g, ni, nc, l, d=1024, single_word=True):
     mask = (torch.arange(l)[None] < lengths[:, None]).float()
     cap = torch.tanh(torch.randn(nc, l, d, generator=g) * 0.5) * mask[..., None]
     return img.to(DEV), cap.to(DEV), mask.to(DEV)
+
+
+def xattn_bound(img, cap, mask, direction: str) -> dict:
+    """The bound of one score grid: images, captions and mask read once, the
+    fp32 grid written once; the A product over the valid words (bf16 tensor
+    cores for bf16 inputs) and the chain after it by fp32 FMAs (t2i: the
+    36 x 36 region Gram per word; i2t: the L x L word Gram per region, plus
+    some ten operations per (region, word) either way)."""
+    ni, r, d = img.shape
+    lengths = mask.sum(dim=1).double()
+    a_ops = 2.0 * ni * r * d * float(lengths.sum())
+    if direction == "t2i":
+        chain = ni * float(lengths.sum()) * (2 * r * r + 10 * r)
+    else:
+        chain = ni * r * float((2 * lengths ** 2 + 10 * lengths).sum())
+    if img.dtype == torch.bfloat16:
+        ops = {"bf16": a_ops, "fp32": chain}
+    else:
+        ops = {"fp32": a_ops + chain}
+    return bound(nbytes(img, cap, mask) + 4 * ni * cap.shape[0], ops)
 
 
 def phase_xattn(g) -> dict:
@@ -345,15 +469,64 @@ def phase_xattn(g) -> dict:
     res["plain_ms"] = cuda_ms(lambda: xattn_t2i_plain(img16, cap16, mask))
     res["ms_fp32"] = cuda_ms(lambda: xattn_t2i_fused(img, cap, mask))
     res["plain_ms_fp32"] = cuda_ms(lambda: xattn_t2i_plain(img, cap, mask))
+    res.update(xattn_bound(img16, cap16, mask, "t2i"))
+    # no single PyTorch call computes the stacked cross-attention score grid
+    res["library_ms"] = None
     log(f"  time 64x320x36x24x1024 LSE bf16: kernel {res['ms']:.3f} ms, plain "
-        f"{res['plain_ms']:.3f} ms; fp32: kernel {res['ms_fp32']:.3f} ms, plain "
-        f"{res['plain_ms_fp32']:.3f} ms")
+        f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
+        f"fp32: kernel {res['ms_fp32']:.3f} ms, plain {res['plain_ms_fp32']:.3f} ms")
+    return res
+
+
+def phase_xattn_i2t(g) -> dict:
+    log(f"xattn i2t kernel vs plain (clipped_l2norm; R=36, D=1024, lambda_softmax "
+        f"{I2T_SOFTMAX:g}, LogSumExp at lambda_lse {I2T_LSE:g})")
+    res = {}
+    kw = {"LogSumExp": dict(agg_func="LogSumExp", lambda_lse=I2T_LSE,
+                            lambda_softmax=I2T_SOFTMAX),
+          "Mean": dict(agg_func="Mean", lambda_softmax=I2T_SOFTMAX)}
+    for ni, nc, l in ((64, 320, 24), (37, 211, 24)):
+        img, cap, mask = _xattn_inputs(g, ni, nc, l)
+        img16, cap16 = img.to(torch.bfloat16), cap.to(torch.bfloat16)
+        for agg, k in kw.items():
+            got = xattn_i2t_fused(img16, cap16, mask, **k)
+            want = xattn_i2t_plain(img16.float(), cap16.float(), mask, **k)
+            e16 = check(f"xattn_i2t {ni}x{nc}x36x{l} {agg} bf16", got, want, XATTN_BF16_ATOL)
+            got = xattn_i2t_fused(img, cap, mask, **k)
+            want = xattn_i2t_plain(img, cap, mask, **k)
+            check(f"xattn_i2t {ni}x{nc}x36x{l} {agg} fp32", got, want, XATTN_FP32_ATOL)
+            if (ni, agg) == (64, "Mean"):
+                res["max_abs_err"] = e16
+    # a caption as long as the kernel takes (one caption per block, its
+    # 64 KB Gram in shared memory)
+    img, cap, mask = _xattn_inputs(g, 5, 7, 128)
+    check("xattn_i2t 5x7x36x128 Mean bf16", xattn_i2t_fused(
+        img.to(torch.bfloat16), cap.to(torch.bfloat16), mask, **kw["Mean"]),
+        xattn_i2t_plain(img.to(torch.bfloat16).float(), cap.to(torch.bfloat16).float(),
+                        mask, **kw["Mean"]), XATTN_BF16_ATOL)
+    # the main path's mode: i-t AVG, bf16
+    img, cap, mask = _xattn_inputs(g, 64, 320, 24)
+    img16, cap16 = img.to(torch.bfloat16), cap.to(torch.bfloat16)
+    res["ms"] = cuda_ms(lambda: xattn_i2t_fused(img16, cap16, mask, **kw["Mean"]))
+    res["plain_ms"] = cuda_ms(lambda: xattn_i2t_plain(img16, cap16, mask, **kw["Mean"]))
+    res["ms_fp32"] = cuda_ms(lambda: xattn_i2t_fused(img, cap, mask, **kw["Mean"]))
+    res["plain_ms_fp32"] = cuda_ms(lambda: xattn_i2t_plain(img, cap, mask, **kw["Mean"]))
+    res["ms_t2i_same_inputs"] = cuda_ms(lambda: xattn_t2i_fused(img16, cap16, mask))
+    res.update(xattn_bound(img16, cap16, mask, "i2t"))
+    # no single PyTorch call computes the stacked cross-attention score grid
+    res["library_ms"] = None
+    log(f"  time 64x320x36x24x1024 Mean bf16: kernel {res['ms']:.3f} ms (the t2i kernel "
+        f"on the same inputs {res['ms_t2i_same_inputs']:.3f} ms), plain "
+        f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
+        f"fp32: kernel {res['ms_fp32']:.3f} ms, plain {res['plain_ms_fp32']:.3f} ms")
     return res
 
 
 def plain_grid(imgs, caps, cap_mask, cfg) -> torch.Tensor:
-    """The (Ni, Nc) grid through the plain version alone, in cal_sims' length
-    buckets, tiled over captions so the attention tensor stays in budget."""
+    """The (Ni, Nc) grid through the plain version alone (t2i or i2t, as
+    the config says), in cal_sims' length buckets, tiled over captions so
+    the attention tensor stays in budget."""
+    plain = xattn_t2i_plain if cfg["cross_attn"] == "t2i" else xattn_i2t_plain
     ni, r = imgs.shape[:2]
     sims = torch.empty(ni, caps.shape[0], dtype=torch.float32, device=imgs.device)
     for in_bucket, b in engine.length_buckets(cap_mask, caps.shape[1]):
@@ -361,30 +534,61 @@ def plain_grid(imgs, caps, cap_mask, cfg) -> torch.Tensor:
         tile = max(engine.PLAIN_ATTN_BYTES // (ni * r * b * 4), 1)
         for j0 in range(0, len(idx), tile):
             t = idx[j0:j0 + tile]
-            sims[:, t] = xattn_t2i_plain(
+            sims[:, t] = plain(
                 imgs, caps[t, :b], cap_mask[t, :b], agg_func=cfg["agg_func"],
                 lambda_lse=cfg["lambda_lse"], lambda_softmax=cfg["lambda_softmax"],
             )
     return sims
 
 
-def phase_slice(data_root: str, card: str) -> dict:
-    log("slice: f30k-1K-shaped SCAN t2i evaluation")
-    t0 = time.perf_counter()
-    # bench.py's split: 4000 // 4 = 1000 test images x 36 x 2048, 5000 captions
-    generate(os.path.join(data_root, "f30k_precomp"), n_images=4000, img_dim=2048,
-             splits=("test",), seed=0, n_concepts_range=(2, 10))
-    cfg = parse_cli(
-        ["with", "SCAN", "data_name=f30k_precomp", f"data_path={data_root}",
+def eval_config(data_root: str, data_name: str, *overrides: str) -> dict:
+    """A SCAN evaluation config (encode_bf16 + eval_bf16, batch 128, seed 0)
+    over a synthetic split under `data_root`, with the repo's vocabularies."""
+    return parse_cli(
+        ["with", "SCAN", f"data_name={data_name}", f"data_path={data_root}",
          f"vocab_path={os.path.join(REPO, 'itrx', 'vocab')}", "vocab_type=json",
-         "batch_size=128", "eval_bf16=True", "encode_bf16=True", "seed=0"],
+         "batch_size=128", "eval_bf16=True", "encode_bf16=True", "seed=0", *overrides],
         make_dirs=False,
     )
+
+
+def seeded_model(cfg: dict, seed: int):
+    return get_model(cfg, device=DEV, generator=torch.Generator().manual_seed(seed))
+
+
+def grid_of(model, enc: dict, im_div: int, sl: slice = slice(None)) -> torch.Tensor:
+    """cal_sims on encoded bf16 embeddings, as evaluate_split forms it."""
+    return engine.cal_sims(model, enc["img"][sl][::im_div], enc["cap"][sl],
+                           enc["cap_mask"][sl], compute_dtype=torch.bfloat16, verbose=False)
+
+
+def encode(model, dataset, cfg: dict) -> dict:
+    return engine.encode_data(model, dataset, cfg["batch_size"], device=DEV,
+                              compute_dtype=torch.bfloat16, encode_dtype=torch.bfloat16)
+
+
+# the eval slices: (name, kernel of the grid, config overrides)
+SLICES = {
+    # bench.py's SCAN t2i LSE: unidirectional GRU, the SCAN() overlay defaults
+    "t2i": ("xattn", ()),
+    # SCAN's published i-t AVG (kuanghuei/SCAN README)
+    "i2t": ("xattn_i2t", ("cross_attn=i2t", "agg_func=Mean",
+                          f"lambda_softmax={I2T_SOFTMAX}", "bi_gru=True")),
+}
+
+
+def phase_slice(data_root: str, card: str, direction: str) -> dict:
+    kernel, overrides = SLICES[direction]
+    other = {"xattn": "xattn_i2t", "xattn_i2t": "xattn"}[kernel]
+    log(f"slice: f30k-1K-shaped SCAN {direction} evaluation ({' '.join(overrides)})")
+    t0 = time.perf_counter()
+    cfg = eval_config(data_root, "f30k_precomp", *overrides)
     dataset, vocab_size = get_test_loader("test", cfg)
     cfg["vocab_size"] = vocab_size
-    model = get_model(cfg, device=DEV, generator=torch.Generator().manual_seed(cfg["seed"]))
+    model = seeded_model(cfg, cfg["seed"])
     log(f"  data + model set-up: {time.perf_counter() - t0:.1f} s "
-        f"({len(dataset)} captions, vocab {vocab_size}, bi_gru={cfg['bi_gru']})")
+        f"({len(dataset)} captions, vocab {vocab_size}, bi_gru={cfg['bi_gru']}, "
+        f"{cfg['cross_attn']} {cfg['agg_func']} lambda_softmax {cfg['lambda_softmax']})")
 
     # the main path, counted: the entry point a user calls, which maps
     # encode_bf16 / eval_bf16 to dtypes and runs encode -> sims -> recall
@@ -396,29 +600,21 @@ def phase_slice(data_root: str, card: str) -> dict:
     ev_first = time.perf_counter() - t0
     launches = read_counters()
     log(f"  main path (evaluate_split) launches: {launches}")
-    if launches["gru_bwd"]:
-        raise AssertionError("evaluation launched the GRU adjoint kernel")
-    for k in ("gru", "xattn"):
-        n = launches[k]
-        if n <= 0:
+    if launches["gru_bwd"] or launches[other]:
+        raise AssertionError(f"{direction} evaluation launched the GRU adjoint or the "
+                             f"{other} kernel")
+    for k in ("gru", kernel):
+        if launches[k] <= 0:
             raise AssertionError(f"the main path never launched the {k} kernel")
 
     # the same path phase by phase, timed, with evaluate_split's dtypes
-    bf16 = torch.bfloat16
-
-    def encode():
-        return engine.encode_data(model, dataset, cfg["batch_size"], device=DEV,
-                                  compute_dtype=bf16, encode_dtype=bf16)
-
     def score(enc):
-        imgs = enc["img"][:: dataset.im_div]
-        sims = engine.cal_sims(model, imgs, enc["cap"], enc["cap_mask"],
-                               compute_dtype=bf16, verbose=False)
+        sims = grid_of(model, enc, dataset.im_div)
         return sims, metrics.cal_recall(sims, cap_ratio=dataset.im_div, verbose=False)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    enc = encode()
+    enc = encode(model, dataset, cfg)
     torch.cuda.synchronize()
     enc_warm = time.perf_counter() - t0
     sims, res = score(enc)
@@ -444,6 +640,9 @@ def phase_slice(data_root: str, card: str) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     eval_s = min(times)
+    # where the time goes: device time by kernel over one warm run of each
+    prof_eval = _profile_steps(lambda _: score(enc), [None])
+    prof_encode = _profile_steps(lambda _: encode(model, dataset, cfg), [None])
 
     # witness: the plain fp32 path on the same (bf16-valued) embeddings
     t0 = time.perf_counter()
@@ -457,6 +656,7 @@ def phase_slice(data_root: str, card: str) -> dict:
     res32 = metrics.cal_recall(sims32, cap_ratio=dataset.im_div, verbose=False)
     out = {
         "card": card,
+        "direction": direction,
         "shape [Ni, Nc, R, L, D]": shape,
         "evaluate_split_seconds_first": ev_first,
         "encode_seconds": enc_warm,
@@ -471,8 +671,10 @@ def phase_slice(data_root: str, card: str) -> dict:
         "distinct_top1_images": distinct,
         "mean_per_caption_std_over_images": float(sims.std(dim=0).mean()),
         "launches": launches,
+        "profile_eval": prof_eval,
+        "profile_encode": prof_encode,
     }
-    log("slice result: " + json.dumps(out))
+    log(f"{direction} slice result: " + json.dumps(out))
     if distinct < 2:
         raise AssertionError("every caption ranks the same image first: the witness "
                              "cannot tell a right grid from a degenerate one")
@@ -482,6 +684,127 @@ def phase_slice(data_root: str, card: str) -> dict:
     if not err <= SLICE_MAX_DIFF:
         raise AssertionError(f"bf16 kernel grid differs from the fp32 plain grid by "
                              f"{err} (> {SLICE_MAX_DIFF})")
+    return out
+
+
+def save_random_checkpoint(cfg: dict, seed: int, path: str) -> str:
+    """A `.pth.tar` of utils/checkpoint holding a model with random weights
+    from `seed` and its config."""
+    model = seeded_model(cfg, seed)
+    save_checkpoint(create_train_state(model, cfg, 1), cfg, 0, 0.0, 0.0, path)
+    return path
+
+
+def ensemble_checkpoints(data_root: str, data_name: str, ck_dir: str) -> tuple:
+    """(t2i checkpoint, i2t checkpoint): the two slices' models, each with its
+    own config, from seeds 0 and 1."""
+    paths = []
+    for seed, direction in enumerate(("t2i", "i2t")):
+        cfg = eval_config(data_root, data_name, *SLICES[direction][1])
+        cfg["vocab_size"] = get_test_loader(
+            "testall" if data_name == "coco_precomp" else "test", cfg)[1]
+        paths.append(save_random_checkpoint(
+            cfg, seed, os.path.join(ck_dir, f"{data_name}_{direction}.pth.tar")))
+    return tuple(paths)
+
+
+def models_of(paths) -> list:
+    """[(model, config)] of checkpoints, rebuilt as evalrank_ensemble
+    rebuilds them."""
+    out = []
+    for path in paths:
+        ck = load_checkpoint(path)
+        model = get_model(ck["_config"], device=DEV)
+        load_state_list(model, ck["model"])
+        out.append((model, ck["_config"]))
+    return out
+
+
+def same_ranks(a: dict, b: dict) -> bool:
+    return a["rsum"] == b["rsum"] and all(
+        np.array_equal(a[k], b[k]) for k in ("i2t_ranks", "t2i_ranks"))
+
+
+def phase_ensemble(data_root: str, ck_dir: str, card: str) -> dict:
+    """evalrank_ensemble of the t2i LSE and the i2t AVG models on the
+    f30k-1K-shaped split: its ranks must be cal_recall of the averaged grids."""
+    log("ensemble: t2i LSE + i2t AVG checkpoints through evalrank_ensemble")
+    ck_t2i, ck_i2t = ensemble_checkpoints(data_root, "f30k_precomp", ck_dir)
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.evalrank_ensemble(ck_t2i, ck_i2t, split="test", device=DEV)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counters()
+    log(f"  main path (evalrank_ensemble) launches: {launches}; {seconds:.2f} s")
+    for k in ("gru", "xattn", "xattn_i2t"):
+        if launches[k] <= 0:
+            raise AssertionError(f"the ensemble never launched the {k} kernel")
+
+    (m1, cfg1), (m2, cfg2) = models_of((ck_t2i, ck_i2t))
+    dataset, _ = get_test_loader("test", cfg1)
+    grids = [grid_of(m, encode(m, dataset, c), dataset.im_div) for m, c in
+             ((m1, cfg1), (m2, cfg2))]
+    want = metrics.cal_recall((grids[0] + grids[1]) / 2.0, cap_ratio=dataset.im_div,
+                              verbose=False)
+    singles = [metrics.cal_recall(gr, cap_ratio=dataset.im_div, verbose=False)["rsum"]
+               for gr in grids]
+    out = {"card": card, "evalrank_ensemble_seconds": seconds, "rsum": res["rsum"],
+           "rsum_t2i_alone": singles[0], "rsum_i2t_alone": singles[1],
+           "launches": launches}
+    log("ensemble result: " + json.dumps(out))
+    if not same_ranks(res, want):
+        raise AssertionError(f"evalrank_ensemble (rsum {res['rsum']}) is not the recall of "
+                             f"the averaged grids (rsum {want['rsum']})")
+    return out
+
+
+def phase_fold5(root: str, card: str) -> dict:
+    """coco-testall-shaped fold5 (5000 images x 36 x 2048, 25000 captions)
+    through evalrank_ensemble: each fold's recall must be that of its own
+    averaged grid, and Mean_metrics the mean of the five parts."""
+    log("fold5: coco-testall-shaped ensemble (5 folds of 1000 x 5000)")
+    t0 = time.perf_counter()
+    generate(os.path.join(root, "coco_precomp"), n_images=20000, img_dim=2048,
+             splits=("testall",), seed=2, n_concepts_range=(2, 10))
+    ck_t2i, ck_i2t = ensemble_checkpoints(root, "coco_precomp", root)
+    log(f"  data + checkpoints set-up: {time.perf_counter() - t0:.1f} s")
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.evalrank_ensemble(ck_t2i, ck_i2t, split="testall", fold5=True, device=DEV)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counters()
+    log(f"  main path (evalrank_ensemble, fold5) launches: {launches}; {seconds:.2f} s")
+    for k in ("gru", "xattn", "xattn_i2t"):
+        if launches[k] <= 0:
+            raise AssertionError(f"fold5 never launched the {k} kernel")
+    if res["data_name"] != "coco_precomp_5fold":
+        raise AssertionError(f"fold5 result named {res['data_name']}")
+
+    members = models_of((ck_t2i, ck_i2t))
+    dataset, _ = get_test_loader("testall", members[0][1])
+    if len(dataset) != 25000:
+        raise AssertionError(f"testall has {len(dataset)} captions, expected 25000")
+    encs = [encode(m, dataset, c) for m, c in members]
+    for i in range(5):
+        sl = slice(i * 5000, (i + 1) * 5000)
+        avg = (grid_of(members[0][0], encs[0], 5, sl) + grid_of(members[1][0], encs[1], 5, sl)) / 2.0
+        want = metrics.cal_recall(avg, verbose=False)
+        if tuple(avg.shape) != (1000, 5000) or not same_ranks(res[f"PART_{i + 1}"], want):
+            raise AssertionError(f"fold {i + 1}: rsum {res[f'PART_{i + 1}']['rsum']} is not the "
+                                 f"recall of its averaged grid ({want['rsum']})")
+    mean = res["Mean_metrics"]
+    for k, v in mean.items():
+        parts = [res[f"PART_{i + 1}"][k] for i in range(5)]
+        if abs(v - sum(parts) / 5) > FOLD5_MEAN_ATOL:
+            raise AssertionError(f"Mean_metrics[{k}] = {v} is not the mean of the parts {parts}")
+    out = {"card": card, "evalrank_ensemble_fold5_seconds": seconds,
+           "rsum_parts": [res[f"PART_{i + 1}"]["rsum"] for i in range(5)],
+           "mean_rsum": float(mean["rsum"]), "launches": launches}
+    log("fold5 result: " + json.dumps(out))
     return out
 
 
@@ -598,9 +921,11 @@ def phase_train(root: str, card: str) -> dict:
     fit_s = time.perf_counter() - t0
     launches = read_counters()
     log(f"  main path (fit, 1 epoch) launches: {launches}; {fit_s:.2f} s")
-    for k, n in launches.items():
-        if n <= 0:
+    for k in ("gru", "gru_bwd", "xattn"):
+        if launches[k] <= 0:
             raise AssertionError(f"the training path never launched the {k} kernel")
+    if launches["xattn_i2t"]:
+        raise AssertionError("t2i training launched the i2t kernel")
     if state.step != TRAIN_STEPS:
         raise AssertionError(f"fit ran {state.step} steps, expected {TRAIN_STEPS}")
 
@@ -659,11 +984,23 @@ def main():
     card = phase_device()
     phase_build()
     g = torch.Generator().manual_seed(0)
-    results = {"gru": phase_gru(g), "gru_bwd": phase_gru_bwd(g), "xattn": phase_xattn(g)}
+    results = {"gru": phase_gru(g), "gru_bwd": phase_gru_bwd(g), "xattn": phase_xattn(g),
+               "xattn_i2t": phase_xattn_i2t(g)}
     with tempfile.TemporaryDirectory(prefix="itrx_smoke_") as data_root:
-        phase_slice(data_root, card)
+        # bench.py's split: 4000 // 4 = 1000 test images x 36 x 2048, 5000 captions
+        generate(os.path.join(data_root, "f30k_precomp"), n_images=4000, img_dim=2048,
+                 splits=("test",), seed=0, n_concepts_range=(2, 10))
+        phase_slice(data_root, card, "t2i")
+        i2t = phase_slice(data_root, card, "i2t")
+        phase_ensemble(data_root, data_root, card)
+    with tempfile.TemporaryDirectory(prefix="itrx_smoke_fold5_") as root:
+        phase_fold5(root, card)
     with tempfile.TemporaryDirectory(prefix="itrx_smoke_train_") as root:
         tr = phase_train(root, card)
+    # launches: each kernel's count from the main path that runs it (the
+    # training path for the GRU kernels and t2i validation, the i2t slice's
+    # evaluate_split for xattn_i2t)
+    launches = dict(tr["launches"], xattn_i2t=i2t["launches"]["xattn_i2t"])
     log(f"card: {card}")
     print(json.dumps({"kernels": [
         {
@@ -671,10 +1008,14 @@ def main():
             "route": "cuda",
             "source": f"itrx_torch/csrc/{SOURCES[name]}",
             "replaces": REPLACES[name],
-            "launches": tr["launches"][name],
+            "launches": launches[name],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            **({"library_call": r["library_call"]} if "library_call" in r else {}),
         }
         for name, r in results.items()
     ]}))

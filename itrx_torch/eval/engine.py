@@ -1,17 +1,21 @@
 """Evaluation engine (counterpart of itrx/eval/engine.py: `encode_data`,
-`cal_sims`, `evaluate_split` and `evalrank_single`, without fold5).
+`cal_sims`, `evaluate_split` with fold5, `evalrank_single` and
+`evalrank_ensemble`).
 
-encode -> length-bucketed similarity grid -> Recall@K, all on `device`.
+encode -> length-bucketed similarity grid -> Recall@K, all on `device`
+(cuda:0 unless the caller passes another, e.g. `device="cpu"`).
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
+from ..utils.cli import default_device
 from . import metrics
 
 # budget of the plain path's (Ni, tile, R, L) fp32 attention tensor; the
@@ -27,17 +31,18 @@ def _to_device(v: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 @torch.no_grad()
-def encode_data(model, dataset, batch_size: int, device="cpu",
+def encode_data(model, dataset, batch_size: int, device=None,
                 compute_dtype: torch.dtype | None = None,
                 encode_dtype: torch.dtype | None = None) -> dict:
-    """Encode a split in order; returns the stacked embeddings (+ masks).
+    """Encode a split in order on `device` (cuda:0 when None); returns the
+    stacked embeddings (+ masks).
 
     `encode_dtype=torch.bfloat16` runs the embed forward in bf16: the
     parameters and the float batch fields are cast, the masks stay fp32.
     `compute_dtype` casts the stacked embeddings (not the masks) for the
     similarity grid.
     """
-    device = torch.device(device)
+    device = default_device(device, "encode_data")
     params = dict(model.named_parameters())
     if encode_dtype is not None:
         params = {k: p.to(encode_dtype) for k, p in params.items()}
@@ -128,32 +133,81 @@ def cal_sims(model, img_embs, cap_embs, cap_mask,
     return sims
 
 
-def evaluate_split(model, dataset, config: dict, device="cpu") -> dict:
-    """encode -> dedup images -> sims -> recalls (no fold5)."""
+def _eval_dtypes(config: dict):
+    """(encode dtype, grid dtype) of a config: a bf16 embed forward hands bf16
+    stacks to the grid either way."""
     edt = torch.bfloat16 if config.get("encode_bf16") else None
-    # a bf16 embed forward hands bf16 stacks to the grid either way
     cdt = torch.bfloat16 if (config.get("eval_bf16") or edt) else None
-    enc = encode_data(model, dataset, config["batch_size"], device=device,
-                      compute_dtype=cdt, encode_dtype=edt)
-    imgs = enc["img"][:: dataset.im_div]
-    sims = cal_sims(model, imgs, enc["cap"], enc["cap_mask"], compute_dtype=cdt)
+    return edt, cdt
+
+
+def _encode(model, dataset, config: dict, device) -> dict:
+    edt, cdt = _eval_dtypes(config)
+    return encode_data(model, dataset, config["batch_size"], device=device,
+                       compute_dtype=cdt, encode_dtype=edt)
+
+
+def _grid(model, enc: dict, config: dict, im_div: int, sl: slice = slice(None)):
+    """cal_sims of the encoded split (or of its caption slice `sl`): every
+    im_div-th image row against every caption."""
+    return cal_sims(model, enc["img"][sl][::im_div], enc["cap"][sl], enc["cap_mask"][sl],
+                    compute_dtype=_eval_dtypes(config)[1])
+
+
+def _fold5(grid_of) -> dict:
+    """5-fold cross-validation over coco testall (itrx/eval/engine.py:731-757,
+    ref evaluation.py:293-331): fold i is captions [5000 i, 5000 (i + 1)) and
+    every 5th image row of them; grid_of(slice) gives its (1000, 5000) grid."""
+    res = {"sum_result": []}
+    for i in range(5):
+        sims = grid_of(slice(i * 5000, (i + 1) * 5000))
+        print(f"--------------------- The {i + 1} part ---------------------")
+        r = metrics.cal_recall(sims)
+        res[f"PART_{i + 1}"] = r
+        res["sum_result"] += r["result"]
+    res["Mean_metrics"] = _fold5_mean_metrics(res["sum_result"])
+    return res
+
+
+def _fold5_mean_metrics(sum_result) -> dict:
+    """The per-direction mean block over the 5 folds.  Per-part rows are
+    list(r) + list(ri) + [ar, ari, rsum]: indices 10 = ar, 11 = ari,
+    12 = rsum (the reference's evaluation.py:310-314 misreads them; fixed
+    as in the JAX package)."""
+    mean_metrics = tuple(np.array(sum_result).mean(axis=0).flatten())
+    print("---------------------------------------------------------")
+    print("--------------------- Mean metrics: ---------------------")
+    print("rsum: %.1f" % mean_metrics[12])
+    print("Image to text: r1 %.1f; r5 %.1f; r10 %.1f; medr %.1f; meanr %.1f" % mean_metrics[:5])
+    print("Text to image: r1 %.1f; r5 %.1f; r10 %.1f; medr %.1f; meanr %.1f" % mean_metrics[5:10])
+    names = ("i2t_r1", "i2t_r5", "i2t_r10", "i2t_medr", "i2t_meanr",
+             "t2i_r1", "t2i_r5", "t2i_r10", "t2i_medr", "t2i_meanr",
+             "i2t_ave_r", "t2i_ave_r", "rsum")
+    return dict(zip(names, mean_metrics))
+
+
+def evaluate_split(model, dataset, config: dict, fold5: bool = False, device=None) -> dict:
+    """encode -> dedup images -> sims -> recalls on `device` (cuda:0 when
+    None).  With `fold5`, the five coco folds and their mean."""
+    device = default_device(device, "evaluate_split")
+    enc = _encode(model, dataset, config, device)
+    if fold5:
+        res = _fold5(lambda sl: _grid(model, enc, config, 5, sl))
+        res["data_name"] = config["data_name"] + "_5fold"
+        return res
+    sims = _grid(model, enc, config, dataset.im_div)
     res = metrics.cal_recall(sims, cap_ratio=dataset.im_div)
     res["data_name"] = config["data_name"]
     return res
 
 
-def evalrank_single(model_path: str, data_path: str | None = None, split: str = "dev",
-                    fold5: bool = False, device="cpu") -> dict:
-    """Offline evaluation of one checkpoint (a `.pth.tar` of
-    itrx_torch.utils.checkpoint): the model is rebuilt from the checkpoint's
-    `_config`, its weights loaded, and `split` evaluated on `device`."""
-    from itrx.data import precomp
-
+def _load_model_for_eval(model_path: str, data_path: str | None, device):
+    """(model on `device`, config) from a `.pth.tar` of
+    itrx_torch.utils.checkpoint: the model is rebuilt from the checkpoint's
+    `_config` and its weights loaded."""
     from ..models import get_model
     from ..utils.checkpoint import load_checkpoint, load_state_list
 
-    if fold5:
-        raise NotImplementedError("fold5 evaluation is not ported yet: ROADMAP queue 1 item 4")
     ckpt = load_checkpoint(model_path)
     config = dict(ckpt["_config"])
     print("Best model: Epoch = {}, Eiters = {}, Rsum = {:.2f}, R1 = {:.2f}".format(
@@ -162,7 +216,71 @@ def evalrank_single(model_path: str, data_path: str | None = None, split: str = 
         config["data_path"] = data_path
     model = get_model(config, device=device)
     load_state_list(model, ckpt["model"])
+    return model, config
+
+
+def _dump_result(res: dict, model_path: str, suffix: str) -> str:
+    """Write `{data_name}_{suffix}_result.yaml` beside the checkpoint when
+    yaml imports (arrays left out).  Returns the path."""
+    path = os.path.join(os.path.dirname(model_path),
+                        f"{res['data_name']}_{suffix}_result.yaml")
+    try:
+        import yaml
+    except ImportError:
+        return path
+
+    def clean(o):
+        if isinstance(o, dict):
+            return {k: clean(v) for k, v in o.items() if not isinstance(v, np.ndarray)}
+        if isinstance(o, (np.floating, np.integer)):
+            return float(o)
+        return o
+
+    with open(path, "w") as f:
+        yaml.dump(clean(res), f)
+    return path
+
+
+def evalrank_single(model_path: str, data_path: str | None = None, split: str = "dev",
+                    fold5: bool = False, device=None) -> dict:
+    """Offline evaluation of one checkpoint on `device` (cuda:0 when None)."""
+    from ..data import precomp
+
+    device = default_device(device, "evalrank_single")
+    model, config = _load_model_for_eval(model_path, data_path, device)
     print(f"Loading dataset : {config['data_name']} ......")
     dataset, _ = precomp.get_test_loader(split, config)
     print("Computing results...")
-    return evaluate_split(model, dataset, config, device=device)
+    res = evaluate_split(model, dataset, config, fold5=fold5, device=device)
+    _dump_result(res, model_path, "single")
+    return res
+
+
+def evalrank_ensemble(model_path: str, model_path2: str, data_path: str | None = None,
+                      split: str = "dev", fold5: bool = False, device=None) -> dict:
+    """Two-checkpoint ensemble on `device` (cuda:0 when None): each model is
+    rebuilt from its own config (so a t2i and an i2t SCAN can mix), the
+    split comes from the first, and the two grids are averaged before
+    ranking (itrx/eval/engine.py:851-915)."""
+    from ..data import precomp
+
+    device = default_device(device, "evalrank_ensemble")
+    members = [_load_model_for_eval(p, data_path, device) for p in (model_path, model_path2)]
+    config = members[0][1]
+    dataset, _ = precomp.get_test_loader(split, config)
+    encs = [_encode(m, dataset, cfg, device) for m, cfg in members]
+
+    def averaged(im_div, sl=slice(None)):
+        (m1, cfg1), (m2, cfg2) = members
+        return (_grid(m1, encs[0], cfg1, im_div, sl) + _grid(m2, encs[1], cfg2, im_div, sl)) / 2.0
+
+    if fold5:
+        res = _fold5(lambda sl: averaged(5, sl))
+        res["data_name"] = config["data_name"] + "_5fold"
+    else:
+        res = metrics.cal_recall(averaged(dataset.im_div), cap_ratio=dataset.im_div)
+        res["data_name"] = config["data_name"]
+    res["modal_path_1"] = model_path
+    res["modal_path_2"] = model_path2
+    _dump_result(res, model_path, "ensemble")
+    return res

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.cli import default_device
 from . import methods
 
 # methods not ported yet -> the ROADMAP item that ports each
@@ -17,11 +18,13 @@ _NOT_PORTED = {
 }
 
 
-def get_model(config: dict, device="cpu", generator: torch.Generator | None = None):
+def get_model(config: dict, device=None, generator: torch.Generator | None = None):
     """Build the method named by config['name'] from a flat config dict.
 
     Weights are drawn on the CPU from `generator` (so one seed gives the same
-    weights on every device) and then moved to `device`."""
+    weights on every device) and then moved to `device`: cuda:0 when None
+    (raising without a GPU), the CPU only when asked for."""
+    device = default_device(device, "get_model")
     name = config["name"]
     if name in _NOT_PORTED:
         raise NotImplementedError(f"{name} is not ported yet: {_NOT_PORTED[name]}")

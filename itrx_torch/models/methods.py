@@ -1,5 +1,5 @@
 """SCAN (counterpart of itrx/models/methods.py::SCAN: `embed`,
-`similarity` and `loss`)."""
+`similarity` and `loss`, t2i and i2t)."""
 
 from __future__ import annotations
 
@@ -7,7 +7,7 @@ import torch
 from torch import nn
 
 from ..ops import attention
-from ..ops.kernels.xattn import xattn_t2i_fused
+from ..ops.kernels.xattn import xattn_i2t_fused, xattn_t2i_fused
 from ..ops.losses import contrastive_hinge
 from .img_encoders import EncoderImagePrecomp
 from .txt_encoders import EncoderText
@@ -15,8 +15,8 @@ from .txt_encoders import EncoderText
 
 class SCAN(nn.Module):
     """Stacked cross-attention: region embeddings (B, 36, E), per-word
-    caption embeddings (B, L, E), a t2i score grid, and the hinge loss on
-    the in-batch grid."""
+    caption embeddings (B, L, E), a t2i or i2t score grid, and the hinge
+    loss on the in-batch grid."""
 
     def __init__(self, vocab_size: int, img_dim: int = 2048, embed_size: int = 1024,
                  word_dim: int = 300, bi_gru: bool = False, no_imgnorm: bool = False,
@@ -26,11 +26,9 @@ class SCAN(nn.Module):
                  margin: float = 0.2, max_violation: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if cross_attn != "t2i":
-            raise NotImplementedError(
-                f"SCAN cross_attn={cross_attn!r}: only t2i is ported; i2t is "
-                "ROADMAP queue 2 item 4 (xattn.py::_kernel_i2t)"
-            )
+        if cross_attn not in ("t2i", "i2t"):
+            raise ValueError(f"SCAN cross_attn must be 't2i' or 'i2t', got {cross_attn!r}")
+        self.cross_attn = cross_attn
         self.raw_feature_norm = raw_feature_norm
         self.agg_func = agg_func
         self.lambda_lse = lambda_lse
@@ -51,10 +49,10 @@ class SCAN(nn.Module):
         return self.embed(batch)
 
     def fused_eval_active(self, device: torch.device, train: bool = False) -> bool:
-        """True when `similarity` on tensors of `device` runs the CUDA kernel:
-        evaluation (`not train`; the kernel has no backward) of the
-        published t2i variants (clipped_l2norm with LogSumExp or Mean) on a
-        CUDA device.  Other variants, and training, take the plain path, as
+        """True when `similarity` on tensors of `device` runs a CUDA kernel:
+        evaluation (`not train`; the kernels have no backward) of the
+        published t2i and i2t variants (clipped_l2norm with LogSumExp or
+        Mean) on a CUDA device.  Other variants, and training, take the plain path, as
         the JAX package sends them to its XLA path."""
         return (
             not train
@@ -66,11 +64,12 @@ class SCAN(nn.Module):
     def similarity(self, img, cap, cap_mask, train: bool = False):
         kw = dict(agg_func=self.agg_func, lambda_lse=self.lambda_lse,
                   lambda_softmax=self.lambda_softmax)
+        t2i = self.cross_attn == "t2i"
         if self.fused_eval_active(img.device, train=train):
-            return xattn_t2i_fused(img, cap, cap_mask, **kw)
-        return attention.xattn_score_t2i(
-            img, cap, cap_mask, raw_feature_norm=self.raw_feature_norm, **kw
-        )
+            fused = xattn_t2i_fused if t2i else xattn_i2t_fused
+            return fused(img, cap, cap_mask, **kw)
+        plain = attention.xattn_score_t2i if t2i else attention.xattn_score_i2t
+        return plain(img, cap, cap_mask, raw_feature_norm=self.raw_feature_norm, **kw)
 
     def loss(self, batch: dict, train: bool = True):
         """The training objective: (hinge loss on the in-batch grid,

@@ -1,17 +1,20 @@
-"""SCAN t2i stacked cross-attention score grid (counterpart of the t2i path
-of itrx/ops/attention.py).
+"""SCAN stacked cross-attention score grids, t2i and i2t (counterpart of
+itrx/ops/attention.py).
 
-For the pair (image i, caption c) and word l,
+t2i: for the pair (image i, caption c) and word l,
 
     row_sim_l = cos(cap_cl, sum_r attn_lr * img_ir)
 
 and both the numerator sum_r attn_lr * (img_ir . cap_cl) and the context norm
 |sum_r attn_lr img_ir|^2 = attn^T G_i attn (G_i the R x R region Gram) are
 functions of the raw dot tensor A[i, c, r, l] and the tiny per-image Grams,
-so no per-pair context vector is ever materialized (the Gram trick).
+so no per-pair context vector is ever materialized (the Gram trick).  i2t is
+the same transposed: each region attends over the caption's words, and the
+context norm uses the per-caption (L, L) word Gram.
 
 This is the plain path: every `raw_feature_norm` and aggregation.  The
-CUDA kernel for the published SCAN variants is itrx_torch.ops.kernels.xattn.
+CUDA kernels for the published SCAN variants are in
+itrx_torch.ops.kernels.xattn.
 """
 
 from __future__ import annotations
@@ -115,3 +118,44 @@ def xattn_score_t2i(
     denom = torch.clamp(safe_sqrt(ctx_sq) * cap_norm[None], min=EPS)
     row_sim = num / denom
     return _aggregate(row_sim, agg_func, lambda_lse, qmask[None], dim=2)
+
+
+def xattn_score_i2t(
+    images,
+    captions,
+    cap_mask,
+    *,
+    raw_feature_norm: str = "clipped_l2norm",
+    agg_func: str = "LogSumExp",
+    lambda_lse: float = 6.0,
+    lambda_softmax: float = 9.0,
+):
+    """images (Ni, R, D); captions (Nc, L, D); cap_mask (Nc, L), 1 = valid.
+
+    Returns the (Ni, Nc) fp32 i2t score grid: query = image regions, context
+    = caption words.  The raw norm runs over the regions with no mask (pad
+    words give rows that the word softmax then masks out), the softmax over
+    the caption's valid words, and the aggregation over all R regions.
+    Products accumulate in fp32; the elementwise chain runs in the input
+    dtype, as in the JAX package.
+    """
+    wd = images.dtype
+    wmask = cap_mask.float()  # (Nc, L)
+    # raw dots A[i, c, l, r] = cap_cl . img_ir
+    a = torch.einsum("cld,ird->iclr", captions.float(), images.float())
+    work = a.to(wd)
+    attn = _normalize_raw_attn(work, raw_feature_norm, dim=3, mask=None)
+    # temperature softmax over the caption's valid words
+    logits = attn.transpose(2, 3) * lambda_softmax  # (Ni, Nc, R, L)
+    logits = logits.float().masked_fill(wmask[None, :, None, :] <= 0, NEG_INF)
+    attn_w = torch.softmax(logits, dim=3).to(wd)
+
+    num = torch.sum((attn_w * work.transpose(2, 3)).float(), dim=3)  # (Ni, Nc, R)
+    capz = captions * wmask[:, :, None].to(captions.dtype)
+    gram = torch.einsum("cld,cmd->clm", capz.float(), capz.float())  # (Nc, L, L) fp32
+    gattn = torch.einsum("clm,icrm->icrl", gram.to(wd).float(), attn_w.float())
+    ctx_sq = torch.sum(attn_w.float() * gattn, dim=3)  # (Ni, Nc, R)
+    im_norm = safe_sqrt(torch.sum((images * images).float(), dim=-1))  # (Ni, R)
+    denom = torch.clamp(safe_sqrt(ctx_sq) * im_norm[:, None, :], min=EPS)
+    row_sim = num / denom
+    return _aggregate(row_sim, agg_func, lambda_lse, torch.ones_like(row_sim), dim=2)

@@ -3,8 +3,9 @@ ctypes.
 
 Each `itrx_torch/csrc/<name>.cu` exposes a plain C interface.  `load(name)`
 compiles it with nvcc for `sm_90a` into
-`build/itrx_torch_kernels/<name>-<hash>.so` (the hash covers the source and
-the flags, so an edited source rebuilds), then loads it.  Nothing is built
+`build/itrx_torch_kernels/<name>-<hash>.so` (the hash covers the source, the
+shared headers `csrc/*.cuh` and the flags, so an edited source rebuilds),
+then loads it.  Nothing is built
 or loaded when this package is imported: the CPU tests import every module
 on a machine with no nvcc and no card.
 """
@@ -36,8 +37,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

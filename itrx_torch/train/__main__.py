@@ -12,8 +12,7 @@ from __future__ import annotations
 import logging
 import sys
 
-from itrx.configs import parse_cli
-
+from ..configs import parse_cli
 from ..utils.cli import require_cuda
 from .loop import fit
 

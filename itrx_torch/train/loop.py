@@ -17,11 +17,13 @@ from queue import Queue
 import numpy as np
 import torch
 
-from itrx.utils.logging import AverageMeter, LogCollector, MetricWriter, second2DHM
-
+from ..configs import load_hyperparams
+from ..data import precomp
 from ..eval import engine
 from ..utils.checkpoint import (load_checkpoint, load_state_list,
                                 save_train_checkpoint)
+from ..utils.cli import default_device
+from ..utils.logging import AverageMeter, LogCollector, MetricWriter, second2DHM
 from .state import TrainState, create_train_state
 
 logger = logging.getLogger("itrx")
@@ -167,20 +169,18 @@ def train_epoch(config: dict, state: TrainState, train_dataset, val_dataset,
     return best_rsum, best_r1
 
 
-def fit(config: dict, train_dataset=None, val_dataset=None, device="cpu"):
-    """Full training on `device`.  Returns (state, best_rsum).
+def fit(config: dict, train_dataset=None, val_dataset=None, device=None):
+    """Full training on `device` (cuda:0 when None; the CPU only when asked
+    for).  Returns (state, best_rsum).
 
     Weights are drawn from torch.Generator().manual_seed(config["seed"]);
     `resume` restores the model, the Adam state, Eiters, the epoch and the
     best scores, re-imposing the checkpoint's architecture hyperparameters
-    (itrx.configs.load_hyperparams)."""
-    from itrx.configs import load_hyperparams
-    from itrx.data import precomp
-
+    (configs.load_hyperparams)."""
     from ..models import get_model
 
     check_supported(config)
-    device = torch.device(device)
+    device = default_device(device, "fit")
     if train_dataset is None:
         train_dataset, val_dataset, vocab_size = precomp.get_loaders(config)
         config["vocab_size"] = vocab_size

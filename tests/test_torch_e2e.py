@@ -1,21 +1,30 @@
-"""The port's training slice end to end on the CPU, on a tiny synthetic
-split: fit raises recall, resume restores the run, prefetch relays producer
-errors, and a port checkpoint converts unchanged into the JAX package,
-whose evalrank_single then ranks exactly as the port's."""
+"""The port's training and offline-evaluation slices end to end on the CPU,
+on tiny synthetic splits: fit raises recall, resume restores the run,
+prefetch relays producer errors, and port checkpoints convert unchanged into
+the JAX package, whose evalrank_single and evalrank_ensemble (with and
+without fold5) then rank exactly as the port's."""
 
 import os
+from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from itrx.configs import parse_cli
 from itrx.data import synthetic
+from itrx.eval import engine as jengine
+from itrx.eval.engine import evalrank_ensemble as jevalrank_ensemble
 from itrx.eval.engine import evalrank_single as jevalrank_single
 from itrx.utils.ref_convert import convert_reference_checkpoint
-from itrx_torch.eval.engine import evalrank_single
+from itrx_torch.data import vocab as vocab_mod
+from itrx_torch.eval import engine
+from itrx_torch.eval.engine import evalrank_ensemble, evalrank_single
+from itrx_torch.models import get_model
 from itrx_torch.train.loop import fit, prefetch
-from itrx_torch.utils.checkpoint import load_checkpoint
+from itrx_torch.train.state import create_train_state
+from itrx_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 torch.set_num_threads(1)
 
@@ -65,7 +74,7 @@ def test_scan_fit_raises_recall_and_checkpoints(trained):
     ]
     for e in range(10):
         assert os.path.exists(os.path.join(cfg["save_dir"], f"epo{e}_checkpoint.pth.tar"))
-    res = evalrank_single(best, split="dev")
+    res = evalrank_single(best, split="dev", device="cpu")
     assert res["rsum"] == pytest.approx(ck["best_rsum"], abs=1e-9)
 
 
@@ -118,16 +127,124 @@ def test_port_checkpoint_converts_into_the_jax_package(trained, tmp_path):
     best = os.path.join(cfg["save_dir"], "model_best.pth.tar")
     out = convert_reference_checkpoint(best, out_path=str(tmp_path / "best.itrx"))
     want = jevalrank_single(out, split="dev")
-    got = evalrank_single(best, split="dev")
+    got = evalrank_single(best, split="dev", device="cpu")
     for k in ("i2t_ranks", "t2i_ranks"):
         np.testing.assert_array_equal(got[k], np.asarray(want[k]))
     assert got["rsum"] == pytest.approx(float(want["rsum"]), rel=1e-6)
 
 
-def test_evalrank_single_refuses_fold5(trained):
+STAT_KEYS = ("rsum", "i2t_ave_r", "i2t_r1", "i2t_r5", "i2t_r10", "i2t_medr",
+             "i2t_meanr", "t2i_ave_r", "t2i_r1", "t2i_r5", "t2i_r10",
+             "t2i_medr", "t2i_meanr")
+I2T_AVG = dict(cross_attn="i2t", agg_func="Mean", lambda_softmax=4.0)
+
+
+def _assert_same_recall(got, want):
+    """Identical ranks; stats equal up to the JAX package's fp32 rounding
+    (the port computes them in float64)."""
+    for k in ("i2t_ranks", "t2i_ranks"):
+        np.testing.assert_array_equal(got[k], np.asarray(want[k]))
+    for k in STAT_KEYS:
+        assert got[k] == pytest.approx(float(want[k]), rel=1e-6), k
+
+
+def _random_checkpoint(cfg, seed, path):
+    """A port `.pth.tar` with random weights from `seed`."""
+    model = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+    save_checkpoint(create_train_state(model, cfg, 1), cfg, 0, 0.0, 0.0, path)
+    return path
+
+
+def test_evalrank_ensemble_matches_jax(synth, trained, tmp_path):
+    """The trained t2i model with a random i-t AVG model: the port's
+    evalrank_ensemble and the JAX one on the converted checkpoints rank
+    identically, and the ensemble is neither member alone."""
     cfg, _, _ = trained
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        evalrank_single(os.path.join(cfg["save_dir"], "model_best.pth.tar"), fold5=True)
+    best = os.path.join(cfg["save_dir"], "model_best.pth.tar")
+    icfg = parse_cli(_args(synth, "i2t", **I2T_AVG), make_dirs=False)
+    icfg["vocab_size"] = cfg["vocab_size"]
+    ck2 = _random_checkpoint(icfg, 5, str(tmp_path / "i2t.pth.tar"))
+    j1 = convert_reference_checkpoint(best, out_path=str(tmp_path / "t2i.itrx"))
+    j2 = convert_reference_checkpoint(ck2, out_path=str(tmp_path / "i2t.itrx"))
+    want = jevalrank_ensemble(j1, j2, split="dev")
+    got = evalrank_ensemble(best, ck2, split="dev", device="cpu")
+    _assert_same_recall(got, want)
+    assert got["data_name"] == want["data_name"] == "synthetic"
+    assert (got["modal_path_1"], got["modal_path_2"]) == (best, ck2)
+    alone = [evalrank_single(p, split="dev", device="cpu")["t2i_ranks"] for p in (best, ck2)]
+    assert all(not np.array_equal(got["t2i_ranks"], r) for r in alone)
+
+
+def _cheap_grid(img, cap, mask):
+    """A stand-in for cal_sims in the fold5 tests (a real SCAN grid of 5000
+    captions per fold is too slow here): a function of integers only, each
+    image's and caption's strongest mean-pooled embedding coordinate and the
+    caption's length, so the two packages' embeddings (which differ by
+    ~1e-7) give bit-identical grids, with many exact ties."""
+    img, cap, mask = (np.asarray(a, np.float64) for a in (img, cap, mask))
+    ia = img.mean(axis=1).argmax(-1)
+    ca = (cap * mask[..., None]).sum(axis=1).argmax(-1)
+    length = mask.sum(axis=1)
+    return ((ia[:, None] == ca[None, :]) + 0.125 * (length[None, :] % 5)
+            + 2.0 ** -6 * ia[:, None]).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def testall(tmp_path_factory):
+    """A coco-testall-shaped split (5000 images, 25000 captions) at narrow
+    widths, and a t2i and an i-t AVG checkpoint for it, each as a port
+    `.pth.tar` and converted for the JAX package."""
+    root = tmp_path_factory.mktemp("torch_fold5")
+    synthetic.generate(str(root / "coco_precomp"), n_images=20000, img_dim=8,
+                       splits=("testall",), seed=4, n_concepts_range=(1, 10))
+    vocab_path = str(Path(__file__).resolve().parents[1] / "itrx" / "vocab")
+    n_vocab = len(vocab_mod.deserialize_vocab(f"{vocab_path}/coco_precomp_vocab.json"))
+    ckpts = {}
+    for seed, (name, kw) in enumerate((("t2i", {}), ("i2t", I2T_AVG))):
+        args = dict(data_path=str(root), data_name="coco_precomp", vocab_path=vocab_path,
+                    vocab_type="json", img_dim=8, embed_size=8, word_dim=8,
+                    batch_size=1000, seed=0, **kw)
+        cfg = parse_cli(["with", "SCAN"] + [f"{k}={v}" for k, v in args.items()],
+                        make_dirs=False)
+        cfg["vocab_size"] = n_vocab
+        port = _random_checkpoint(cfg, seed, str(root / f"{name}.pth.tar"))
+        ckpts[name] = (port, convert_reference_checkpoint(port, str(root / f"{name}.itrx")))
+    return ckpts
+
+
+@pytest.fixture
+def cheap_sims(monkeypatch):
+    monkeypatch.setattr(engine, "cal_sims", lambda model, img, cap, mask, **kw:
+                        torch.from_numpy(_cheap_grid(img, cap, mask)))
+    monkeypatch.setattr(jengine, "cal_sims", lambda model, variables, img, cap, mask, **kw:
+                        jnp.asarray(_cheap_grid(img, cap, mask)))
+
+
+def _assert_same_fold5(got, want):
+    assert got["data_name"] == want["data_name"] == "coco_precomp_5fold"
+    for i in range(1, 6):
+        _assert_same_recall(got[f"PART_{i}"], want[f"PART_{i}"])
+    assert np.array(got["sum_result"]) == pytest.approx(np.array(want["sum_result"]), rel=1e-6)
+    assert set(got["Mean_metrics"]) == set(want["Mean_metrics"])
+    for k, v in want["Mean_metrics"].items():
+        assert got["Mean_metrics"][k] == pytest.approx(float(v), rel=1e-6), k
+        parts = [got[f"PART_{i}"][k] for i in range(1, 6)]
+        assert got["Mean_metrics"][k] == pytest.approx(sum(parts) / 5, abs=1e-9), k
+
+
+def test_evalrank_single_fold5_matches_jax(testall, cheap_sims):
+    port, converted = testall["i2t"]
+    want = jevalrank_single(converted, split="testall", fold5=True)
+    got = evalrank_single(port, split="testall", fold5=True, device="cpu")
+    _assert_same_fold5(got, want)
+    assert len(got["PART_1"]["t2i_ranks"]) == 5000 and len(got["PART_1"]["i2t_ranks"]) == 1000
+
+
+def test_evalrank_ensemble_fold5_matches_jax(testall, cheap_sims):
+    (p1, j1), (p2, j2) = testall["t2i"], testall["i2t"]
+    want = jevalrank_ensemble(j1, j2, split="testall", fold5=True)
+    got = evalrank_ensemble(p1, p2, split="testall", fold5=True, device="cpu")
+    _assert_same_fold5(got, want)
 
 
 @pytest.mark.parametrize("override,item", [

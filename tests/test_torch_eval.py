@@ -1,5 +1,5 @@
-"""The port's ranking metrics and the whole SCAN t2i evaluation slice vs the
-JAX package, on the CPU."""
+"""The port's ranking metrics and the whole SCAN t2i and i2t evaluation
+slices vs the JAX package, on the CPU."""
 
 import os
 
@@ -71,7 +71,7 @@ def slice_setup(tmp_path_factory):
         {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
         {k: jnp.asarray(v) for k, v in batch.items()}, train=False,
     ))
-    model = get_model(cfg)
+    model = get_model(cfg, device="cpu")
     model.load_state_dict(
         {k: torch.from_numpy(v) for k, v in from_itrx_variables(variables).items()}
     )
@@ -120,3 +120,47 @@ def test_evaluate_split_bf16_close_to_jax(slice_setup):
     got = engine.evaluate_split(model, ds, bcfg, device="cpu")
     assert got["data_name"] == want["data_name"]
     assert abs(got["rsum"] - want["rsum"]) <= 30.0, (got["rsum"], want["rsum"])
+
+
+@pytest.fixture(scope="module")
+def i2t_setup(slice_setup):
+    """SCAN i-t AVG (cross_attn i2t, Mean, lambda_softmax 4) with the t2i
+    slice's weights: SCAN's parameters do not depend on the direction."""
+    cfg, ds, _, variables, t2i_model = slice_setup
+    icfg = dict(cfg, cross_attn="i2t", agg_func="Mean", lambda_softmax=4.0)
+    model = get_model(icfg, device="cpu")
+    model.load_state_dict(t2i_model.state_dict())
+    return icfg, ds, jget_model(icfg), variables, model
+
+
+def test_i2t_cal_sims_buckets_are_exact(i2t_setup):
+    """An i2t score does not depend on the caption's padded length (pads are
+    masked out of the word softmax and zeroed in the Gram), so the bucketed
+    grid equals one full-length bucket to fp32 rounding."""
+    cfg, ds, _, _, model = i2t_setup
+    enc = engine.encode_data(model, ds, cfg["batch_size"], device="cpu")
+    imgs = enc["img"][:: ds.im_div]
+    buckets = engine.length_buckets(enc["cap_mask"], enc["cap"].shape[1])
+    assert len(buckets) > 1 and min(b for _, b in buckets) < enc["cap"].shape[1]
+    bucketed = engine.cal_sims(model, imgs, enc["cap"], enc["cap_mask"], verbose=False)
+    with torch.no_grad():
+        whole = model.similarity(imgs, enc["cap"], enc["cap_mask"])
+    np.testing.assert_allclose(bucketed.numpy(), whole.numpy(), atol=1e-6)
+
+
+def test_i2t_slice_matches_jax(i2t_setup):
+    """evaluate_split with cross_attn i2t in both packages: grids at 1e-4
+    (the t2i slice's limit), identical ranks."""
+    cfg, ds, jmodel, variables, model = i2t_setup
+    want = jengine.evaluate_split(jmodel, variables, ds, cfg)
+    got = engine.evaluate_split(model, ds, cfg, device="cpu")
+    assert got["data_name"] == want["data_name"]
+    _assert_same_recall(got, want)
+
+    jenc = jengine.encode_data(jmodel, variables, ds, cfg["batch_size"])
+    jsims = jengine.cal_sims(jmodel, variables, jenc["img"][:: ds.im_div], jenc["cap"],
+                             jenc["cap_mask"], verbose=False)
+    enc = engine.encode_data(model, ds, cfg["batch_size"], device="cpu")
+    sims = engine.cal_sims(model, enc["img"][:: ds.im_div], enc["cap"], enc["cap_mask"],
+                           verbose=False)
+    np.testing.assert_allclose(sims.numpy(), np.asarray(jsims), atol=1e-4)

@@ -1,9 +1,11 @@
-"""Guards of the port: it never imports JAX, its kernel wrappers never fall
-back to plain code for a non-CPU tensor, the forward-only xattn kernel is
-kept out of training, gradients reach every trained parameter, and its
-kernel sources and build directory are where the wrappers and .gitignore
-say."""
+"""Guards of the port: it imports neither JAX nor the JAX package, its
+entry points run on the card unless asked for the CPU, its kernel wrappers
+never fall back to plain code for a non-CPU tensor, the forward-only xattn
+kernels are kept out of training, gradients reach every trained parameter,
+and its kernel sources and build directory are where the wrappers and
+.gitignore say."""
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -11,33 +13,56 @@ from pathlib import Path
 import pytest
 import torch
 
-from itrx_torch.models import get_model
+from itrx_torch.eval import engine
+from itrx_torch.models import get_model, methods
 from itrx_torch.ops import kernels
 from itrx_torch.ops.kernels import gru, xattn
+from itrx_torch.train import loop
 
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 
 
+FORBIDDEN = ("itrx", "jax", "jaxlib", "flax", "optax", "ml_dtypes")
+
+
 def test_port_never_imports_jax():
+    """Every module of the port (the `__main__` entry points included) and
+    chip_smoke, imported in a fresh interpreter, load no JAX module and no
+    module of the JAX package `itrx`."""
     code = (
-        "import sys\n"
-        "import itrx_torch, itrx_torch.eval.engine, itrx_torch.eval.metrics\n"
-        "import itrx_torch.models, itrx_torch.models.methods\n"
-        "import itrx_torch.ops.attention, itrx_torch.ops.rnn, itrx_torch.ops.norms\n"
-        "import itrx_torch.ops.kernels.gru, itrx_torch.ops.kernels.xattn\n"
-        "import itrx_torch.utils.convert, itrx_torch.utils.checkpoint, itrx_torch.utils.cli\n"
-        "import itrx_torch.ops.losses, itrx_torch.train, itrx_torch.train.state\n"
-        "import itrx_torch.train.loop, itrx_torch.train.__main__, itrx_torch.eval.__main__\n"
-        "import itrx.configs, itrx.data.precomp, itrx.data.synthetic\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes')]\n"
+        "import importlib, pkgutil, sys\n"
+        "import itrx_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(itrx_torch.__path__, 'itrx_torch.')]\n"
+        "assert len(names) > 30, names\n"
+        "for name in names + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_port_sources_import_nothing_of_itrx_or_jax():
+    """An AST scan of every port source and chip_smoke.py: no `import itrx`
+    / `from itrx` (itrx_torch aside) and no JAX import, at any depth."""
+    files = sorted((REPO / "itrx_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 30
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            bad += [f"{path.relative_to(REPO)}:{node.lineno} {n}" for n in names
+                    if n.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
 
 
 def _meta(*shape, dtype=torch.float32):
@@ -82,13 +107,39 @@ def test_xattn_refuses_to_build_a_graph(which):
         assert xattn.xattn_t2i_fused(t["images"], t["captions"], torch.ones(3, 5)).shape == (2, 3)
 
 
-def _scan(bi_gru=True):
+@pytest.mark.parametrize("agg", ["LogSumExp", "Mean"])
+def test_xattn_i2t_wrapper_raises_off_cpu(agg):
+    before = xattn.xattn_i2t_fused.launches
+    with pytest.raises(ValueError, match="no kernel"):
+        xattn.xattn_i2t_fused(_meta(2, 36, 8), _meta(3, 5, 8), _meta(3, 5), agg_func=agg)
+    assert xattn.xattn_i2t_fused.launches == before
+
+
+@pytest.mark.parametrize("which", ["images", "captions"])
+def test_xattn_i2t_refuses_to_build_a_graph(which):
+    g = torch.Generator().manual_seed(0)
+    t = {"images": torch.randn(2, 36, 8, generator=g),
+         "captions": torch.randn(3, 5, 8, generator=g)}
+    t[which].requires_grad_()
+    with pytest.raises(RuntimeError, match="forward-only.*plain path"):
+        xattn.xattn_i2t_fused(t["images"], t["captions"], torch.ones(3, 5))
+    with torch.no_grad():
+        assert xattn.xattn_i2t_fused(t["images"], t["captions"], torch.ones(3, 5)).shape == (2, 3)
+
+
+def _cfg(**kw):
     cfg = dict(name="SCAN", vocab_size=20, img_dim=12, embed_size=16, word_dim=8,
-               bi_gru=bi_gru, no_imgnorm=False, no_txtnorm=True,
+               bi_gru=True, no_imgnorm=False, no_txtnorm=True,
                precomp_enc_type="basic", margin=0.2, max_violation=True,
                cross_attn="t2i", raw_feature_norm="clipped_l2norm",
                agg_func="LogSumExp", lambda_lse=6.0, lambda_softmax=9.0)
-    return get_model(cfg, generator=torch.Generator().manual_seed(0))
+    cfg.update(kw)
+    return cfg
+
+
+def _scan(bi_gru=True, **kw):
+    return get_model(_cfg(bi_gru=bi_gru, **kw), device="cpu",
+                     generator=torch.Generator().manual_seed(0))
 
 
 def test_scan_sends_only_evaluation_to_the_kernel():
@@ -97,6 +148,57 @@ def test_scan_sends_only_evaluation_to_the_kernel():
     assert model.fused_eval_active("cuda", train=False)
     assert not model.fused_eval_active("cuda", train=True)
     assert not model.fused_eval_active("cpu")
+
+
+@pytest.mark.parametrize("direction", ["t2i", "i2t"])
+def test_scan_routes_evaluation_by_direction(direction, monkeypatch):
+    """With the kernel path active, evaluation goes to the direction's
+    kernel wrapper and training to the direction's plain grid."""
+    model = _scan(cross_attn=direction, agg_func="Mean")
+    calls = []
+    for name in ("xattn_t2i_fused", "xattn_i2t_fused"):
+        monkeypatch.setattr(methods, name, lambda *a, _n=name, **k: calls.append(_n))
+    for name in ("xattn_score_t2i", "xattn_score_i2t"):
+        monkeypatch.setattr(methods.attention, name,
+                            lambda *a, _n=name, **k: calls.append(_n))
+    monkeypatch.setattr(type(model), "fused_eval_active",
+                        lambda self, device, train=False: not train)
+    img, cap, mask = torch.zeros(2, 36, 16), torch.zeros(3, 4, 16), torch.ones(3, 4)
+    model.similarity(img, cap, mask, train=False)
+    model.similarity(img, cap, mask, train=True)
+    assert calls == [f"xattn_{direction}_fused", f"xattn_score_{direction}"]
+
+
+def test_scan_i2t_sends_only_evaluation_to_the_kernel():
+    model = _scan(cross_attn="i2t", agg_func="Mean", lambda_softmax=4.0)
+    assert model.fused_eval_active("cuda", train=False)
+    assert not model.fused_eval_active("cuda", train=True)
+    assert not model.fused_eval_active("cpu")
+    assert not _scan(cross_attn="i2t", agg_func="Max").fused_eval_active("cuda")
+
+
+def _no_gpu_calls():
+    model = _scan()
+    cfg = dict(_cfg(), batch_size=4)
+    return {
+        "get_model": lambda: get_model(cfg),
+        "encode_data": lambda: engine.encode_data(model, None, 4),
+        "evaluate_split": lambda: engine.evaluate_split(model, None, cfg),
+        "evalrank_single": lambda: engine.evalrank_single("missing.pth.tar"),
+        "evalrank_ensemble": lambda: engine.evalrank_ensemble("a.pth.tar", "b.pth.tar"),
+        "fit": lambda: loop.fit(dict(cfg, resume=None), train_dataset=[], val_dataset=[]),
+    }
+
+
+@pytest.mark.parametrize("entry", ["get_model", "encode_data", "evaluate_split",
+                                   "evalrank_single", "evalrank_ensemble", "fit"])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """Without a device argument the entry points run on cuda:0; with no GPU
+    they raise (no CPU fallback) before touching data or checkpoints."""
+    calls = _no_gpu_calls()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CPU fallback"):
+        calls[entry]()
 
 
 @pytest.mark.parametrize("bi_gru", [False, True])
@@ -138,3 +240,21 @@ def test_gru_bwd_source_exists():
     src = kernels.CSRC / gru.BWD_SOURCE
     assert src.exists(), src
     assert "extern \"C\"" in src.read_text()
+
+
+def test_xattn_i2t_source_exists():
+    src = kernels.CSRC / xattn.I2T_SOURCE
+    assert "int itrx_xattn_i2t(" in src.read_text()
+    assert '#include "xattn_product.cuh"' in src.read_text()
+
+
+def test_kernel_build_tracks_the_shared_header(tmp_path, monkeypatch):
+    """The library name hashes the shared headers too, so an edited header
+    rebuilds both xattn kernels."""
+    for name in ("xattn.cu", "xattn_i2t.cu", "xattn_product.cuh"):
+        (tmp_path / name).write_text((kernels.CSRC / name).read_text())
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    before = [kernels.library_path(n) for n in ("xattn", "xattn_i2t")]
+    (tmp_path / "xattn_product.cuh").write_text("// edited\n")
+    after = [kernels.library_path(n) for n in ("xattn", "xattn_i2t")]
+    assert all(a != b for a, b in zip(before, after))

@@ -52,7 +52,7 @@ def _pair(rng, bi_gru, **kw):
         jmodel.init({"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
                     jb, train=False)
     )
-    model = get_model(cfg, generator=torch.Generator().manual_seed(1))
+    model = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
     sd = {k: torch.from_numpy(v) for k, v in from_itrx_variables(variables).items()}
     model.load_state_dict(sd, strict=True)
     return cfg, jmodel, variables, model
@@ -126,9 +126,30 @@ def test_sentence_level_text_encoder_matches_jax(rng):
 @pytest.mark.parametrize("name", ["VSE_PP", "VSRN", "SAEM", "SGRAF", "CAMERA"])
 def test_unported_methods_name_their_roadmap_item(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(_cfg(False, name=name))
+        get_model(_cfg(False, name=name), device="cpu")
 
 
-def test_i2t_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 4"):
-        get_model(_cfg(False, cross_attn="i2t"))
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("agg,lambda_lse", [("Mean", 6.0), ("LogSumExp", 5.0)])
+def test_scan_i2t_embed_and_similarity_match_jax(rng, agg, lambda_lse, train):
+    """SCAN's published i-t variants (lambda_softmax 4): embed and the
+    similarity grid, in training and in evaluation (both the plain path on
+    the CPU), from converted JAX weights at 1e-5."""
+    cfg, jmodel, variables, model = _pair(rng, True, cross_attn="i2t", agg_func=agg,
+                                          lambda_softmax=4.0, lambda_lse=lambda_lse)
+    assert model.cross_attn == "i2t"
+    batch = _batch(rng)
+    jout = jmodel.apply(variables, {k: jnp.asarray(v) for k, v in batch.items()},
+                        method="embed")
+    with torch.no_grad():
+        out = model.embed({k: torch.from_numpy(v) for k, v in batch.items()})
+        s = model.similarity(out["img"], out["cap"], out["cap_mask"], train=train).numpy()
+    for k in ("img", "cap"):
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(jout[k]), atol=1e-5)
+    js = jmodel.apply(variables, jout["img"], jout["cap"], jout["cap_mask"], train=train,
+                      method="similarity")
+    np.testing.assert_allclose(s, np.asarray(js), atol=1e-5)
+    # and it is not the t2i grid of the same embeddings
+    t2i = jmodel.clone(cross_attn="t2i").apply(
+        variables, jout["img"], jout["cap"], jout["cap_mask"], method="similarity")
+    assert np.abs(np.asarray(t2i) - s).max() > 1e-3

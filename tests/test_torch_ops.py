@@ -1,5 +1,5 @@
 """Port ops vs the JAX package on the CPU: the masked GRU and the SCAN t2i
-score grid, against both the XLA path and the interpret-mode Pallas
+and i2t score grids, against both the XLA path and the interpret-mode Pallas
 kernels.  Tolerances are those of tests/test_pallas_{gru,xattn}.py (fp32
 throughout; the two frameworks sum in different orders)."""
 
@@ -13,10 +13,11 @@ import torch
 from itrx.ops import attention as jattn
 from itrx.ops import rnn as jrnn
 from itrx.ops.pallas.gru import gru_scan_fused as jgru_fused
+from itrx.ops.pallas.xattn import xattn_i2t_fused as jxattn_i2t_fused
 from itrx.ops.pallas.xattn import xattn_t2i_fused as jxattn_fused
 from itrx_torch.ops import attention, norms, rnn
 from itrx_torch.ops.kernels.gru import gru_scan_fused
-from itrx_torch.ops.kernels.xattn import xattn_t2i_fused
+from itrx_torch.ops.kernels.xattn import xattn_i2t_fused, xattn_t2i_fused
 
 torch.set_num_threads(1)
 
@@ -142,5 +143,34 @@ def test_xattn_plain_matches_pallas_kernel(rng, agg, ni, nc):
     got = xattn_t2i_fused(_t(img), _t(cap), _t(mask), agg_func=agg).numpy()
     want = np.asarray(jxattn_fused(jnp.asarray(img), jnp.asarray(cap),
                                    jnp.asarray(mask), agg_func=agg, interpret=True))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=1e-5)
+    assert np.all(np.isfinite(got))
+
+
+@pytest.mark.parametrize("norm,agg", list(itertools.product(NORMS, AGGS)))
+def test_xattn_score_i2t_matches_jax(rng, norm, agg):
+    img, cap, mask = _xattn_inputs(rng, ni=5, nc=7, l=9, d=16)
+    if agg == "LogSumExp" and norm in ("clipped", "no_norm", "l1norm", "clipped_l1norm"):
+        # keep exp(lambda_lse * row_sim) well inside fp32 for unnormalized chains
+        img, cap = img * 0.3, cap * 0.3
+    kw = dict(raw_feature_norm=norm, agg_func=agg)
+    got = attention.xattn_score_i2t(_t(img), _t(cap), _t(mask), **kw).numpy()
+    want = np.asarray(jattn.xattn_score_i2t(
+        jnp.asarray(img), jnp.asarray(cap), jnp.asarray(mask), **kw))
+    assert got.shape == (5, 7)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=1e-5)
+
+
+@pytest.mark.parametrize("lambda_softmax", [4.0, 9.0])
+@pytest.mark.parametrize("agg", ["LogSumExp", "Mean"])
+@pytest.mark.parametrize("ni,nc", [(8, 12), (7, 11)])
+def test_xattn_i2t_plain_matches_pallas_kernel(rng, agg, ni, nc, lambda_softmax):
+    """The wrapper's CPU path (xattn_i2t_plain) against the interpret-mode
+    _kernel_i2t; caption 0 has a single word."""
+    img, cap, mask = _xattn_inputs(rng, ni, nc)
+    kw = dict(agg_func=agg, lambda_softmax=lambda_softmax)
+    got = xattn_i2t_fused(_t(img), _t(cap), _t(mask), **kw).numpy()
+    want = np.asarray(jxattn_i2t_fused(jnp.asarray(img), jnp.asarray(cap),
+                                       jnp.asarray(mask), interpret=True, **kw))
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=1e-5)
     assert np.all(np.isfinite(got))

@@ -208,7 +208,7 @@ def _pair(rng, cfg):
     variables = jax.device_get(
         jmodel.init({"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
                     jb, train=False))
-    model = get_model(cfg, generator=torch.Generator().manual_seed(1))
+    model = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
     model.load_state_dict({k: torch.from_numpy(v)
                            for k, v in from_itrx_variables(variables).items()})
     return jmodel, variables, model
@@ -267,7 +267,18 @@ def test_train_steps_match_jax(rng, n_steps):
     measured up to 3.7e-3 lr on the entries above 1e-2), and every entry to
     2 lr per step (measured: 0.18 lr after 3 steps).  The optimizer alone is
     held to optax without that slack in test_optimizer_matches_optax."""
-    cfg = _cfg(True)
+    _check_train_steps(rng, _cfg(True), n_steps)
+
+
+def test_i2t_train_step_matches_jax(rng):
+    """One update of SCAN i-t AVG (cross_attn i2t, Mean, lambda_softmax 4;
+    the plain i2t similarity under autograd) against the JAX package's
+    make_train_step, at the limits of test_train_steps_match_jax."""
+    _check_train_steps(rng, _cfg(True, cross_attn="i2t", agg_func="Mean",
+                                 lambda_softmax=4.0), 1)
+
+
+def _check_train_steps(rng, cfg, n_steps):
     lr = cfg["learning_rate"]
     thr, tight = STEP_LIMITS[n_steps]
     jmodel, variables, model = _pair(rng, cfg)
