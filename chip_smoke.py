@@ -15,17 +15,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    version's, its bound (bytes or operations at the H100's data-sheet
    rates) and, for the GRU kernels, cuDNN's GRU (CUDA events, after
    warm-up).  The GRU adjoint is held to autograd through the plain GRU
-   (all five gradients, both directions);
+   (all five gradients, both directions); the SGRAF-SAF score kernel to
+   `sgraf_eval_saf_plain` at D 1024, S 256, bf16 and fp32;
 4. the evaluation slices at full width on an f30k-1K-shaped synthetic split
    (1000 images x 36 x 2048 regions, 5000 captions) through get_model ->
    evaluate_split (encode_data -> cal_sims -> cal_recall) with encode_bf16
    and eval_bf16, weights from torch.Generator().manual_seed(0): SCAN t2i
-   LSE (bench.py's) and SCAN's published i-t AVG (bi_gru, Mean,
-   lambda_softmax 4).  The launch counters show which kernels ran.  The
-   phases are then timed one by one and must reproduce evaluate_split's
-   ranks.  The witness: the bf16 kernel grid must match the plain fp32 grid
-   on the same embeddings (max abs diff <= SLICE_MAX_DIFF) and rank like it
-   (per-caption top-1 agreement >= 0.95);
+   LSE (bench.py's), SCAN's published i-t AVG (bi_gru, Mean,
+   lambda_softmax 4) and SGRAF-SAF (the SGRAF() overlay: bi_gru, embed
+   1024, sim_dim 256).  The launch counters show which kernels ran (and
+   that the other grid kernels did not).  The phases are then timed one by
+   one and must reproduce evaluate_split's ranks.  The witness: the bf16
+   kernel grid must match the plain fp32 grid on the same embeddings (max
+   abs diff <= the slice's limit) and rank like it (per-caption top-1
+   agreement >= 0.95, with >= 2 distinct top-1 images);
 5. the ensemble: a t2i LSE and an i-t AVG checkpoint with random weights
    through evalrank_ensemble, whose ranks must be cal_recall of the two
    averaged grids; then fold5 on a coco-testall-shaped split (5000 images,
@@ -70,6 +73,7 @@ from itrx_torch.models import get_model
 from itrx_torch.ops import kernels
 from itrx_torch.ops.kernels import gru as kgru
 from itrx_torch.ops.kernels.gru import gru_bwd_fused, gru_scan_fused
+from itrx_torch.ops.kernels.sgraf_eval import sgraf_eval_saf_fused, sgraf_eval_saf_plain
 from itrx_torch.ops.kernels.xattn import (xattn_i2t_fused, xattn_i2t_plain,
                                           xattn_t2i_fused, xattn_t2i_plain)
 from itrx_torch.ops.rnn import gru_bwd_plain, gru_fwd_plain, gru_scan
@@ -90,6 +94,11 @@ GRU_FP32_ATOL = 1e-5
 GRU_BF16_ATOL = 1e-4  # also bf16 rounding flips of the carry
 XATTN_FP32_ATOL = 1e-6
 XATTN_BF16_ATOL = 1e-5
+# SGRAF-SAF scores are sigmoids whose spread over images is ~1e-3 with
+# random weights: the limit is two orders above the summation-order error
+# measured on the H100 (~1e-7) and two under that spread
+SAF_FP32_ATOL = 1e-5
+SAF_BF16_ATOL = 1e-5
 SLICE_MAX_DIFF = 1e-5  # bf16 kernel grid vs the fp32 plain grid on its values
 # GRU adjoint (fp32): max|g_kernel - g_plain| / max|g_plain| per tensor.  The
 # two sides differ by fp32 summation order through 48 steps; a gradient that
@@ -109,11 +118,15 @@ REPLACES = {
     "gru_bwd": "itrx/ops/pallas/gru.py:68 (_bwd_kernel)",
     "xattn": "itrx/ops/pallas/xattn.py:43 (_kernel)",
     "xattn_i2t": "itrx/ops/pallas/xattn.py:228 (_kernel_i2t)",
+    "sgraf_eval_saf": "itrx/ops/pallas/sgraf_eval.py:190 (_eval_saf_kernel)",
 }
 SOURCES = {"gru": "gru.cu", "gru_bwd": "gru_bwd.cu", "xattn": "xattn.cu",
-           "xattn_i2t": "xattn_i2t.cu"}
+           "xattn_i2t": "xattn_i2t.cu", "sgraf_eval_saf": "sgraf_eval_saf.cu"}
 COUNTERS = {"gru": gru_scan_fused, "gru_bwd": gru_bwd_fused, "xattn": xattn_t2i_fused,
-            "xattn_i2t": xattn_i2t_fused}
+            "xattn_i2t": xattn_i2t_fused, "sgraf_eval_saf": sgraf_eval_saf_fused}
+GRID_KERNELS = ("xattn", "xattn_i2t", "sgraf_eval_saf")
+# a slice grid slower than this is timed once, not best of 3
+ONE_TIMING_S = 5.0
 # SCAN's published i-t settings (kuanghuei/SCAN README): i-t AVG (the eval
 # slice) is agg_func=Mean lambda_softmax=4; i-t LSE adds lambda_lse=5
 I2T_SOFTMAX = 4.0
@@ -522,30 +535,116 @@ def phase_xattn_i2t(g) -> dict:
     return res
 
 
-def plain_grid(imgs, caps, cap_mask, cfg) -> torch.Tensor:
-    """The (Ni, Nc) grid through the plain version alone (t2i or i2t, as
-    the config says), in cal_sims' length buckets, tiled over captions so
-    the attention tensor stays in budget."""
-    plain = xattn_t2i_plain if cfg["cross_attn"] == "t2i" else xattn_i2t_plain
+def _saf_inputs(g, ni, nc, l, d=1024, s=256):
+    """Embeddings as _xattn_inputs gives them, unit global embeddings, and
+    SGRAF-SAF weights at the reference's init scale (xavier U(-r, r)), with
+    small random biases and a folded gate."""
+    img, cap, mask = _xattn_inputs(g, ni, nc, l, d)
+    u = lambda r, *sh: (torch.rand(*sh, generator=g) * 2 - 1) * r  # noqa: E731
+    unit = lambda n: torch.nn.functional.normalize(torch.randn(n, d, generator=g), dim=-1)  # noqa: E731
+    r_loc = math.sqrt(6.0 / (d + s))
+    w = {"w": u(r_loc, s, d), "b": u(0.05, s), "gloc": unit(nc), "imgglo": unit(ni),
+         "gw": u(r_loc, s, d), "gb": u(0.05, s), "awf": u(math.sqrt(6.0 / (s + 1)), s),
+         "abf": u(0.5, 1), "ew": u(math.sqrt(6.0 / (s + 1)), 1, s), "eb": u(0.1, 1)}
+    return dict(cap=cap, mask=mask, img=img, **{k: v.to(DEV) for k, v in w.items()})
+
+
+def _saf_cast(x: dict, dtype) -> dict:
+    """The embeddings in `dtype` (the weights stay fp32, as the model keeps
+    them)."""
+    return {k: v.to(dtype) if k in ("cap", "img", "gloc", "imgglo") else v for k, v in x.items()}
+
+
+def saf_bound(img, cap, mask, s: int = 256) -> dict:
+    """The bound of one SAF score grid: the embeddings (the global ones in
+    their dtype too), the mask and the fp32 weights read once, the fp32 grid
+    written once; the A, context and projection products over the valid
+    words and the global node per pair (at the bf16 tensor-core peak for bf16
+    embeddings, else at the fp32 peak), and the rest of the chain by fp32
+    operations: per valid word the 36 x 36 Gram form, the region softmax,
+    the squared difference (3 D) and the node's norm, gate and pooling (6 S);
+    per pair the global difference (3 D) and the same node work."""
+    ni, r, d = img.shape
+    nc = cap.shape[0]
+    n_words = float(mask.sum())
+    products = 2.0 * ni * n_words * (2 * r * d + d * s) + 2.0 * ni * nc * d * s
+    rest = ni * n_words * (2 * r * r + 10 * r + 3 * d + 6 * s) + ni * nc * (3 * d + 6 * s)
+    if img.dtype == torch.bfloat16:
+        ops = {"bf16": products, "fp32": rest}
+    else:
+        ops = {"fp32": products + rest}
+    n_bytes = nbytes(img, cap, mask) + (ni + nc) * d * img.element_size() \
+        + 4 * (2 * s * d + 4 * s + 2) + 4 * ni * nc
+    return bound(n_bytes, ops)
+
+
+def phase_sgraf_eval_saf(g) -> dict:
+    log("sgraf_eval_saf kernel vs plain (R=36, D=1024, S=256, lambda 9)")
+    res = {}
+    # the main width, then a ragged shape: a single-word caption, L not a
+    # multiple of 8, an odd caption count and an odd image count
+    for ni, nc, l in ((64, 320, 24), (37, 211, 21)):
+        x = _saf_inputs(g, ni, nc, l)
+        x16 = _saf_cast(x, torch.bfloat16)
+        got = sgraf_eval_saf_fused(**x16)
+        want = sgraf_eval_saf_plain(**_saf_cast(x16, torch.float32))
+        e16 = check(f"sgraf_eval_saf {ni}x{nc}x36x{l} bf16", got, want, SAF_BF16_ATOL)
+        check(f"sgraf_eval_saf {ni}x{nc}x36x{l} fp32", sgraf_eval_saf_fused(**x),
+              sgraf_eval_saf_plain(**x), SAF_FP32_ATOL)
+        if ni == 64:
+            res["max_abs_err"] = e16
+            spread = float(want.std(dim=1).mean())
+            log(f"  mean per-caption std of the scores over images: {spread:.3e}")
+    x = _saf_inputs(g, 64, 320, 24)
+    x16 = _saf_cast(x, torch.bfloat16)
+    res["ms"] = cuda_ms(lambda: sgraf_eval_saf_fused(**x16), reps=10)
+    res["plain_ms"] = cuda_ms(lambda: sgraf_eval_saf_plain(**x16), reps=10)
+    res["ms_fp32"] = cuda_ms(lambda: sgraf_eval_saf_fused(**x), reps=10)
+    res["plain_ms_fp32"] = cuda_ms(lambda: sgraf_eval_saf_plain(**x), reps=10)
+    res.update(saf_bound(x16["img"], x16["cap"], x16["mask"]))
+    b32 = saf_bound(x["img"], x["cap"], x["mask"])
+    res["bound_ms_fp32"], res["bound_by_fp32"] = b32["bound_ms"], b32["bound_by"]
+    # no single PyTorch call computes the SGRAF-SAF score grid
+    res["library_ms"] = None
+    log(f"  time 64x320x36x24x1024, S 256, bf16: kernel {res['ms']:.3f} ms, plain "
+        f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); fp32: "
+        f"kernel {res['ms_fp32']:.3f} ms, plain {res['plain_ms_fp32']:.3f} ms, bound "
+        f"{res['bound_ms_fp32']:.4f} ms ({res['bound_by_fp32']})")
+    return res
+
+
+def plain_grid(model, imgs, caps, cap_mask, cfg) -> torch.Tensor:
+    """The (Ni, Nc) grid through the plain path alone, in cal_sims' length
+    buckets: for SCAN the plain version of the config's direction on the
+    embeddings upcast to fp32, tiled over captions so the attention tensor
+    stays in budget; for SGRAF the model's plain fp32 chain (modules, the
+    BatchNorm unfolded) on the same embeddings, chunked by the model."""
     ni, r = imgs.shape[:2]
     sims = torch.empty(ni, caps.shape[0], dtype=torch.float32, device=imgs.device)
     for in_bucket, b in engine.length_buckets(cap_mask, caps.shape[1]):
         idx = torch.from_numpy(in_bucket).to(imgs.device)
+        if cfg["name"] == "SGRAF":
+            with torch.no_grad():
+                sims[:, idx] = model.sim_enc(imgs, caps[idx, :b], cap_mask[idx, :b],
+                                             kernel=False)
+            continue
+        plain = xattn_t2i_plain if cfg["cross_attn"] == "t2i" else xattn_i2t_plain
         tile = max(engine.PLAIN_ATTN_BYTES // (ni * r * b * 4), 1)
         for j0 in range(0, len(idx), tile):
             t = idx[j0:j0 + tile]
             sims[:, t] = plain(
-                imgs, caps[t, :b], cap_mask[t, :b], agg_func=cfg["agg_func"],
+                imgs.float(), caps[t, :b].float(), cap_mask[t, :b], agg_func=cfg["agg_func"],
                 lambda_lse=cfg["lambda_lse"], lambda_softmax=cfg["lambda_softmax"],
             )
     return sims
 
 
-def eval_config(data_root: str, data_name: str, *overrides: str) -> dict:
-    """A SCAN evaluation config (encode_bf16 + eval_bf16, batch 128, seed 0)
-    over a synthetic split under `data_root`, with the repo's vocabularies."""
+def eval_config(data_root: str, data_name: str, method: str, *overrides: str) -> dict:
+    """An evaluation config of `method`'s overlay (encode_bf16 + eval_bf16,
+    batch 128, seed 0) over a synthetic split under `data_root`, with the
+    repo's vocabularies."""
     return parse_cli(
-        ["with", "SCAN", f"data_name={data_name}", f"data_path={data_root}",
+        ["with", method, f"data_name={data_name}", f"data_path={data_root}",
          f"vocab_path={os.path.join(REPO, 'itrx', 'vocab')}", "vocab_type=json",
          "batch_size=128", "eval_bf16=True", "encode_bf16=True", "seed=0", *overrides],
         make_dirs=False,
@@ -567,28 +666,35 @@ def encode(model, dataset, cfg: dict) -> dict:
                               compute_dtype=torch.bfloat16, encode_dtype=torch.bfloat16)
 
 
-# the eval slices: (name, kernel of the grid, config overrides)
+# the eval slices: (method overlay, kernel of the grid, config overrides)
 SLICES = {
     # bench.py's SCAN t2i LSE: unidirectional GRU, the SCAN() overlay defaults
-    "t2i": ("xattn", ()),
+    "t2i": ("SCAN", "xattn", ()),
     # SCAN's published i-t AVG (kuanghuei/SCAN README)
-    "i2t": ("xattn_i2t", ("cross_attn=i2t", "agg_func=Mean",
-                          f"lambda_softmax={I2T_SOFTMAX}", "bi_gru=True")),
+    "i2t": ("SCAN", "xattn_i2t", ("cross_attn=i2t", "agg_func=Mean",
+                                  f"lambda_softmax={I2T_SOFTMAX}", "bi_gru=True")),
+    # SGRAF's published f30k SAF command (Paranioar/SGRAF README: --module_name
+    # SAF --sgr_step 3 --max_violation --embed_size 1024 --sim_dim 256), the
+    # SGRAF() overlay's defaults: bi_gru, no_txtnorm False
+    "saf": ("SGRAF", "sgraf_eval_saf", ("max_violation=True",)),
 }
 
 
 def phase_slice(data_root: str, card: str, direction: str) -> dict:
-    kernel, overrides = SLICES[direction]
-    other = {"xattn": "xattn_i2t", "xattn_i2t": "xattn"}[kernel]
-    log(f"slice: f30k-1K-shaped SCAN {direction} evaluation ({' '.join(overrides)})")
+    method, kernel, overrides = SLICES[direction]
+    forbidden = ["gru_bwd"] + [k for k in GRID_KERNELS if k != kernel]
+    log(f"slice: f30k-1K-shaped {method} {direction} evaluation ({' '.join(overrides)})")
     t0 = time.perf_counter()
-    cfg = eval_config(data_root, "f30k_precomp", *overrides)
+    cfg = eval_config(data_root, "f30k_precomp", method, *overrides)
     dataset, vocab_size = get_test_loader("test", cfg)
     cfg["vocab_size"] = vocab_size
     model = seeded_model(cfg, cfg["seed"])
+    detail = (f"SAF, sim_dim {cfg['sim_dim']}, no_txtnorm {cfg['no_txtnorm']}"
+              if method == "SGRAF" else
+              f"{cfg['cross_attn']} {cfg['agg_func']} lambda_softmax {cfg['lambda_softmax']}")
     log(f"  data + model set-up: {time.perf_counter() - t0:.1f} s "
         f"({len(dataset)} captions, vocab {vocab_size}, bi_gru={cfg['bi_gru']}, "
-        f"{cfg['cross_attn']} {cfg['agg_func']} lambda_softmax {cfg['lambda_softmax']})")
+        f"embed {cfg['embed_size']}, {detail})")
 
     # the main path, counted: the entry point a user calls, which maps
     # encode_bf16 / eval_bf16 to dtypes and runs encode -> sims -> recall
@@ -600,9 +706,8 @@ def phase_slice(data_root: str, card: str, direction: str) -> dict:
     ev_first = time.perf_counter() - t0
     launches = read_counters()
     log(f"  main path (evaluate_split) launches: {launches}")
-    if launches["gru_bwd"] or launches[other]:
-        raise AssertionError(f"{direction} evaluation launched the GRU adjoint or the "
-                             f"{other} kernel")
+    if any(launches[k] for k in forbidden):
+        raise AssertionError(f"{direction} evaluation launched one of {forbidden}")
     for k in ("gru", kernel):
         if launches[k] <= 0:
             raise AssertionError(f"the main path never launched the {k} kernel")
@@ -633,7 +738,7 @@ def phase_slice(data_root: str, card: str, direction: str) -> dict:
         raise AssertionError("non-finite similarity scores")
 
     times = []
-    for _ in range(3):
+    while len(times) < 3 and not (times and times[0] > ONE_TIMING_S):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         score(enc)
@@ -646,7 +751,7 @@ def phase_slice(data_root: str, card: str, direction: str) -> dict:
 
     # witness: the plain fp32 path on the same (bf16-valued) embeddings
     t0 = time.perf_counter()
-    sims32 = plain_grid(imgs.float(), enc["cap"].float(), enc["cap_mask"], cfg)
+    sims32 = plain_grid(model, imgs, enc["cap"], enc["cap_mask"], cfg)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     top1 = sims.argmax(dim=0)
@@ -654,6 +759,10 @@ def phase_slice(data_root: str, card: str, direction: str) -> dict:
     distinct = int(torch.unique(top1).numel())
     err = float((sims - sims32).abs().max())
     res32 = metrics.cal_recall(sims32, cap_ratio=dataset.im_div, verbose=False)
+    if method == "SGRAF":
+        grid_bound = saf_bound(imgs, enc["cap"], enc["cap_mask"], cfg["sim_dim"])
+    else:
+        grid_bound = xattn_bound(imgs, enc["cap"], enc["cap_mask"], cfg["cross_attn"])
     out = {
         "card": card,
         "direction": direction,
@@ -662,7 +771,10 @@ def phase_slice(data_root: str, card: str, direction: str) -> dict:
         "encode_seconds": enc_warm,
         "eval_seconds": eval_s,
         "eval_seconds_all": times,
+        "eval_timed_once": len(times) == 1,
         "pairs_per_sec": ni * nc / eval_s,
+        "grid_bound_ms": grid_bound["bound_ms"],
+        "grid_bound_by": grid_bound["bound_by"],
         "plain_fp32_sims_seconds": plain_s,
         "rsum_bf16_kernel": res["rsum"],
         "rsum_fp32_plain": res32["rsum"],
@@ -700,7 +812,8 @@ def ensemble_checkpoints(data_root: str, data_name: str, ck_dir: str) -> tuple:
     own config, from seeds 0 and 1."""
     paths = []
     for seed, direction in enumerate(("t2i", "i2t")):
-        cfg = eval_config(data_root, data_name, *SLICES[direction][1])
+        method, _, overrides = SLICES[direction]
+        cfg = eval_config(data_root, data_name, method, *overrides)
         cfg["vocab_size"] = get_test_loader(
             "testall" if data_name == "coco_precomp" else "test", cfg)[1]
         paths.append(save_random_checkpoint(
@@ -985,13 +1098,14 @@ def main():
     phase_build()
     g = torch.Generator().manual_seed(0)
     results = {"gru": phase_gru(g), "gru_bwd": phase_gru_bwd(g), "xattn": phase_xattn(g),
-               "xattn_i2t": phase_xattn_i2t(g)}
+               "xattn_i2t": phase_xattn_i2t(g), "sgraf_eval_saf": phase_sgraf_eval_saf(g)}
     with tempfile.TemporaryDirectory(prefix="itrx_smoke_") as data_root:
         # bench.py's split: 4000 // 4 = 1000 test images x 36 x 2048, 5000 captions
         generate(os.path.join(data_root, "f30k_precomp"), n_images=4000, img_dim=2048,
                  splits=("test",), seed=0, n_concepts_range=(2, 10))
         phase_slice(data_root, card, "t2i")
         i2t = phase_slice(data_root, card, "i2t")
+        saf = phase_slice(data_root, card, "saf")
         phase_ensemble(data_root, data_root, card)
     with tempfile.TemporaryDirectory(prefix="itrx_smoke_fold5_") as root:
         phase_fold5(root, card)
@@ -999,8 +1113,9 @@ def main():
         tr = phase_train(root, card)
     # launches: each kernel's count from the main path that runs it (the
     # training path for the GRU kernels and t2i validation, the i2t slice's
-    # evaluate_split for xattn_i2t)
-    launches = dict(tr["launches"], xattn_i2t=i2t["launches"]["xattn_i2t"])
+    # evaluate_split for xattn_i2t, the SAF slice's for sgraf_eval_saf)
+    launches = dict(tr["launches"], xattn_i2t=i2t["launches"]["xattn_i2t"],
+                    sgraf_eval_saf=saf["launches"]["sgraf_eval_saf"])
     log(f"card: {card}")
     print(json.dumps({"kernels": [
         {

@@ -13,7 +13,6 @@ _NOT_PORTED = {
     "VSE++": "ROADMAP queue 1 item 3 (VSE_PP)",
     "VSRN": "ROADMAP queue 1 item 9 (VSRN)",
     "SAEM": "ROADMAP queue 1 item 10 (SAEM)",
-    "SGRAF": "ROADMAP queue 1 item 8 (SGRAF)",
     "CAMERA": "ROADMAP queue 1 item 11 (CAMERA)",
 }
 
@@ -28,6 +27,23 @@ def get_model(config: dict, device=None, generator: torch.Generator | None = Non
     name = config["name"]
     if name in _NOT_PORTED:
         raise NotImplementedError(f"{name} is not ported yet: {_NOT_PORTED[name]}")
+    if name == "SGRAF":
+        model = methods.SGRAF(
+            vocab_size=config["vocab_size"],
+            img_dim=config["img_dim"],
+            embed_size=config["embed_size"],
+            word_dim=config["word_dim"],
+            sim_dim=config["sim_dim"],
+            bi_gru=config["bi_gru"],
+            no_imgnorm=config["no_imgnorm"],
+            no_txtnorm=config["no_txtnorm"],
+            module_name=config["module_name"],
+            cap_chunk=config.get("cap_chunk", 32),
+            sim_bf16=config.get("sim_bf16", False),
+            dropout=config.get("sgraf_dropout", 0.4),
+            generator=generator,
+        )
+        return model.to(device).eval()
     if name != "SCAN":
         raise ValueError(f"unknown method {name!r}")
     if config.get("precomp_enc_type", "basic") != "basic":

@@ -1,5 +1,6 @@
-"""SCAN (counterpart of itrx/models/methods.py::SCAN: `embed`,
-`similarity` and `loss`, t2i and i2t)."""
+"""SCAN and SGRAF (counterparts of itrx/models/methods.py::SCAN: `embed`,
+`similarity` and `loss`, t2i and i2t; and ::SGRAF with SAF: `embed` and
+evaluation `similarity`)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from ..ops import attention
 from ..ops.kernels.xattn import xattn_i2t_fused, xattn_t2i_fused
 from ..ops.losses import contrastive_hinge
 from .img_encoders import EncoderImagePrecomp
+from .sgraf import SGR_ITEM, EncoderSimilarity, training_not_ported
 from .txt_encoders import EncoderText
 
 
@@ -78,3 +80,48 @@ class SCAN(nn.Module):
         scores = self.similarity(e["img"], e["cap"], e["cap_mask"], train=train)
         loss = contrastive_hinge(scores, self.margin, self.max_violation)
         return loss, {"Loss": loss}
+
+
+class SGRAF(nn.Module):
+    """SGRAF (ref Models.py:468-546) with the SAF module, in evaluation:
+    region embeddings (B, 36, E), per-word embeddings of a bi-GRU (B, L, E),
+    and the similarity tower `sim_enc` (models/sgraf.py).  SGR and training
+    are not ported yet."""
+
+    def __init__(self, vocab_size: int, img_dim: int = 2048, embed_size: int = 1024,
+                 word_dim: int = 300, sim_dim: int = 256, bi_gru: bool = True,
+                 no_imgnorm: bool = False, no_txtnorm: bool = False,
+                 module_name: str = "SAF", cap_chunk: int = 32, sim_bf16: bool = False,
+                 dropout: float = 0.4, generator: torch.Generator | None = None):
+        super().__init__()
+        if module_name == "SGR":
+            raise NotImplementedError(
+                f"SGRAF with module_name='SGR' is not ported yet: {SGR_ITEM}")
+        if module_name != "SAF":
+            raise ValueError(f"SGRAF module_name must be 'SGR' or 'SAF', got {module_name!r}")
+        self.img_enc = EncoderImagePrecomp(img_dim, embed_size, no_imgnorm, generator)
+        self.txt_enc = EncoderText(vocab_size, word_dim, embed_size, use_bi_gru=bi_gru,
+                                   no_txtnorm=no_txtnorm, generator=generator)
+        self.sim_enc = EncoderSimilarity(embed_size, sim_dim, cap_chunk=cap_chunk,
+                                         sim_bf16=sim_bf16, dropout=dropout,
+                                         generator=generator)
+
+    def embed(self, batch: dict) -> dict:
+        img = self.img_enc(batch["images"])
+        cap = self.txt_enc(batch["cap_ids"], batch["cap_mask"])
+        return {"img": img, "cap": cap, "cap_mask": batch["cap_mask"]}
+
+    def forward(self, batch: dict) -> dict:
+        return self.embed(batch)
+
+    def fused_eval_active(self, device: torch.device, train: bool = False) -> bool:
+        """True when `similarity` on tensors of `device` runs the CUDA
+        kernel: evaluation (`not train`) on a CUDA device (the module is
+        SAF: SGR is not ported)."""
+        return not train and torch.device(device).type == "cuda"
+
+    def similarity(self, img, cap, cap_mask, train: bool = False):
+        if train:
+            raise training_not_ported("SGRAF.similarity(train=True)")
+        return self.sim_enc(img, cap, cap_mask,
+                            kernel=self.fused_eval_active(img.device, train=train))

@@ -13,5 +13,9 @@ def safe_sqrt(x: torch.Tensor, tiny: float = 1e-16) -> torch.Tensor:
     return torch.sqrt(torch.clamp(x, min=tiny))
 
 
+def l1norm(x: torch.Tensor, dim: int = -1, eps: float = EPS) -> torch.Tensor:
+    return x / (torch.sum(torch.abs(x), dim=dim, keepdim=True) + eps)
+
+
 def l2norm(x: torch.Tensor, dim: int = -1, eps: float = EPS) -> torch.Tensor:
     return x / (safe_sqrt(torch.sum(x * x, dim=dim, keepdim=True)) + eps)

@@ -7,6 +7,10 @@ A checkpoint is the dict the reference's train.py saves with torch.save:
      "best_rsum", "best_r1", "opt": optimizer.state_dict(), "Eiters",
      "_config"}
 
+with SGRAF's `sim_enc.state_dict()` third in "model", as in the reference
+layout (the reference pickles the module itself there; a state dict is what
+its converter reads out of it).
+
 so `itrx.utils.ref_convert.convert_reference_checkpoint` reads a port
 checkpoint unchanged.  Files are `epo{epoch}_checkpoint.pth.tar` (end of
 epoch) and `model_best.pth.tar`.  The key is always `best_r1` (the
@@ -20,22 +24,29 @@ import os
 
 import torch
 
-ENCODERS = ("img_enc", "txt_enc")
+ENCODERS = ("img_enc", "txt_enc", "sim_enc")
+
+
+def _parts(model) -> list:
+    """The model's checkpointed parts, in the reference's order."""
+    return [name for name in ENCODERS if hasattr(model, name)]
 
 
 def state_list(model) -> list:
-    """The reference's state-dict list [img_enc, txt_enc], on the CPU."""
+    """The reference's state-dict list, [img_enc, txt_enc] (+ sim_enc for
+    SGRAF), on the CPU."""
     return [
         {k: v.detach().cpu() for k, v in getattr(model, name).state_dict().items()}
-        for name in ENCODERS
+        for name in _parts(model)
     ]
 
 
 def load_state_list(model, states: list) -> None:
-    """Load [img_enc, txt_enc] state dicts into `model` (strict)."""
-    if len(states) != len(ENCODERS):
-        raise ValueError(f"expected {len(ENCODERS)} state dicts, got {len(states)}")
-    for name, sd in zip(ENCODERS, states):
+    """Load the state-dict list of `state_list` into `model` (strict)."""
+    names = _parts(model)
+    if len(states) != len(names):
+        raise ValueError(f"expected {len(names)} state dicts, got {len(states)}")
+    for name, sd in zip(names, states):
         getattr(model, name).load_state_dict(sd, strict=True)
 
 

@@ -14,9 +14,9 @@ import pytest
 import torch
 
 from itrx_torch.eval import engine
-from itrx_torch.models import get_model, methods
+from itrx_torch.models import get_model, methods, sgraf
 from itrx_torch.ops import kernels
-from itrx_torch.ops.kernels import gru, xattn
+from itrx_torch.ops.kernels import gru, sgraf_eval, xattn
 from itrx_torch.train import loop
 
 torch.set_num_threads(1)
@@ -229,7 +229,7 @@ def test_gitignore_lists_kernel_build_dir():
                if ln.strip() and not ln.startswith(("#", "!")))
 
 
-@pytest.mark.parametrize("module", [gru, xattn])
+@pytest.mark.parametrize("module", [gru, xattn, sgraf_eval])
 def test_kernel_sources_exist(module):
     src = kernels.CSRC / module.SOURCE
     assert src.exists(), src
@@ -258,3 +258,99 @@ def test_kernel_build_tracks_the_shared_header(tmp_path, monkeypatch):
     (tmp_path / "xattn_product.cuh").write_text("// edited\n")
     after = [kernels.library_path(n) for n in ("xattn", "xattn_i2t")]
     assert all(a != b for a, b in zip(before, after))
+
+
+def _saf_args(dev="cpu", ni=2, nc=3, l=5, d=8, s=4, **kw):
+    g = torch.Generator().manual_seed(0)
+    t = lambda *sh: torch.randn(*sh, generator=g).to(dev)  # noqa: E731
+    args = dict(cap=t(nc, l, d), mask=torch.ones(nc, l, device=dev), img=t(ni, 36, d),
+                w=t(s, d), b=t(s), gloc=t(nc, d), imgglo=t(ni, d), gw=t(s, d), gb=t(s),
+                awf=t(s), abf=t(1), ew=t(1, s), eb=t(1))
+    args.update(kw)
+    return args
+
+
+def test_sgraf_eval_saf_wrapper_raises_off_cpu():
+    before = sgraf_eval.sgraf_eval_saf_fused.launches
+    with pytest.raises(ValueError, match="no kernel"):
+        sgraf_eval.sgraf_eval_saf_fused(**_saf_args("meta"))
+    assert sgraf_eval.sgraf_eval_saf_fused.launches == before
+
+
+@pytest.mark.parametrize("which", ["img", "cap", "w"])
+def test_sgraf_eval_saf_refuses_to_build_a_graph(which):
+    """Forward-only: with grad enabled and an input that requires grad it
+    raises on every device (here the CPU, whose plain path could
+    differentiate), without counting."""
+    args = _saf_args()
+    args[which].requires_grad_()
+    before = sgraf_eval.sgraf_eval_saf_fused.launches
+    with pytest.raises(RuntimeError, match="forward-only.*item 8c"):
+        sgraf_eval.sgraf_eval_saf_fused(**args)
+    with torch.no_grad():
+        assert sgraf_eval.sgraf_eval_saf_fused(**args).shape == (3, 2)
+    assert sgraf_eval.sgraf_eval_saf_fused.launches == before
+
+
+def _sgraf(**kw):
+    cfg = dict(_cfg(), name="SGRAF", sim_dim=8, module_name="SAF", cap_chunk=2)
+    cfg.update(kw)
+    return get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+
+
+def test_sgraf_sends_only_evaluation_to_the_kernel(monkeypatch):
+    """Evaluation on the card goes to the kernel wrapper (the BatchNorm
+    folded into the gate); on the CPU to the plain chain; training raises,
+    naming the item that ports it."""
+    model = _sgraf()
+    assert model.fused_eval_active(torch.device("cuda", 0))
+    assert model.fused_eval_active("cuda", train=False)
+    assert not model.fused_eval_active("cuda", train=True)
+    assert not model.fused_eval_active("cpu")
+    calls = []
+    monkeypatch.setattr(sgraf, "sgraf_eval_saf_fused",
+                        lambda *a: calls.append(len(a)) or torch.zeros(3, 2))
+    monkeypatch.setattr(type(model), "fused_eval_active",
+                        lambda self, device, train=False: not train)
+    img, cap, mask = torch.zeros(2, 36, 16), torch.zeros(3, 4, 16), torch.ones(3, 4)
+    assert model.similarity(img, cap, mask).shape == (2, 3)
+    assert calls == [13]
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8c"):
+        model.similarity(img, cap, mask, train=True)
+    assert calls == [13]
+
+
+def test_sgraf_sgr_names_its_roadmap_item():
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8b"):
+        _sgraf(module_name="SGR")
+
+
+def test_sgraf_saf_training_names_its_roadmap_item():
+    model = _sgraf()
+    nodes, nmask = torch.zeros(2, 3, 8), torch.ones(2, 3)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8c"):
+        model.sim_enc.SAF_module(nodes, nmask, train=True)
+    model.train()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8c"):
+        model.sim_enc(torch.zeros(2, 36, 16), torch.zeros(3, 4, 16), torch.ones(3, 4))
+
+
+def test_check_supported_refuses_sgraf_training():
+    with pytest.raises(NotImplementedError, match="only SCAN"):
+        loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SAF"))
+
+
+def test_sgraf_eval_saf_source_is_built_and_hashed(tmp_path, monkeypatch):
+    """The SAF kernel's library name hashes its source and the shared A
+    product header it includes."""
+    src = kernels.CSRC / sgraf_eval.SOURCE
+    assert "int itrx_sgraf_eval_saf(" in src.read_text()
+    assert '#include "xattn_product.cuh"' in src.read_text()
+    for name in (sgraf_eval.SOURCE, "xattn_product.cuh"):
+        (tmp_path / name).write_text((kernels.CSRC / name).read_text())
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    first = kernels.library_path("sgraf_eval_saf")
+    (tmp_path / "xattn_product.cuh").write_text("// edited\n")
+    second = kernels.library_path("sgraf_eval_saf")
+    (tmp_path / sgraf_eval.SOURCE).write_text("// edited\n")
+    assert len({first, second, kernels.library_path("sgraf_eval_saf")}) == 3

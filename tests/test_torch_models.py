@@ -125,8 +125,9 @@ def test_sentence_level_text_encoder_matches_jax(rng):
 
 @pytest.mark.parametrize("name", ["VSE_PP", "VSRN", "SAEM", "SGRAF", "CAMERA"])
 def test_unported_methods_name_their_roadmap_item(name):
+    """SGRAF is ported with SAF only: its SGR module names its item."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(_cfg(False, name=name), device="cpu")
+        get_model(_cfg(False, name=name, module_name="SGR", sim_dim=16), device="cpu")
 
 
 @pytest.mark.parametrize("train", [False, True])
