@@ -15,26 +15,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    version's, its bound (bytes or operations at the H100's data-sheet
    rates) and, for the GRU kernels, cuDNN's GRU (CUDA events, after
    warm-up).  The GRU adjoint is held to autograd through the plain GRU
-   (all five gradients, both directions); the SGRAF-SAF score kernel to
-   `sgraf_eval_saf_plain` at D 1024, S 256, bf16 and fp32;
+   (all five gradients, both directions); the SGRAF-SAF and SGRAF-SGR score
+   kernels to `sgraf_eval_saf_plain` and `sgraf_eval_sgr_plain` at D 1024,
+   S 256 (SGR at sgr_step 3, and 1 at the ragged shape), bf16 and fp32,
+   and SGR at a 128-word caption and at S 128 in bf16;
 4. the evaluation slices at full width on an f30k-1K-shaped synthetic split
    (1000 images x 36 x 2048 regions, 5000 captions) through get_model ->
    evaluate_split (encode_data -> cal_sims -> cal_recall) with encode_bf16
    and eval_bf16, weights from torch.Generator().manual_seed(0): SCAN t2i
    LSE (bench.py's), SCAN's published i-t AVG (bi_gru, Mean,
-   lambda_softmax 4) and SGRAF-SAF (the SGRAF() overlay: bi_gru, embed
-   1024, sim_dim 256).  The launch counters show which kernels ran (and
-   that the other grid kernels did not).  The phases are then timed one by
-   one and must reproduce evaluate_split's ranks.  The witness: the bf16
+   lambda_softmax 4), SGRAF-SAF (the SGRAF() overlay: bi_gru, embed 1024,
+   sim_dim 256) and SGRAF-SGR (the same with module_name=SGR, sgr_step 3).
+   The launch counters show which kernels ran (and that the other grid
+   kernels did not).  The phases are then timed one by one and must
+   reproduce evaluate_split's ranks.  The witness: the bf16
    kernel grid must match the plain fp32 grid on the same embeddings (max
    abs diff <= the slice's limit) and rank like it (per-caption top-1
    agreement >= 0.95, with >= 2 distinct top-1 images);
-5. the ensemble: a t2i LSE and an i-t AVG checkpoint with random weights
+5. the ensembles: a t2i LSE and an i-t AVG checkpoint with random weights
    through evalrank_ensemble, whose ranks must be cal_recall of the two
-   averaged grids; then fold5 on a coco-testall-shaped split (5000 images,
-   25000 captions) through evalrank_ensemble(..., fold5=True): each fold's
-   recall must be that of its own averaged grid, Mean_metrics the mean of
-   the five parts;
+   averaged grids; SGRAF's published protocol, the SGR and SAF slices'
+   models as checkpoints through evalrank_ensemble, whose ranks must be
+   cal_recall of the average of the two slices' grids; then fold5 on a
+   coco-testall-shaped split (5000 images, 25000 captions) through
+   evalrank_ensemble(..., fold5=True): each fold's recall must be that of
+   its own averaged grid, Mean_metrics the mean of the five parts;
 6. the training slice at full width: SCAN's published f30k t2i training
    configuration (bi_gru, max_violation, batch 128, embed 1024, 36 x 2048
    regions, Adam 2e-4, clip 2.0, fp32) for one epoch of a synthetic split
@@ -73,7 +78,8 @@ from itrx_torch.models import get_model
 from itrx_torch.ops import kernels
 from itrx_torch.ops.kernels import gru as kgru
 from itrx_torch.ops.kernels.gru import gru_bwd_fused, gru_scan_fused
-from itrx_torch.ops.kernels.sgraf_eval import sgraf_eval_saf_fused, sgraf_eval_saf_plain
+from itrx_torch.ops.kernels.sgraf_eval import (sgraf_eval_saf_fused, sgraf_eval_saf_plain,
+                                               sgraf_eval_sgr_fused, sgraf_eval_sgr_plain)
 from itrx_torch.ops.kernels.xattn import (xattn_i2t_fused, xattn_i2t_plain,
                                           xattn_t2i_fused, xattn_t2i_plain)
 from itrx_torch.ops.rnn import gru_bwd_plain, gru_fwd_plain, gru_scan
@@ -99,6 +105,11 @@ XATTN_BF16_ATOL = 1e-5
 # measured on the H100 (~1e-7) and two under that spread
 SAF_FP32_ATOL = 1e-5
 SAF_BF16_ATOL = 1e-5
+# SGRAF-SGR: the same scores' scale and spread; the kernel sums the node
+# projections, the reasoning products and the edges in another order than the
+# plain chain, all in fp32
+SGR_FP32_ATOL = 1e-5
+SGR_BF16_ATOL = 1e-5
 SLICE_MAX_DIFF = 1e-5  # bf16 kernel grid vs the fp32 plain grid on its values
 # GRU adjoint (fp32): max|g_kernel - g_plain| / max|g_plain| per tensor.  The
 # two sides differ by fp32 summation order through 48 steps; a gradient that
@@ -119,12 +130,18 @@ REPLACES = {
     "xattn": "itrx/ops/pallas/xattn.py:43 (_kernel)",
     "xattn_i2t": "itrx/ops/pallas/xattn.py:228 (_kernel_i2t)",
     "sgraf_eval_saf": "itrx/ops/pallas/sgraf_eval.py:190 (_eval_saf_kernel)",
+    "sgraf_eval_sgr": "itrx/ops/pallas/sgraf_eval.py:171 (_eval_kernel)",
 }
 SOURCES = {"gru": "gru.cu", "gru_bwd": "gru_bwd.cu", "xattn": "xattn.cu",
-           "xattn_i2t": "xattn_i2t.cu", "sgraf_eval_saf": "sgraf_eval_saf.cu"}
+           "xattn_i2t": "xattn_i2t.cu", "sgraf_eval_saf": "sgraf_eval_saf.cu",
+           "sgraf_eval_sgr": "sgraf_eval_sgr.cu"}
 COUNTERS = {"gru": gru_scan_fused, "gru_bwd": gru_bwd_fused, "xattn": xattn_t2i_fused,
-            "xattn_i2t": xattn_i2t_fused, "sgraf_eval_saf": sgraf_eval_saf_fused}
-GRID_KERNELS = ("xattn", "xattn_i2t", "sgraf_eval_saf")
+            "xattn_i2t": xattn_i2t_fused, "sgraf_eval_saf": sgraf_eval_saf_fused,
+            "sgraf_eval_sgr": sgraf_eval_sgr_fused}
+GRID_KERNELS = ("xattn", "xattn_i2t", "sgraf_eval_saf", "sgraf_eval_sgr")
+# PR 6's SAF kernel at 64 x 320 x 36 x 24 x 1024, S 256 (ms, bf16 and fp32;
+# NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
+SAF_PR6_MS = (12.642, 18.232)
 # a slice grid slower than this is timed once, not best of 3
 ONE_TIMING_S = 5.0
 # SCAN's published i-t settings (kuanghuei/SCAN README): i-t AVG (the eval
@@ -606,10 +623,114 @@ def phase_sgraf_eval_saf(g) -> dict:
     res["bound_ms_fp32"], res["bound_by_fp32"] = b32["bound_ms"], b32["bound_by"]
     # no single PyTorch call computes the SGRAF-SAF score grid
     res["library_ms"] = None
-    log(f"  time 64x320x36x24x1024, S 256, bf16: kernel {res['ms']:.3f} ms, plain "
+    log(f"  time 64x320x36x24x1024, S 256, bf16: kernel {res['ms']:.3f} ms (PR 6: "
+        f"{SAF_PR6_MS[0]:.3f}), plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}); fp32: kernel {res['ms_fp32']:.3f} ms (PR 6: {SAF_PR6_MS[1]:.3f}), "
+        f"plain {res['plain_ms_fp32']:.3f} ms, bound {res['bound_ms_fp32']:.4f} ms "
+        f"({res['bound_by_fp32']})")
+    return res
+
+
+def _sgr_inputs(g, ni, nc, l, steps, d=1024, s=256):
+    """The SAF phase's embeddings and node weights, and `steps` GraphReasoning
+    steps at the reference's init scale (xavier U(-r, r) over S x S) with
+    small random biases (the JAX package's are zero at init; random ones
+    exercise the fold's key-side term)."""
+    x = _saf_inputs(g, ni, nc, l, d, s)
+    del x["awf"], x["abf"]
+    ew, eb = x.pop("ew"), x.pop("eb")
+    u = lambda r, *sh: ((torch.rand(*sh, generator=g) * 2 - 1) * r).to(DEV)  # noqa: E731
+    r = math.sqrt(6.0 / (2 * s))
+    for k in ("q", "k", "g"):
+        x[f"w{k}"], x[f"b{k}"] = u(r, steps, s, s), u(0.05, steps, s)
+    x["ew"], x["eb"] = ew, eb
+    return x
+
+
+SGR_STEP_WEIGHTS = ("wq", "bq", "wk", "bk", "wg", "bg")
+
+
+def sgr_bound(img, cap, mask, s: int = 256, steps: int = 3) -> dict:
+    """The bound of one SGR score grid: saf_bound's inputs plus the steps'
+    Linears read once, the fp32 grid written once; the A, context and
+    projection products over the valid words and the global node per pair
+    (saf_bound's), and per pair over its n = valid words + 1 nodes the
+    reasoning, (steps - 1) (4 n S^2 + 4 n^2 S) + 4 S^2 + 4 n S (the q/k
+    fold's S M and ctx W_g per node and full step, the edges and contexts,
+    then the node-0 step), all at the bf16 tensor-core peak for bf16
+    embeddings, else at the fp32 peak; the rest of the chain by fp32
+    operations: per valid word the 36 x 36 Gram form, the region softmax,
+    the squared difference (3 D) and the node's bias and norm (3 S), per pair
+    the global difference (3 D) and its node's (3 S)."""
+    ni, r, d = img.shape
+    nc = cap.shape[0]
+    words = mask.sum(dim=1).double()
+    n_words = float(words.sum())
+    n = words + 1
+    align = 2.0 * ni * n_words * (2 * r * d + d * s) + 2.0 * ni * nc * d * s
+    reason = ni * float(((steps - 1) * (4 * n * s * s + 4 * n * n * s)
+                         + 4 * s * s + 4 * n * s).sum())
+    rest = ni * n_words * (2 * r * r + 10 * r + 3 * d + 3 * s) + ni * nc * (3 * d + 3 * s)
+    if img.dtype == torch.bfloat16:
+        ops = {"bf16": align + reason, "fp32": rest}
+    else:
+        ops = {"fp32": align + reason + rest}
+    n_bytes = nbytes(img, cap, mask) + (ni + nc) * d * img.element_size() \
+        + 4 * (2 * s * d + 2 * s + steps * (3 * s * s + 3 * s) + s + 1) + 4 * ni * nc
+    return bound(n_bytes, ops)
+
+
+def phase_sgraf_eval_sgr(g) -> dict:
+    log("sgraf_eval_sgr kernel vs plain (R=36, D=1024, S=256, lambda 9, q/k fold)")
+    res = {}
+    # the main width at sgr_step 3, then a ragged shape: a single-word
+    # caption, L not a multiple of 8, odd counts and sgr_step 1 (node 0 alone)
+    for ni, nc, l, steps in ((64, 320, 24, 3), (37, 211, 21, 1)):
+        x = _sgr_inputs(g, ni, nc, l, steps)
+        x16 = _saf_cast(x, torch.bfloat16)
+        got = sgraf_eval_sgr_fused(**x16)
+        want = sgraf_eval_sgr_plain(**_saf_cast(x16, torch.float32))
+        tag = f"sgraf_eval_sgr {ni}x{nc}x36x{l} steps {steps}"
+        e16 = check(f"{tag} bf16", got, want, SGR_BF16_ATOL)
+        check(f"{tag} fp32", sgraf_eval_sgr_fused(**x), sgraf_eval_sgr_plain(**x),
+              SGR_FP32_ATOL)
+        spread = float(want.std(dim=1).mean())
+        log(f"  {tag}: mean per-caption std of the scores over images {spread:.3e} "
+            f"(limits {SGR_BF16_ATOL:g} bf16, {SGR_FP32_ATOL:g} fp32)")
+        if ni == 64:
+            res["max_abs_err"] = e16
+    # a caption as long as the kernel takes (one caption per block, 129 nodes
+    # a pair, near the edge staging buffer's 134 rows), and sim_dim 128
+    for ni, nc, l, steps, s in ((5, 7, 128, 2, 256), (9, 13, 16, 2, 128)):
+        x16 = _saf_cast(_sgr_inputs(g, ni, nc, l, steps, s=s), torch.bfloat16)
+        check(f"sgraf_eval_sgr {ni}x{nc}x36x{l} steps {steps} S {s} bf16",
+              sgraf_eval_sgr_fused(**x16), sgraf_eval_sgr_plain(**_saf_cast(x16, torch.float32)),
+              SGR_BF16_ATOL)
+    x = _sgr_inputs(g, 64, 320, 24, 3)
+    x16 = _saf_cast(x, torch.bfloat16)
+    res["ms"] = cuda_ms(lambda: sgraf_eval_sgr_fused(**x16), reps=10)
+    res["plain_ms"] = cuda_ms(lambda: sgraf_eval_sgr_plain(**x16), reps=10)
+    res["ms_fp32"] = cuda_ms(lambda: sgraf_eval_sgr_fused(**x), reps=10)
+    res["plain_ms_fp32"] = cuda_ms(lambda: sgraf_eval_sgr_plain(**x), reps=10)
+    # where the kernel's time goes: the same inputs at 1 and 2 steps (the
+    # node-0 step alone, then one full step more)
+    res["ms_by_steps"] = {
+        k: cuda_ms(lambda k=k: sgraf_eval_sgr_fused(
+            **{n: v[-k:] if n in SGR_STEP_WEIGHTS else v for n, v in x16.items()}),
+            reps=10)
+        for k in (1, 2)}
+    res["ms_by_steps"][3] = res["ms"]
+    res.update(sgr_bound(x16["img"], x16["cap"], x16["mask"]))
+    b32 = sgr_bound(x["img"], x["cap"], x["mask"])
+    res["bound_ms_fp32"], res["bound_by_fp32"] = b32["bound_ms"], b32["bound_by"]
+    # no single PyTorch call computes the SGRAF-SGR score grid
+    res["library_ms"] = None
+    log(f"  time 64x320x36x24x1024, S 256, sgr_step 3, bf16: kernel {res['ms']:.3f} ms, plain "
         f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); fp32: "
         f"kernel {res['ms_fp32']:.3f} ms, plain {res['plain_ms_fp32']:.3f} ms, bound "
         f"{res['bound_ms_fp32']:.4f} ms ({res['bound_by_fp32']})")
+    log("  kernel bf16 by sgr_step (1: the node-0 step alone): " + ", ".join(
+        f"{k}: {v:.3f} ms" for k, v in res["ms_by_steps"].items()))
     return res
 
 
@@ -677,10 +798,14 @@ SLICES = {
     # SAF --sgr_step 3 --max_violation --embed_size 1024 --sim_dim 256), the
     # SGRAF() overlay's defaults: bi_gru, no_txtnorm False
     "saf": ("SGRAF", "sgraf_eval_saf", ("max_violation=True",)),
+    # SGRAF's published f30k SGR command (the same README: --module_name SGR
+    # --sgr_step 3 --max_violation --embed_size 1024 --sim_dim 256)
+    "sgr": ("SGRAF", "sgraf_eval_sgr", ("module_name=SGR", "max_violation=True")),
 }
 
 
-def phase_slice(data_root: str, card: str, direction: str) -> dict:
+def phase_slice(data_root: str, card: str, direction: str) -> tuple:
+    """(the slice's result, its bf16 kernel grid)."""
     method, kernel, overrides = SLICES[direction]
     forbidden = ["gru_bwd"] + [k for k in GRID_KERNELS if k != kernel]
     log(f"slice: f30k-1K-shaped {method} {direction} evaluation ({' '.join(overrides)})")
@@ -689,7 +814,8 @@ def phase_slice(data_root: str, card: str, direction: str) -> dict:
     dataset, vocab_size = get_test_loader("test", cfg)
     cfg["vocab_size"] = vocab_size
     model = seeded_model(cfg, cfg["seed"])
-    detail = (f"SAF, sim_dim {cfg['sim_dim']}, no_txtnorm {cfg['no_txtnorm']}"
+    detail = (f"{cfg['module_name']}, sgr_step {cfg['sgr_step']}, sim_dim {cfg['sim_dim']}, "
+              f"no_txtnorm {cfg['no_txtnorm']}"
               if method == "SGRAF" else
               f"{cfg['cross_attn']} {cfg['agg_func']} lambda_softmax {cfg['lambda_softmax']}")
     log(f"  data + model set-up: {time.perf_counter() - t0:.1f} s "
@@ -759,7 +885,10 @@ def phase_slice(data_root: str, card: str, direction: str) -> dict:
     distinct = int(torch.unique(top1).numel())
     err = float((sims - sims32).abs().max())
     res32 = metrics.cal_recall(sims32, cap_ratio=dataset.im_div, verbose=False)
-    if method == "SGRAF":
+    if method == "SGRAF" and cfg["module_name"] == "SGR":
+        grid_bound = sgr_bound(imgs, enc["cap"], enc["cap_mask"], cfg["sim_dim"],
+                               cfg["sgr_step"])
+    elif method == "SGRAF":
         grid_bound = saf_bound(imgs, enc["cap"], enc["cap_mask"], cfg["sim_dim"])
     else:
         grid_bound = xattn_bound(imgs, enc["cap"], enc["cap_mask"], cfg["cross_attn"])
@@ -796,7 +925,7 @@ def phase_slice(data_root: str, card: str, direction: str) -> dict:
     if not err <= SLICE_MAX_DIFF:
         raise AssertionError(f"bf16 kernel grid differs from the fp32 plain grid by "
                              f"{err} (> {SLICE_MAX_DIFF})")
-    return out
+    return out, sims
 
 
 def save_random_checkpoint(cfg: dict, seed: int, path: str) -> str:
@@ -870,6 +999,45 @@ def phase_ensemble(data_root: str, ck_dir: str, card: str) -> dict:
     if not same_ranks(res, want):
         raise AssertionError(f"evalrank_ensemble (rsum {res['rsum']}) is not the recall of "
                              f"the averaged grids (rsum {want['rsum']})")
+    return out
+
+
+def phase_sgraf_ensemble(data_root: str, ck_dir: str, card: str, grids: dict) -> dict:
+    """SGRAF's published protocol: the SGR and SAF slices' models (their
+    configs and seed) saved as checkpoints and run through
+    evalrank_ensemble on the f30k-1K-shaped split; its ranks must be
+    cal_recall of the average of the two slices' grids (`grids`, by slice)."""
+    log("ensemble: SGRAF-SGR + SGRAF-SAF checkpoints through evalrank_ensemble")
+    paths = []
+    for direction in ("sgr", "saf"):
+        method, _, overrides = SLICES[direction]
+        cfg = eval_config(data_root, "f30k_precomp", method, *overrides)
+        dataset, cfg["vocab_size"] = get_test_loader("test", cfg)
+        paths.append(save_random_checkpoint(
+            cfg, cfg["seed"], os.path.join(ck_dir, f"sgraf_{direction}.pth.tar")))
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.evalrank_ensemble(*paths, split="test", device=DEV)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counters()
+    log(f"  main path (evalrank_ensemble) launches: {launches}; {seconds:.2f} s")
+    for k in ("gru", "sgraf_eval_saf", "sgraf_eval_sgr"):
+        if launches[k] <= 0:
+            raise AssertionError(f"the SGRAF ensemble never launched the {k} kernel")
+    if launches["xattn"] or launches["xattn_i2t"]:
+        raise AssertionError("the SGRAF ensemble launched an xattn kernel")
+    recall = lambda sims: metrics.cal_recall(sims, cap_ratio=dataset.im_div,  # noqa: E731
+                                             verbose=False)
+    want = recall((grids["sgr"] + grids["saf"]) / 2.0)
+    out = {"card": card, "evalrank_ensemble_seconds": seconds, "rsum": res["rsum"],
+           "rsum_sgr_alone": recall(grids["sgr"])["rsum"],
+           "rsum_saf_alone": recall(grids["saf"])["rsum"], "launches": launches}
+    log("SGRAF ensemble result: " + json.dumps(out))
+    if not same_ranks(res, want):
+        raise AssertionError(f"evalrank_ensemble (rsum {res['rsum']}) is not the recall of "
+                             f"the averaged SGR and SAF grids (rsum {want['rsum']})")
     return out
 
 
@@ -1098,24 +1266,28 @@ def main():
     phase_build()
     g = torch.Generator().manual_seed(0)
     results = {"gru": phase_gru(g), "gru_bwd": phase_gru_bwd(g), "xattn": phase_xattn(g),
-               "xattn_i2t": phase_xattn_i2t(g), "sgraf_eval_saf": phase_sgraf_eval_saf(g)}
+               "xattn_i2t": phase_xattn_i2t(g), "sgraf_eval_saf": phase_sgraf_eval_saf(g),
+               "sgraf_eval_sgr": phase_sgraf_eval_sgr(g)}
     with tempfile.TemporaryDirectory(prefix="itrx_smoke_") as data_root:
         # bench.py's split: 4000 // 4 = 1000 test images x 36 x 2048, 5000 captions
         generate(os.path.join(data_root, "f30k_precomp"), n_images=4000, img_dim=2048,
                  splits=("test",), seed=0, n_concepts_range=(2, 10))
         phase_slice(data_root, card, "t2i")
-        i2t = phase_slice(data_root, card, "i2t")
-        saf = phase_slice(data_root, card, "saf")
+        i2t, _ = phase_slice(data_root, card, "i2t")
+        saf, saf_sims = phase_slice(data_root, card, "saf")
+        sgr, sgr_sims = phase_slice(data_root, card, "sgr")
         phase_ensemble(data_root, data_root, card)
+        phase_sgraf_ensemble(data_root, data_root, card, {"sgr": sgr_sims, "saf": saf_sims})
     with tempfile.TemporaryDirectory(prefix="itrx_smoke_fold5_") as root:
         phase_fold5(root, card)
     with tempfile.TemporaryDirectory(prefix="itrx_smoke_train_") as root:
         tr = phase_train(root, card)
     # launches: each kernel's count from the main path that runs it (the
     # training path for the GRU kernels and t2i validation, the i2t slice's
-    # evaluate_split for xattn_i2t, the SAF slice's for sgraf_eval_saf)
+    # evaluate_split for xattn_i2t, the SAF and SGR slices' for their kernels)
     launches = dict(tr["launches"], xattn_i2t=i2t["launches"]["xattn_i2t"],
-                    sgraf_eval_saf=saf["launches"]["sgraf_eval_saf"])
+                    sgraf_eval_saf=saf["launches"]["sgraf_eval_saf"],
+                    sgraf_eval_sgr=sgr["launches"]["sgraf_eval_sgr"])
     log(f"card: {card}")
     print(json.dumps({"kernels": [
         {

@@ -1,0 +1,384 @@
+// Shared by the two SGRAF evaluation kernels, sgraf_eval_saf.cu (SAF) and
+// sgraf_eval_sgr.cu (SGR): the alignment nodes of a block's (image, caption)
+// pairs and the 64-row tile product that forms them.  For caption c (L words,
+// mask m) and image i (36 regions):
+//   A[r, l]  = img_ir . cap_cl                              (fp32 accumulation)
+//   h        = leaky_relu(A, 0.1) * m_l
+//   s[l, :]  = softmax_r(9 h[l, :] / (sqrt(max(sum_l h^2, 1e-16)) + 1e-8))
+//   ctx_l    = sum_r s[l, r] img_ir,  |ctx_l|^2 = s G_i s^T  (G_i the region Gram)
+//   node_l   = l2norm(W^T (ctx_l / (|ctx_l| + 1e-8) - cap_cl)^2 + b)   valid words
+//   node_0   = l2norm(Wg^T (img_glo_i - cap_glo_c)^2 + bg)             the global node
+// with l2norm(y) = y / (sqrt(max(|y|^2, 1e-16)) + 1e-8).
+//
+// A block takes the tiling of the SCAN kernels (a pair of images and a group
+// of whole captions) and forms both images' A tiles with the shared product of
+// xattn_product.cuh (tensor cores for bf16 inputs, fp32 FMAs for fp32).
+// `assemble` runs the region softmax with one thread per (image, word), writes
+// the softmax weights over the A tile with the context norm from the Gram, and
+// lists the valid (image, word) rows, then the pairs' global rows.  `project`
+// forms the rows' y = diff . W 64 at a time with `tile_product`: over slabs of
+// 32 of the depth, the block stages the slab of the (depth, S) fp32 weight by
+// cp.async (the next slab's copy running during this slab's product) and the
+// transposed slab of the rows' operand in shared memory (for a word row, its
+// squared difference formed from the softmax weights and the image slab, so
+// the context is never stored), and accumulates in registers, a 32 x 2 corner
+// of the 64 x S tile per thread.  The kernel's own epilogue takes each tile
+// from there.  Every step after reading the inputs is fp32.  Padded words,
+// ragged captions and a group past Nc are masked, not padded.
+
+#pragma once
+
+#include "xattn_product.cuh"
+
+namespace itrx_sgraf {
+
+using namespace itrx_xattn;
+
+constexpr int kMaxS = 256;                  // sim_dim at most (the published 256)
+constexpr int kTileRows = 64;               // rows of one projection tile
+constexpr int kKS = 32;                     // slab of the depth
+constexpr int kLdD = kTileRows + 4;         // row stride of the transposed operand slab
+constexpr int kMaxPairs = kImgs * kMaxCaps;
+constexpr int kMaxRows = kImgs * kCols + kMaxPairs;
+constexpr float kLambda = 9.0f;
+
+// dynamic shared memory, in floats: the A / softmax tiles (and the product's
+// staging), the two weight slab buffers (first the chain's Grams and norm
+// inverses), the image slab and the transposed operand slab
+constexpr int kTileRegion = kSmemF32 / 4;
+constexpr int kWSlab = kKS * kMaxS;
+constexpr int kXFloats = 2 * kWSlab;
+constexpr int kImgSlab = kImgs * kR * kKS;
+constexpr int kDiffFloats = kKS * kLdD;
+constexpr int kNodeFloats = kTileRegion + kXFloats + kImgSlab + kDiffFloats;
+static_assert(kSmemBf16 <= kSmemF32, "the bf16 product's stages fit the tile region");
+static_assert(kImgs * kR * kR + kImgs * kR * kMaxCaps <= kXFloats, "chain scratch fits");
+static_assert(kThreads == 4 * kTileRows && kThreads == 2 * (kMaxS / 2), "thread maps");
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// slab [k0, k0 + kKS) of the (K, S) weight into w_s [kKS][kMaxS] by cp.async,
+// rows past K zero; one commit group.  S % 4 == 0.
+__device__ __forceinline__ void stage_w(float* w_s, const float* __restrict__ wmat, int k0,
+                                        int K, int S) {
+  const int vecs = S / 4;
+  for (int idx = threadIdx.x; idx < kKS * vecs; idx += kThreads) {
+    const int k = idx / vecs, v = idx % vecs;
+    const bool ok = k0 + k < K;
+    cp_async16(w_s + k * kMaxS + 4 * v, ok ? wmat + (size_t)(k0 + k) * S + 4 * v : wmat, ok);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// is (image p, word column col) of the block a valid word
+__device__ __forceinline__ bool word_valid(int p, int col, int i0, int c0, int ncols, int Ni,
+                                           int Nc, int L, const float* __restrict__ mask) {
+  const int c = c0 + col / L;
+  return col < ncols && c < Nc && i0 + p < Ni && mask[(size_t)c * L + col % L] > 0.0f;
+}
+
+// The block's node state: its dynamic shared memory regions, the static
+// arrays of the chain, and the row counts.
+struct Nodes {
+  float* tile;    // [kImgs * kRPad][kLdA]: A, then the softmax weights
+  float* xbuf;    // the chain's scratch, then two weight slabs [kKS][kMaxS]
+  float* img_s;   // [kImgs][kR][kKS]
+  float* diff_t;  // [kKS][kLdD] the transposed operand slab
+  float* cinv;    // [kImgs * kCols] inverse context norms
+  int* rows;      // [kMaxRows] row codes
+  int* n_rows;    // [2] (valid words, valid pairs), set by assemble
+};
+
+__device__ __forceinline__ Nodes node_smem(float* smem, float* cinv, int* rows, int* n_rows) {
+  return Nodes{smem, smem + kTileRegion, smem + kTileRegion + kXFloats,
+               smem + kTileRegion + kXFloats + kImgSlab, cinv, rows, n_rows};
+}
+
+// The pair of row code `code`: p * kMaxCaps + cc
+__device__ __forceinline__ int pair_of(int code, int L) {
+  return code >= kImgs * kCols ? code - kImgs * kCols
+                               : code / kCols * kMaxCaps + code % kCols / L;
+}
+
+// The A tiles, the region softmax written over them, the inverse context norms
+// and the rows: valid (image, word) codes p * kCols + col in order, then the
+// pairs' global rows kImgs * kCols + p * kMaxCaps + cc; their counts in
+// nd.n_rows.  Ends synchronized.
+template <typename T>
+__device__ void assemble(const Nodes& nd, const T* __restrict__ cap,
+                         const float* __restrict__ mask, const T* __restrict__ img,
+                         const float* __restrict__ gram, int i0, int c0, int cpb, int Ni,
+                         int Nc, int L, int D) {
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int ncols = cpb * L;
+
+  product(img, i0, Ni, cap, c0, ncols, Nc, L, D, nd.tile);
+  float* gram_s = nd.xbuf;                      // [kImgs][kR * kR]
+  float* inv_den = nd.xbuf + kImgs * kR * kR;   // [kImgs][kR][kMaxCaps]
+  for (int idx = tid; idx < kImgs * kR * kR; idx += kThreads) {
+    const int p = idx / (kR * kR);
+    gram_s[idx] = i0 + p < Ni ? gram[(size_t)i0 * kR * kR + idx] : 0.0f;
+  }
+  __syncthreads();
+
+  // clipped l2norm denominators, per (image, region, caption) over the valid words
+  for (int idx = tid; idx < kImgs * kR * cpb; idx += kThreads) {
+    const int p = idx / (kR * cpb), r = idx / cpb % kR;
+    const int cc = idx % cpb, c = c0 + cc;
+    float ss = 0.0f;
+    if (c < Nc && i0 + p < Ni) {
+      const float* a_row_p = nd.tile + (p * kRPad + r) * kLdA + cc * L;
+      for (int l = 0; l < L; ++l) {
+        const float a = a_row_p[l];
+        const float h = (a > 0.0f ? a : 0.1f * a) * mask[(size_t)c * L + l];
+        ss = fmaf(h, h, ss);
+      }
+    }
+    inv_den[(p * kR + r) * kMaxCaps + cc] = 1.0f / (sqrtf(fmaxf(ss, 1e-16f)) + kEps);
+  }
+  __syncthreads();
+
+  // one (image, word) per thread: the region softmax over the A column,
+  // written back over it, and the inverse context norm s G s^T
+  {
+    const int p = tid / kCols, col = tid % kCols;
+    if (word_valid(p, col, i0, c0, ncols, Ni, Nc, L, mask)) {
+      const int cc = col / L;
+      float* a_col = nd.tile + p * kRPad * kLdA + col;
+      const float m = mask[(size_t)(c0 + cc) * L + col % L];
+      float s[kR];
+      float mx = -3.0e38f;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const float a = a_col[r * kLdA];
+        const float h = (a > 0.0f ? a : 0.1f * a) * m;
+        s[r] = h * inv_den[(p * kR + r) * kMaxCaps + cc] * kLambda;
+        mx = fmaxf(mx, s[r]);
+      }
+      float sum = 0.0f;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        s[r] = expf(s[r] - mx);
+        sum += s[r];
+      }
+      const float inv_sum = 1.0f / sum;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        s[r] *= inv_sum;
+        a_col[r * kLdA] = s[r];
+      }
+      const float4* g4 = reinterpret_cast<const float4*>(gram_s + p * kR * kR);
+      float ctx = 0.0f;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        float y = 0.0f;
+#pragma unroll
+        for (int q = 0; q < kR / 4; ++q) {
+          const float4 g = g4[r * (kR / 4) + q];
+          y = fmaf(g.x, s[4 * q], y);
+          y = fmaf(g.y, s[4 * q + 1], y);
+          y = fmaf(g.z, s[4 * q + 2], y);
+          y = fmaf(g.w, s[4 * q + 3], y);
+        }
+        ctx = fmaf(s[r], y, ctx);
+      }
+      nd.cinv[tid] = 1.0f / (sqrtf(fmaxf(ctx, 1e-16f)) + kEps);
+    }
+  }
+
+  if (warp == 0) {
+    int n = 0;
+    for (int j = 0; j < kImgs * kCols; j += 32) {
+      const int t = j + lane;
+      const bool ok = word_valid(t / kCols, t % kCols, i0, c0, ncols, Ni, Nc, L, mask);
+      const unsigned bal = __ballot_sync(0xffffffffu, ok);
+      if (ok) nd.rows[n + __popc(bal & ((1u << lane) - 1u))] = t;
+      n += __popc(bal);
+    }
+    const int n_loc = n;
+    for (int j = 0; j < kMaxPairs; j += 32) {
+      const int q = j + lane, p = q / kMaxCaps, cc = q % kMaxCaps;
+      const bool ok = cc < cpb && c0 + cc < Nc && i0 + p < Ni;
+      const unsigned bal = __ballot_sync(0xffffffffu, ok);
+      if (ok) nd.rows[n + __popc(bal & ((1u << lane) - 1u))] = kImgs * kCols + q;
+      n += __popc(bal);
+    }
+    if (lane == 0) {
+      nd.n_rows[0] = n_loc;
+      nd.n_rows[1] = n - n_loc;
+    }
+  }
+  __syncthreads();
+}
+
+// acc (rows 32h .. 32h+31 x columns 2cp, 2cp+1 of a 64 x S tile, h = tid / 128,
+// cp = tid % 128) = operand (64 x K) . wmat (K x S, row-major fp32, 16-byte
+// aligned).  stage(k0) runs on every thread before the slab's barrier (to
+// stage shared data); row(k0, dk, dv) gives this thread's row tid % 64 at
+// columns k0 + dk .. k0 + dk + 7 of the operand (zero past the tile's rows or
+// K).  half_active: the tile has rows in this thread's half.  Starts with a
+// barrier, so the previous tile's readers of xbuf and diff_t are done.
+template <typename Stage, typename Row>
+__device__ __forceinline__ void tile_product(float (&acc)[32][2], const float* __restrict__ wmat,
+                                             int K, int S, const Nodes& nd, bool half_active,
+                                             Stage stage, Row row) {
+  const int tid = threadIdx.x;
+  const int drow = tid % kTileRows, dk = (tid / kTileRows) * 8;
+  const int h = tid / (kThreads / 2), cp = tid % (kThreads / 2);
+  const bool col_ok = 2 * cp < S;
+#pragma unroll
+  for (int r = 0; r < 32; ++r) acc[r][0] = acc[r][1] = 0.0f;
+  __syncthreads();
+  stage_w(nd.xbuf, wmat, 0, K, S);
+  for (int k0 = 0, si = 0; k0 < K; k0 += kKS, ++si) {
+    __syncthreads();  // the previous slab's readers are done
+    const float* w_s = nd.xbuf + (si & 1) * kWSlab;
+    if (k0 + kKS < K) {
+      stage_w(nd.xbuf + ((si + 1) & 1) * kWSlab, wmat, k0 + kKS, K, S);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    stage(k0);
+    __syncthreads();
+    float dv[8];
+    row(k0, dk, dv);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) nd.diff_t[(dk + j) * kLdD + drow] = dv[j];
+    __syncthreads();
+    // y[rows of half h][2cp, 2cp+1] += operand . W over the slab
+    if (half_active && col_ok) {
+#pragma unroll 4
+      for (int k = 0; k < kKS; ++k) {
+        const float2 w = *reinterpret_cast<const float2*>(w_s + k * kMaxS + 2 * cp);
+        const float4* d4 = reinterpret_cast<const float4*>(nd.diff_t + k * kLdD + 32 * h);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const float4 d = d4[q];
+          acc[4 * q][0] = fmaf(d.x, w.x, acc[4 * q][0]);
+          acc[4 * q][1] = fmaf(d.x, w.y, acc[4 * q][1]);
+          acc[4 * q + 1][0] = fmaf(d.y, w.x, acc[4 * q + 1][0]);
+          acc[4 * q + 1][1] = fmaf(d.y, w.y, acc[4 * q + 1][1]);
+          acc[4 * q + 2][0] = fmaf(d.z, w.x, acc[4 * q + 2][0]);
+          acc[4 * q + 2][1] = fmaf(d.z, w.y, acc[4 * q + 2][1]);
+          acc[4 * q + 3][0] = fmaf(d.w, w.x, acc[4 * q + 3][0]);
+          acc[4 * q + 3][1] = fmaf(d.w, w.y, acc[4 * q + 3][1]);
+        }
+      }
+    }
+  }
+}
+
+// The rows' projections y = diff . W + b, 64 rows a tile: the word rows with
+// (wt, bias), then the global rows with (gwt, gbias), both (D, S) / (S,).
+// epi(acc, t0, nrows, glo) takes each tile (bias added; zero in columns past
+// S), rows t0 .. t0 + nrows - 1 of nd.rows.
+template <typename T, typename Epi>
+__device__ __forceinline__ void project(const Nodes& nd, const T* __restrict__ cap,
+                                        const T* __restrict__ img,
+                                        const T* __restrict__ gloc,
+                                        const T* __restrict__ imgglo,
+                                        const float* __restrict__ wt,
+                                        const float* __restrict__ bias,
+                                        const float* __restrict__ gwt,
+                                        const float* __restrict__ gbias, int i0, int c0, int Ni,
+                                        int L, int D, int S, Epi epi) {
+  const int tid = threadIdx.x;
+  const int drow = tid % kTileRows;
+  const int h = tid / (kThreads / 2), cp = tid % (kThreads / 2);
+  const bool col_ok = 2 * cp < S;
+  const int n_loc = nd.n_rows[0], n_glo = nd.n_rows[1];
+  for (int phase = 0; phase < 2; ++phase) {
+    const bool glo = phase == 1;
+    const int r_begin = glo ? n_loc : 0, r_end = glo ? n_loc + n_glo : n_loc;
+    const float* wmat = glo ? gwt : wt;
+    const float* bvec = glo ? gbias : bias;
+    for (int t0 = r_begin; t0 < r_end; t0 += kTileRows) {
+      const int nrows = min(kTileRows, r_end - t0);
+      // this thread's operand row
+      const bool row_ok = drow < nrows;
+      const int code = row_ok ? nd.rows[t0 + drow] : 0;
+      int p = 0;
+      const T* cap_row = cap;
+      const T* ig_row = imgglo;
+      const T* cg_row = gloc;
+      const float* s_col = nd.tile;  // the row's softmax weights, stride kLdA
+      float ci = 0.0f;
+      if (!glo) {
+        p = code / kCols;
+        const int col = code % kCols;
+        cap_row = cap + ((size_t)(c0 + col / L) * L + col % L) * D;
+        s_col = nd.tile + p * kRPad * kLdA + col;
+        ci = row_ok ? nd.cinv[code] : 0.0f;
+      } else {
+        const int q = row_ok ? code - kImgs * kCols : 0;
+        p = q / kMaxCaps;
+        ig_row = imgglo + (size_t)(i0 + p) * D;
+        cg_row = gloc + (size_t)(c0 + q % kMaxCaps) * D;
+      }
+      // the images' slab, for the word rows
+      const auto stage = [&](int k0) {
+        if (glo) return;
+        for (int idx = tid; idx < kImgSlab; idx += kThreads) {
+          const int pr = idx / kKS, k = idx % kKS, pp = pr / kR;
+          nd.img_s[idx] = (i0 + pp < Ni && k0 + k < D)
+                              ? to_f(img[((size_t)i0 * kR + pr) * D + k0 + k]) : 0.0f;
+        }
+      };
+      // the squared differences of this thread's row at 8 columns
+      const auto row = [&](int k0, int dk, float (&dv)[8]) {
+        if (!glo) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) dv[j] = 0.0f;
+          const float* im = nd.img_s + p * kR * kKS + dk;
+#pragma unroll 6
+          for (int r = 0; r < kR; ++r) {
+            const float sr = row_ok ? s_col[r * kLdA] : 0.0f;
+            const float4 u = *reinterpret_cast<const float4*>(im + r * kKS);
+            const float4 v = *reinterpret_cast<const float4*>(im + r * kKS + 4);
+            dv[0] = fmaf(sr, u.x, dv[0]);
+            dv[1] = fmaf(sr, u.y, dv[1]);
+            dv[2] = fmaf(sr, u.z, dv[2]);
+            dv[3] = fmaf(sr, u.w, dv[3]);
+            dv[4] = fmaf(sr, v.x, dv[4]);
+            dv[5] = fmaf(sr, v.y, dv[5]);
+            dv[6] = fmaf(sr, v.z, dv[6]);
+            dv[7] = fmaf(sr, v.w, dv[7]);
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int kk = k0 + dk + j;
+            const float e = (row_ok && kk < D) ? dv[j] * ci - to_f(cap_row[kk]) : 0.0f;
+            dv[j] = e * e;
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int kk = k0 + dk + j;
+            const float e = (row_ok && kk < D) ? to_f(ig_row[kk]) - to_f(cg_row[kk]) : 0.0f;
+            dv[j] = e * e;
+          }
+        }
+      };
+      float acc[32][2];
+      tile_product(acc, wmat, D, S, nd, 32 * h < nrows, stage, row);
+      const float b0 = col_ok ? bvec[2 * cp] : 0.0f, b1 = col_ok ? bvec[2 * cp + 1] : 0.0f;
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        acc[r][0] = col_ok ? acc[r][0] + b0 : 0.0f;
+        acc[r][1] = col_ok ? acc[r][1] + b1 : 0.0f;
+      }
+      epi(acc, t0, nrows, glo);
+    }
+  }
+}
+
+}  // namespace itrx_sgraf

@@ -185,19 +185,25 @@ __device__ void product_tc(const __nv_bfloat16* __restrict__ img, int i0, int Ni
   }
 }
 
-// The block's first image and first caption.  Runs of kPairSwizzle image
-// pairs sweep the caption groups, so the blocks in flight share a few caption
-// groups and a few images, and both are read from L2 rather than device
-// memory (a bucket's caption stack is larger than the 50 MB L2).
-__device__ __forceinline__ void block_origin(int Ni, int caps_per_block, int n_groups,
-                                             int* i0, int* c0) {
+// Work item `item`'s first image and first caption.  Runs of kPairSwizzle
+// image pairs sweep the caption groups, so the items in flight share a few
+// caption groups and a few images, and both are read from L2 rather than
+// device memory (a bucket's caption stack is larger than the 50 MB L2).
+__device__ __forceinline__ void block_origin(int item, int Ni, int caps_per_block,
+                                             int n_groups, int* i0, int* c0) {
   const int n_pairs = (Ni + kImgs - 1) / kImgs;
-  const int run = blockIdx.x / (kPairSwizzle * n_groups);
+  const int run = item / (kPairSwizzle * n_groups);
   const int pair0 = run * kPairSwizzle;
   const int run_pairs = min(kPairSwizzle, n_pairs - pair0);
-  const int rem = blockIdx.x - run * kPairSwizzle * n_groups;
+  const int rem = item - run * kPairSwizzle * n_groups;
   *i0 = (pair0 + rem % run_pairs) * kImgs;
   *c0 = (rem / run_pairs) * caps_per_block;
+}
+
+// The block's first image and first caption: one item per block.
+__device__ __forceinline__ void block_origin(int Ni, int caps_per_block, int n_groups,
+                                             int* i0, int* c0) {
+  block_origin(blockIdx.x, Ni, caps_per_block, n_groups, i0, c0);
 }
 
 // Both images' A tiles into `tile` (image p at rows p * kRPad, stride kLdA);

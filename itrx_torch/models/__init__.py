@@ -38,6 +38,7 @@ def get_model(config: dict, device=None, generator: torch.Generator | None = Non
             no_imgnorm=config["no_imgnorm"],
             no_txtnorm=config["no_txtnorm"],
             module_name=config["module_name"],
+            sgr_step=config["sgr_step"],
             cap_chunk=config.get("cap_chunk", 32),
             sim_bf16=config.get("sim_bf16", False),
             dropout=config.get("sgraf_dropout", 0.4),

@@ -1,6 +1,6 @@
 """SCAN and SGRAF (counterparts of itrx/models/methods.py::SCAN: `embed`,
-`similarity` and `loss`, t2i and i2t; and ::SGRAF with SAF: `embed` and
-evaluation `similarity`)."""
+`similarity` and `loss`, t2i and i2t; and ::SGRAF with SGR or SAF: `embed`
+and evaluation `similarity`)."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ from ..ops import attention
 from ..ops.kernels.xattn import xattn_i2t_fused, xattn_t2i_fused
 from ..ops.losses import contrastive_hinge
 from .img_encoders import EncoderImagePrecomp
-from .sgraf import SGR_ITEM, EncoderSimilarity, training_not_ported
+from .sgraf import EncoderSimilarity, training_not_ported
 from .txt_encoders import EncoderText
 
 
@@ -83,26 +83,24 @@ class SCAN(nn.Module):
 
 
 class SGRAF(nn.Module):
-    """SGRAF (ref Models.py:468-546) with the SAF module, in evaluation:
-    region embeddings (B, 36, E), per-word embeddings of a bi-GRU (B, L, E),
-    and the similarity tower `sim_enc` (models/sgraf.py).  SGR and training
-    are not ported yet."""
+    """SGRAF (ref Models.py:468-546) in evaluation: region embeddings
+    (B, 36, E), per-word embeddings of a bi-GRU (B, L, E), and the
+    similarity tower `sim_enc` (models/sgraf.py) with the reasoning module
+    `module_name`: "SGR" (`sgr_step` graph-reasoning steps) or "SAF".
+    Training is not ported yet."""
 
     def __init__(self, vocab_size: int, img_dim: int = 2048, embed_size: int = 1024,
                  word_dim: int = 300, sim_dim: int = 256, bi_gru: bool = True,
                  no_imgnorm: bool = False, no_txtnorm: bool = False,
-                 module_name: str = "SAF", cap_chunk: int = 32, sim_bf16: bool = False,
-                 dropout: float = 0.4, generator: torch.Generator | None = None):
+                 module_name: str = "SAF", sgr_step: int = 3, cap_chunk: int = 32,
+                 sim_bf16: bool = False, dropout: float = 0.4,
+                 generator: torch.Generator | None = None):
         super().__init__()
-        if module_name == "SGR":
-            raise NotImplementedError(
-                f"SGRAF with module_name='SGR' is not ported yet: {SGR_ITEM}")
-        if module_name != "SAF":
-            raise ValueError(f"SGRAF module_name must be 'SGR' or 'SAF', got {module_name!r}")
         self.img_enc = EncoderImagePrecomp(img_dim, embed_size, no_imgnorm, generator)
         self.txt_enc = EncoderText(vocab_size, word_dim, embed_size, use_bi_gru=bi_gru,
                                    no_txtnorm=no_txtnorm, generator=generator)
-        self.sim_enc = EncoderSimilarity(embed_size, sim_dim, cap_chunk=cap_chunk,
+        self.sim_enc = EncoderSimilarity(embed_size, sim_dim, module_name=module_name,
+                                         sgr_step=sgr_step, cap_chunk=cap_chunk,
                                          sim_bf16=sim_bf16, dropout=dropout,
                                          generator=generator)
 
@@ -116,8 +114,8 @@ class SGRAF(nn.Module):
 
     def fused_eval_active(self, device: torch.device, train: bool = False) -> bool:
         """True when `similarity` on tensors of `device` runs the CUDA
-        kernel: evaluation (`not train`) on a CUDA device (the module is
-        SAF: SGR is not ported)."""
+        kernel of the reasoning module (SGR's or SAF's): evaluation
+        (`not train`) on a CUDA device, fp32 embeddings included."""
         return not train and torch.device(device).type == "cuda"
 
     def similarity(self, img, cap, cap_mask, train: bool = False):

@@ -1,19 +1,21 @@
-"""SGRAF similarity tower, evaluation with SAF (counterpart of
+"""SGRAF similarity tower, evaluation with SGR or SAF (counterpart of
 itrx/models/sgraf.py; reference Fusionmodule.py:373-629).
 
 For caption c and image i the tower forms one node per valid word (the
 SCAN attention context of the word over the 36 regions at lambda 9, its
 squared difference with the word, `sim_tranloc_w`, l2norm) and a global node
 (the squared difference of the two self-attended global embeddings,
-`sim_tranglo_w`, l2norm), pools the nodes by SAF (sigmoid-gated l1norm
-attention, `SAF_module`), and scores the pooled vector with `sim_eval_w` +
-sigmoid.
+`sim_tranglo_w`, l2norm).  SGR runs `sgr_step` graph-reasoning steps over
+the nodes (`SGR_module`) and keeps the global node; SAF pools the nodes by
+sigmoid-gated l1norm attention (`SAF_module`).  `sim_eval_w` + sigmoid
+scores the result.
 
 Module names are the reference PyTorch SGRAF's, so the state dict carries
-its keys (`v_global_w.embedding_local.0.weight`, ..., `SAF_module.bn.
-running_var`; itrx/utils/ref_convert.py:277-308 maps them).  Only
-evaluation is ported: SGR (`module_name="SGR"`) and training, whose SAF
-BatchNorm takes per-caption statistics, raise, naming their ROADMAP items.
+its keys (`v_global_w.embedding_local.0.weight`, ...,
+`SGR_module.sgr0.graph_query_w.weight`, `SAF_module.bn.running_var`;
+itrx/utils/ref_convert.py:277-308 maps them).  Only evaluation is ported:
+training, whose SAF BatchNorm takes per-caption statistics, raises, naming
+its ROADMAP item.
 
 Arithmetic: the self-attention heads take their inputs in fp32 (their
 parameters are fp32; the embeddings may arrive in bf16 from eval_bf16), and
@@ -28,14 +30,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels.sgraf_eval import fold_saf_bn, sgraf_eval_saf_fused
+from ..ops.kernels.sgraf_eval import fold_saf_bn, sgraf_eval_saf_fused, sgraf_eval_sgr_fused
 from ..ops.norms import l1norm, l2norm, safe_sqrt
 from .layers import xavier_linear
 
 NEG_INF = -1e18
 EPS = 1e-8
 LAMBDA_SOFTMAX = 9.0
-SGR_ITEM = "ROADMAP queue 1 item 8b"
 TRAIN_ITEM = "ROADMAP queue 1 item 8c"
 
 
@@ -90,6 +91,24 @@ class TextSA(nn.Module):
         return l2norm(torch.sum(weights[..., None] * local, dim=1), dim=-1)
 
 
+class GraphReasoning(nn.Module):
+    """One SGR step: self-attention over the alignment nodes (ref :564-597).
+    The edge q k^T is masked to the valid nodes (keys), softmaxed over the
+    keys, and the context goes through `sim_graph_w` and a ReLU."""
+
+    def __init__(self, sim_dim: int, generator: torch.Generator | None = None):
+        super().__init__()
+        self.graph_query_w = xavier_linear(sim_dim, sim_dim, generator)
+        self.graph_key_w = xavier_linear(sim_dim, sim_dim, generator)
+        self.sim_graph_w = xavier_linear(sim_dim, sim_dim, generator)
+
+    def forward(self, sim_emb, node_mask):
+        """sim_emb (B, N, S), node_mask (B, N) -> (B, N, S)."""
+        edge = self.graph_query_w(sim_emb) @ self.graph_key_w(sim_emb).transpose(1, 2)
+        edge = torch.softmax(edge.masked_fill(node_mask[:, None, :] <= 0, NEG_INF), dim=-1)
+        return torch.relu(self.sim_graph_w(edge @ sim_emb))
+
+
 class AttentionFiltration(nn.Module):
     """SAF: sigmoid-gated l1norm attention pooling over the nodes (ref
     :600-629), in evaluation: the single-channel BatchNorm on its running
@@ -116,19 +135,25 @@ def _norm(x, dim: int):
 
 
 class EncoderSimilarity(nn.Module):
-    """SGRAF-SAF image-text similarity (ref :373-451), evaluation only.
+    """SGRAF image-text similarity (ref :373-451) with SGR or SAF,
+    evaluation only.
 
     `forward(img (Ni, R, D), cap (Nc, L, D), cap_mask (Nc, L), kernel)`
-    returns the (Ni, Nc) fp32 grid: with `kernel`, one call of the CUDA
-    kernel's wrapper; else the plain chain over chunks of `cap_chunk`
+    returns the (Ni, Nc) fp32 grid: with `kernel`, one call of the module's
+    CUDA kernel wrapper; else the plain chain over chunks of `cap_chunk`
     captions, whose (chunk, Ni, L, D) context bounds its memory.  The grid
     reads the embeddings in bf16 when `sim_bf16`, else in their own dtype.
     """
 
-    def __init__(self, embed_size: int, sim_dim: int, cap_chunk: int = 32,
-                 sim_bf16: bool = False, dropout: float = 0.4,
-                 generator: torch.Generator | None = None):
+    def __init__(self, embed_size: int, sim_dim: int, module_name: str = "SAF",
+                 sgr_step: int = 3, cap_chunk: int = 32, sim_bf16: bool = False,
+                 dropout: float = 0.4, generator: torch.Generator | None = None):
         super().__init__()
+        if module_name not in ("SGR", "SAF"):
+            raise ValueError(f"SGRAF module_name must be 'SGR' or 'SAF', got {module_name!r}")
+        if module_name == "SGR" and sgr_step < 1:
+            raise ValueError(f"SGRAF sgr_step must be at least 1, got {sgr_step}")
+        self.module_name = module_name
         self.cap_chunk = cap_chunk
         self.sim_bf16 = sim_bf16
         self.v_global_w = VisualSA(embed_size, dropout_rate=dropout, generator=generator)
@@ -136,7 +161,11 @@ class EncoderSimilarity(nn.Module):
         self.sim_tranloc_w = xavier_linear(embed_size, sim_dim, generator)
         self.sim_tranglo_w = xavier_linear(embed_size, sim_dim, generator)
         self.sim_eval_w = xavier_linear(sim_dim, 1, generator)
-        self.SAF_module = AttentionFiltration(sim_dim, generator)
+        if module_name == "SGR":
+            self.SGR_module = nn.ModuleDict(
+                {f"sgr{i}": GraphReasoning(sim_dim, generator) for i in range(sgr_step)})
+        else:
+            self.SAF_module = AttentionFiltration(sim_dim, generator)
 
     def global_embeddings(self, img, cap, cap_mask):
         """(img_glo (Ni, D), cap_glo (Nc, D)), fp32.  The region mean and the
@@ -149,20 +178,31 @@ class EncoderSimilarity(nn.Module):
         cap_glo = self.t_global_w(cap.float(), cap_ave.float(), cap_mask)
         return img_glo, cap_glo
 
+    def _module_weights(self) -> tuple:
+        """The reasoning module's weights as its kernel wrapper takes them:
+        SGR's per-step Linears stacked (wq, bq, wk, bk, wg, bg); SAF's gate
+        with the BatchNorm folded in (awf, abf)."""
+        if self.module_name == "SGR":
+            steps = list(self.SGR_module.values())
+            return tuple(torch.stack([getattr(getattr(m, lin), part) for m in steps])
+                         for lin in ("graph_query_w", "graph_key_w", "sim_graph_w")
+                         for part in ("weight", "bias"))
+        saf = self.SAF_module
+        return fold_saf_bn(saf.attn_sim_w.weight, saf.attn_sim_w.bias, saf.bn.weight,
+                           saf.bn.bias, saf.bn.running_mean, saf.bn.running_var)
+
     def forward(self, img, cap, cap_mask, kernel: bool = False):
         if self.training:
             raise training_not_ported("EncoderSimilarity in training mode")
         dt = torch.bfloat16 if self.sim_bf16 else img.dtype
         img_glo, cap_glo = self.global_embeddings(img, cap, cap_mask)
         if kernel:
-            saf = self.SAF_module
-            awf, abf = fold_saf_bn(saf.attn_sim_w.weight, saf.attn_sim_w.bias, saf.bn.weight,
-                                   saf.bn.bias, saf.bn.running_mean, saf.bn.running_var)
-            return sgraf_eval_saf_fused(
+            fused = sgraf_eval_sgr_fused if self.module_name == "SGR" else sgraf_eval_saf_fused
+            return fused(
                 cap.to(dt), cap_mask, img.to(dt),
                 self.sim_tranloc_w.weight, self.sim_tranloc_w.bias,
                 cap_glo.to(dt), img_glo.to(dt),
-                self.sim_tranglo_w.weight, self.sim_tranglo_w.bias, awf, abf,
+                self.sim_tranglo_w.weight, self.sim_tranglo_w.bias, *self._module_weights(),
                 self.sim_eval_w.weight, self.sim_eval_w.bias,
             ).t()
         # the plain chain: fp32 on the grid dtype's values
@@ -178,8 +218,8 @@ class EncoderSimilarity(nn.Module):
 
     def _score_chunk(self, img, img_glo, cap, mask, cap_glo):
         """(Ni, C) scores of one caption chunk (ref :406-451, 632-664): the
-        pair-batched SCAN attention, the alignment nodes, SAF and the
-        sim_eval_w epilogue."""
+        pair-batched SCAN attention, the alignment nodes, SGR (every step on
+        every node, node 0 kept) or SAF, and the sim_eval_w epilogue."""
         c, l = mask.shape
         ni = img.shape[0]
         a = torch.einsum("ird,cld->cirl", img, cap)  # (C, Ni, R, L)
@@ -191,5 +231,10 @@ class EncoderSimilarity(nn.Module):
         sim_emb = torch.cat([sim_glo[:, :, None], sim_loc], dim=2).reshape(c * ni, l + 1, -1)
         node_mask = torch.cat([torch.ones_like(mask[:, :1]), mask], dim=1)
         node_mask = node_mask[:, None].expand(c, ni, l + 1).reshape(c * ni, l + 1)
-        sim_vec = self.SAF_module(sim_emb, node_mask)
+        if self.module_name == "SGR":
+            for step in self.SGR_module.values():
+                sim_emb = step(sim_emb, node_mask)
+            sim_vec = sim_emb[:, 0]
+        else:
+            sim_vec = self.SAF_module(sim_emb, node_mask)
         return torch.sigmoid(self.sim_eval_w(sim_vec))[:, 0].reshape(c, ni).t()

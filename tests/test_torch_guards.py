@@ -270,6 +270,39 @@ def _saf_args(dev="cpu", ni=2, nc=3, l=5, d=8, s=4, **kw):
     return args
 
 
+def _sgr_args(dev="cpu", steps=2, s=4, **kw):
+    g = torch.Generator().manual_seed(1)
+    t = lambda *sh: torch.randn(*sh, generator=g).to(dev)  # noqa: E731
+    args = _saf_args(dev, s=s)
+    del args["awf"], args["abf"]
+    args.update(wq=t(steps, s, s), bq=t(steps, s), wk=t(steps, s, s), bk=t(steps, s),
+                wg=t(steps, s, s), bg=t(steps, s))
+    args.update(kw)
+    return args
+
+
+def test_sgraf_eval_sgr_wrapper_raises_off_cpu():
+    before = sgraf_eval.sgraf_eval_sgr_fused.launches
+    with pytest.raises(ValueError, match="no kernel"):
+        sgraf_eval.sgraf_eval_sgr_fused(**_sgr_args("meta"))
+    assert sgraf_eval.sgraf_eval_sgr_fused.launches == before
+
+
+@pytest.mark.parametrize("which", ["img", "cap", "wq", "wg"])
+def test_sgraf_eval_sgr_refuses_to_build_a_graph(which):
+    """Forward-only: with grad enabled and an input (an embedding or a
+    reasoning weight) that requires grad it raises on every device (here the
+    CPU, whose plain path could differentiate), without counting."""
+    args = _sgr_args()
+    args[which].requires_grad_()
+    before = sgraf_eval.sgraf_eval_sgr_fused.launches
+    with pytest.raises(RuntimeError, match="forward-only.*item 8c"):
+        sgraf_eval.sgraf_eval_sgr_fused(**args)
+    with torch.no_grad():
+        assert sgraf_eval.sgraf_eval_sgr_fused(**args).shape == (3, 2)
+    assert sgraf_eval.sgraf_eval_sgr_fused.launches == before
+
+
 def test_sgraf_eval_saf_wrapper_raises_off_cpu():
     before = sgraf_eval.sgraf_eval_saf_fused.launches
     with pytest.raises(ValueError, match="no kernel"):
@@ -293,7 +326,7 @@ def test_sgraf_eval_saf_refuses_to_build_a_graph(which):
 
 
 def _sgraf(**kw):
-    cfg = dict(_cfg(), name="SGRAF", sim_dim=8, module_name="SAF", cap_chunk=2)
+    cfg = dict(_cfg(), name="SGRAF", sim_dim=8, module_name="SAF", sgr_step=3, cap_chunk=2)
     cfg.update(kw)
     return get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
 
@@ -320,9 +353,41 @@ def test_sgraf_sends_only_evaluation_to_the_kernel(monkeypatch):
     assert calls == [13]
 
 
-def test_sgraf_sgr_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8b"):
-        _sgraf(module_name="SGR")
+def test_sgraf_sgr_sends_only_evaluation_to_the_kernel(monkeypatch):
+    """SGR's evaluation on the card goes to the SGR kernel wrapper with the
+    steps' Linears stacked (the SAF wrapper never); on the CPU to the plain
+    chain; training raises, naming the item that ports it."""
+    model = _sgraf(module_name="SGR", sgr_step=2)
+    assert model.fused_eval_active("cuda", train=False)
+    assert not model.fused_eval_active("cuda", train=True)
+    assert not model.fused_eval_active("cpu")
+    calls = []
+
+    def sgr(*a):
+        calls.append(("sgr", [tuple(t.shape) for t in a[9:15]]))
+        return torch.zeros(3, 2)
+
+    monkeypatch.setattr(sgraf, "sgraf_eval_sgr_fused", sgr)
+    monkeypatch.setattr(sgraf, "sgraf_eval_saf_fused", lambda *a: calls.append(("saf",)))
+    monkeypatch.setattr(type(model), "fused_eval_active",
+                        lambda self, device, train=False: not train)
+    img, cap, mask = torch.zeros(2, 36, 16), torch.zeros(3, 4, 16), torch.ones(3, 4)
+    with torch.no_grad():
+        assert model.similarity(img, cap, mask).shape == (2, 3)
+    assert calls == [("sgr", [(2, 8, 8), (2, 8)] * 3)]
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8c"):
+        model.similarity(img, cap, mask, train=True)
+    model.train()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8c"):
+        model.sim_enc(img, cap, mask)
+    assert len(calls) == 1
+
+
+def test_sgraf_refuses_an_unknown_module():
+    with pytest.raises(ValueError, match="module_name"):
+        _sgraf(module_name="SAGR")
+    with pytest.raises(ValueError, match="sgr_step"):
+        _sgraf(module_name="SGR", sgr_step=0)
 
 
 def test_sgraf_saf_training_names_its_roadmap_item():
@@ -341,12 +406,13 @@ def test_check_supported_refuses_sgraf_training():
 
 
 def test_sgraf_eval_saf_source_is_built_and_hashed(tmp_path, monkeypatch):
-    """The SAF kernel's library name hashes its source and the shared A
-    product header it includes."""
+    """The SAF kernel's library name hashes its source and the shared headers
+    it includes: the node assembly, which includes the A product."""
     src = kernels.CSRC / sgraf_eval.SOURCE
     assert "int itrx_sgraf_eval_saf(" in src.read_text()
-    assert '#include "xattn_product.cuh"' in src.read_text()
-    for name in (sgraf_eval.SOURCE, "xattn_product.cuh"):
+    assert '#include "sgraf_nodes.cuh"' in src.read_text()
+    assert '#include "xattn_product.cuh"' in (kernels.CSRC / "sgraf_nodes.cuh").read_text()
+    for name in (sgraf_eval.SOURCE, "xattn_product.cuh", "sgraf_nodes.cuh"):
         (tmp_path / name).write_text((kernels.CSRC / name).read_text())
     monkeypatch.setattr(kernels, "CSRC", tmp_path)
     first = kernels.library_path("sgraf_eval_saf")
@@ -354,3 +420,23 @@ def test_sgraf_eval_saf_source_is_built_and_hashed(tmp_path, monkeypatch):
     second = kernels.library_path("sgraf_eval_saf")
     (tmp_path / sgraf_eval.SOURCE).write_text("// edited\n")
     assert len({first, second, kernels.library_path("sgraf_eval_saf")}) == 3
+
+
+def test_sgraf_eval_sgr_source_is_built_and_hashed(tmp_path, monkeypatch):
+    """The SGR kernel exists, shares the node assembly header with the SAF
+    kernel, and its library name (and the SAF kernel's) changes when either
+    shared header changes."""
+    src = kernels.CSRC / sgraf_eval.SGR_SOURCE
+    assert "int itrx_sgraf_eval_sgr(" in src.read_text()
+    assert '#include "sgraf_nodes.cuh"' in src.read_text()
+    names = (sgraf_eval.SOURCE, sgraf_eval.SGR_SOURCE, "sgraf_nodes.cuh", "xattn_product.cuh")
+    for name in names:
+        (tmp_path / name).write_text((kernels.CSRC / name).read_text())
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    libs = ("sgraf_eval_saf", "sgraf_eval_sgr")
+    seen = [[kernels.library_path(n) for n in libs]]
+    for header in ("sgraf_nodes.cuh", "xattn_product.cuh"):
+        (tmp_path / header).write_text("// edited\n")
+        seen.append([kernels.library_path(n) for n in libs])
+    for i, _ in enumerate(libs):
+        assert len({paths[i] for paths in seen}) == 3
