@@ -18,7 +18,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    (all five gradients, both directions); the SGRAF-SAF and SGRAF-SGR score
    kernels to `sgraf_eval_saf_plain` and `sgraf_eval_sgr_plain` at D 1024,
    S 256 (SGR at sgr_step 3, and 1 at the ragged shape), bf16 and fp32,
-   and SGR at a 128-word caption and at S 128 in bf16;
+   and SGR at a 128-word caption and at S 128 in bf16; the SGRAF training
+   alignment kernels (forward and backward) to `sgraf_align_plain` and
+   `sgraf_align_bwd_plain` (all four gradients, and two backward calls
+   bit-identical) at one training chunk, 32 captions x 128 images x 24
+   words, and at a ragged odd shape, bf16 and fp32;
 4. the evaluation slices at full width on an f30k-1K-shaped synthetic split
    (1000 images x 36 x 2048 regions, 5000 captions) through get_model ->
    evaluate_split (encode_data -> cal_sims -> cal_recall) with encode_bf16
@@ -49,7 +53,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    loss is finite and the loss falls; evalrank_single on model_best.pth.tar
    reproduces its best_rsum; the first step's loss and every gradient on the
    card match the same step on a CPU copy of the model (the plain path).
-   Then the median step time and a profile of a few steps.
+   Then the median step time and a profile of a few steps;
+7. the SGRAF-SAF training slice at full width: SGRAF's published f30k SAF
+   command (the SGRAF() overlay with max_violation: bi-GRU, embed 1024,
+   sim_dim 256, batch 128, Adam 2e-4, clip 2.0) with sim_bf16, one 25-step
+   epoch through fit with validation mid-epoch and at the end: the
+   counters show the GRU kernels, both alignment kernels (4 launches each a
+   step) and, in validation, the SAF eval kernel, and no SCAN or SGR grid
+   kernel; the losses are finite and fall; evalrank_single reproduces
+   best_rsum; the first step at dropout 0 (loss, every gradient, the SAF and
+   visual BatchNorm running statistics) matches a CPU copy.  Then the
+   median step time, samples/s, peak memory and a profile of 3 steps.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -78,6 +92,8 @@ from itrx_torch.models import get_model
 from itrx_torch.ops import kernels
 from itrx_torch.ops.kernels import gru as kgru
 from itrx_torch.ops.kernels.gru import gru_bwd_fused, gru_scan_fused
+from itrx_torch.ops.kernels.sgraf_align import (sgraf_align_bwd_fused, sgraf_align_bwd_plain,
+                                                sgraf_align_fused, sgraf_align_plain)
 from itrx_torch.ops.kernels.sgraf_eval import (sgraf_eval_saf_fused, sgraf_eval_saf_plain,
                                                sgraf_eval_sgr_fused, sgraf_eval_sgr_plain)
 from itrx_torch.ops.kernels.xattn import (xattn_i2t_fused, xattn_i2t_plain,
@@ -122,8 +138,47 @@ GRU_BWD_REL = 1e-5
 # amplifies summation-order differences to ~1e-5 of a tensor's scale
 TRAIN_LOSS_REL = 1e-5
 TRAIN_GRAD_REL = 1e-3
+# BatchNorm running statistics after the first step (SGRAF), relative to
+# the larger of the tensor's largest entry and its channels' standard
+# deviation: forward values in another summation order
+TRAIN_STAT_REL = 1e-4
+# SGRAF-SAF with sim_bf16: both devices round the word nodes and their
+# cotangents to bf16 (one step is 2^-8 of an entry), and an entry whose fp32
+# value sits near a rounding boundary may round apart; measured on the H100
+# up to 8.8e-4 of a gradient's scale
+TRAIN_GRAD_REL_BF16 = 1e-2
+# biases whose gradient is zero in exact arithmetic (before a per-feature
+# BatchNorm, or a softmax): rounding noise on both devices, held to this
+# share of the model's largest gradient entry instead
+ZERO_GRADS = ("sim_enc.v_global_w.embedding_global.0.bias",
+              "sim_enc.v_global_w.embedding_common.0.bias",
+              "sim_enc.t_global_w.embedding_common.0.bias",
+              "sim_enc.SAF_module.attn_sim_w.bias")
+ZERO_GRAD_REL = 1e-4
 TRAIN_STEPS = 50  # one epoch of the synthetic train split at batch 128
 TRAIN_VAL_STEP = 30  # one validation + checkpoint mid-epoch, one at the end
+# SGRAF-SAF training: one epoch of 25 steps, validation at step 15 and the end
+SAF_TRAIN_STEPS = 25
+SAF_TRAIN_VAL_STEP = 15
+# the alignment kernels vs their plain pair on the same inputs: the forward's
+# nodes (l2-normalized, entries up to ~0.3) in fp32 differ by summation order
+# only; in bf16 both sides round the same fp32 node to bf16, so they may sit
+# one bf16 step (2^-9 at 0.25) apart
+ALIGN_FP32_ATOL = 1e-5
+ALIGN_BF16_ATOL = 2e-3
+# the backward, per gradient max|kernel - plain| / max|plain|: summation
+# order through the chain, amplified at one-word captions (whose word norm is
+# a sign, h / (|h| + eps): measured on the CPU 5e-5 of gcap's scale between
+# fp32 and float64); gcap and gimg in bf16 are rounded to bf16 on both sides,
+# which may put them one bf16 step (2^-8 of an entry) apart.  A gradient that
+# loses one caption's contribution is printed beside each reading and must
+# exceed the limit
+ALIGN_BWD_REL = 1e-3
+ALIGN_BWD_BF16_REL = 2.0 ** -8
+# (Nc, Ni, L): one training chunk at full width (cap_chunk 32 x batch 128,
+# caption bound 24), then a ragged odd shape (Nc not a multiple of the
+# caption group, Ni odd, a one-word caption, L 21)
+ALIGN_SHAPES = ((32, 128, 24), (37, 37, 21))
 REPLACES = {
     "gru": "itrx/ops/pallas/gru.py:37 (_fwd_kernel)",
     "gru_bwd": "itrx/ops/pallas/gru.py:68 (_bwd_kernel)",
@@ -131,13 +186,17 @@ REPLACES = {
     "xattn_i2t": "itrx/ops/pallas/xattn.py:228 (_kernel_i2t)",
     "sgraf_eval_saf": "itrx/ops/pallas/sgraf_eval.py:190 (_eval_saf_kernel)",
     "sgraf_eval_sgr": "itrx/ops/pallas/sgraf_eval.py:171 (_eval_kernel)",
+    "sgraf_align": "itrx/ops/pallas/sgraf_align.py:102 (_fwd_kernel)",
+    "sgraf_align_bwd": "itrx/ops/pallas/sgraf_align.py:112 (_bwd_kernel)",
 }
 SOURCES = {"gru": "gru.cu", "gru_bwd": "gru_bwd.cu", "xattn": "xattn.cu",
            "xattn_i2t": "xattn_i2t.cu", "sgraf_eval_saf": "sgraf_eval_saf.cu",
-           "sgraf_eval_sgr": "sgraf_eval_sgr.cu"}
+           "sgraf_eval_sgr": "sgraf_eval_sgr.cu", "sgraf_align": "sgraf_align.cu",
+           "sgraf_align_bwd": "sgraf_align_bwd.cu"}
 COUNTERS = {"gru": gru_scan_fused, "gru_bwd": gru_bwd_fused, "xattn": xattn_t2i_fused,
             "xattn_i2t": xattn_i2t_fused, "sgraf_eval_saf": sgraf_eval_saf_fused,
-            "sgraf_eval_sgr": sgraf_eval_sgr_fused}
+            "sgraf_eval_sgr": sgraf_eval_sgr_fused, "sgraf_align": sgraf_align_fused,
+            "sgraf_align_bwd": sgraf_align_bwd_fused}
 GRID_KERNELS = ("xattn", "xattn_i2t", "sgraf_eval_saf", "sgraf_eval_sgr")
 # PR 6's SAF kernel at 64 x 320 x 36 x 24 x 1024, S 256 (ms, bf16 and fp32;
 # NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
@@ -734,6 +793,124 @@ def phase_sgraf_eval_sgr(g) -> dict:
     return res
 
 
+def _align_inputs(g, ni, nc, l, d=1024, s=256):
+    """The SAF phase's embeddings, sim_tranloc_w at the reference's init
+    scale with a small random bias, and a cotangent that is zero at masked
+    words (SAF's)."""
+    img, cap, mask = _xattn_inputs(g, ni, nc, l, d)
+    r = math.sqrt(6.0 / (d + s))
+    w = ((torch.rand(s, d, generator=g) * 2 - 1) * r).to(DEV)
+    b = ((torch.rand(s, generator=g) * 2 - 1) * 0.05).to(DEV)
+    cot = torch.randn(nc, ni, l, s, generator=g).to(DEV) * mask[:, None, :, None]
+    return dict(cap=cap, mask=mask, img=img, w=w, b=b), cot
+
+
+def align_bound(img, cap, mask, s: int = 256, backward: bool = False) -> dict:
+    """The bound of one alignment call.  Forward: cap, img, mask and the fp32
+    W, b read once, the (Nc, Ni, L, S) nodes written once in cap's dtype; per
+    valid word and image the A and context products (36 x D each) and the
+    projection (D x S), at the bf16 tensor-core peak for bf16 embeddings
+    (else fp32), and some 4 D + 50 R + 4 S fp32 operations of the chain.
+    Backward: the same inputs and the cotangent read once, gcap and gimg (in
+    cap's dtype) and the fp32 dW, db written once; the recomputed products,
+    W gy and dW (D x S each) and four more 36 x D products, and about twice
+    the forward's chain."""
+    ni, r, d = img.shape
+    nc, l, _ = cap.shape
+    pairs = ni * float(mask.sum())
+    es = img.element_size()
+    if backward:
+        products = 2.0 * pairs * (6 * r * d + 3 * d * s)
+        rest = 2.0 * pairs * (4 * d + 50 * r + 4 * s)
+        n_bytes = nbytes(img, cap, mask) + 4 * (s * d + s) + nc * ni * l * s * es \
+            + (cap.numel() + img.numel()) * es + 4 * (s * d + s)
+    else:
+        products = 2.0 * pairs * (2 * r * d + d * s)
+        rest = pairs * (4 * d + 50 * r + 4 * s)
+        n_bytes = nbytes(img, cap, mask) + 4 * (s * d + s) + nc * ni * l * s * es
+    ops = {"bf16": products, "fp32": rest} if img.dtype == torch.bfloat16 \
+        else {"fp32": products + rest}
+    return bound(n_bytes, ops)
+
+
+def phase_sgraf_align(g) -> dict:
+    """The training alignment kernels vs their plain pair: one training chunk
+    at full width (32 captions x 128 images x 36 x 24 x 1024, S 256, ragged
+    lengths 1-24), then a ragged odd shape; bf16 and fp32."""
+    log("sgraf_align forward + backward kernels vs plain (R=36, D=1024, S=256, lambda 9)")
+    res = {}
+    names = ("gcap", "gimg", "gw", "gb")
+    for nc, ni, l in ALIGN_SHAPES:
+        x, cot = _align_inputs(g, ni, nc, l)
+        for dt in (torch.bfloat16, torch.float32):
+            tag = f"sgraf_align {nc}x{ni}x36x{l} {'bf16' if dt == torch.bfloat16 else 'fp32'}"
+            xd = dict(x, cap=x["cap"].to(dt), img=x["img"].to(dt))
+            with torch.no_grad():
+                got = sgraf_align_fused(**xd)
+            want = sgraf_align_plain(**xd)
+            e_fwd = check(f"{tag} forward", got, want,
+                          ALIGN_BF16_ATOL if dt == torch.bfloat16 else ALIGN_FP32_ATOL)
+            kb = sgraf_align_bwd_fused(**xd, g=cot.to(dt))
+            pb = sgraf_align_bwd_plain(**xd, g=cot.to(dt))
+            # the fault the limit must separate: one caption's cotangent lost
+            lost = cot.clone()
+            lost[nc // 2] = 0.0
+            lb = sgraf_align_bwd_plain(**xd, g=lost.to(dt))
+            errs = {}
+            for name, a, w_, c_ in zip(names, kb, pb, lb):
+                lim = ALIGN_BWD_BF16_REL if a.dtype == torch.bfloat16 else ALIGN_BWD_REL
+                errs[name] = check_rel(f"{tag} backward {name}", a, w_, lim)
+                wrong = rel_err(c_.float(), w_.float())
+                log(f"    the plain {name} with caption {nc // 2}'s cotangent dropped: "
+                    f"rel_err {wrong:.3e}")
+                if not wrong > lim:
+                    raise AssertionError(f"the limit {lim} does not separate a lost "
+                                         f"caption ({wrong}) in {name}")
+            again = sgraf_align_bwd_fused(**xd, g=cot.to(dt))
+            same = all(torch.equal(a, b_) for a, b_ in zip(kb, again))
+            log(f"  {tag}: two backward calls bit-identical: {same}")
+            if not same:
+                raise AssertionError(f"{tag}: the backward is not deterministic")
+            if (nc, ni, l) == ALIGN_SHAPES[0] and dt == torch.bfloat16:
+                res["max_abs_err"] = e_fwd
+                res["bwd_max_abs_err"] = max(float((a.float() - w_.float()).abs().max())
+                                             for a, w_ in zip(kb, pb))
+                res["bwd_rel_err"] = errs
+                res["bwd_deterministic"] = same
+    nc, ni, l = ALIGN_SHAPES[0]
+    x, cot = _align_inputs(g, ni, nc, l)
+    for dt, suf in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
+        xd = dict(x, cap=x["cap"].to(dt), img=x["img"].to(dt))
+        c_ = cot.to(dt)
+        with torch.no_grad():
+            res["ms" + suf] = cuda_ms(lambda: sgraf_align_fused(**xd), reps=10)
+            res["plain_ms" + suf] = cuda_ms(lambda: sgraf_align_plain(**xd), reps=5)
+        res["bwd_ms" + suf] = cuda_ms(lambda: sgraf_align_bwd_fused(**xd, g=c_), reps=10)
+        res["bwd_plain_ms" + suf] = cuda_ms(lambda: sgraf_align_bwd_plain(**xd, g=c_), reps=5)
+        fb = align_bound(xd["img"], xd["cap"], xd["mask"])
+        bb = align_bound(xd["img"], xd["cap"], xd["mask"], backward=True)
+        res["bound_ms" + suf], res["bound_by" + suf] = fb["bound_ms"], fb["bound_by"]
+        res["bwd_bound_ms" + suf], res["bwd_bound_by" + suf] = bb["bound_ms"], bb["bound_by"]
+    # no single PyTorch call computes the alignment chain or its backward
+    res["library_ms"] = None
+    log(f"  time 32x128x36x24x1024, S 256, bf16: forward kernel {res['ms']:.3f} ms, plain "
+        f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
+        f"backward kernels {res['bwd_ms']:.3f} ms, plain {res['bwd_plain_ms']:.3f} ms, bound "
+        f"{res['bwd_bound_ms']:.4f} ms ({res['bwd_bound_by']}); fp32: forward "
+        f"{res['ms_fp32']:.3f} ms (plain {res['plain_ms_fp32']:.3f}, bound "
+        f"{res['bound_ms_fp32']:.4f}), backward {res['bwd_ms_fp32']:.3f} ms (plain "
+        f"{res['bwd_plain_ms_fp32']:.3f}, bound {res['bwd_bound_ms_fp32']:.4f})")
+    return res
+
+
+def align_bwd_result(res: dict) -> dict:
+    """The backward kernels' row of the kernels line, from the phase's
+    result."""
+    return {"max_abs_err": res["bwd_max_abs_err"], "ms": res["bwd_ms"],
+            "plain_ms": res["bwd_plain_ms"], "bound_ms": res["bwd_bound_ms"],
+            "bound_by": res["bwd_bound_by"], "library_ms": None}
+
+
 def plain_grid(model, imgs, caps, cap_mask, cfg) -> torch.Tensor:
     """The (Ni, Nc) grid through the plain path alone, in cal_sims' length
     buckets: for SCAN the plain version of the config's direction on the
@@ -1103,23 +1280,30 @@ def _losses_from_events(save_dir: str) -> tuple[list, list]:
     return losses, rsums
 
 
-def _first_step_witness(cfg, batch) -> dict:
-    """The first training step's loss and gradients on the card (GRU kernels,
-    plain attention) against the same step on a CPU copy (plain path
-    throughout), from one seed's weights and one batch."""
+def _first_step_witness(cfg, batch, grad_rel: float = TRAIN_GRAD_REL) -> dict:
+    """The first training step's loss, gradients and (SGRAF) BatchNorm
+    running statistics on the card (the kernels) against the same step on a
+    CPU copy (plain path throughout), from one seed's weights and one batch,
+    in train mode."""
     def step_on(dev):
         model = get_model(cfg, device=dev,
-                          generator=torch.Generator().manual_seed(cfg["seed"]))
+                          generator=torch.Generator().manual_seed(cfg["seed"])).train()
         b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         loss, _ = model.loss(b, train=True)
         loss.backward()
+        # copies: on the CPU .cpu() would alias the buffers that the next
+        # train-mode call updates
+        stats = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
         with torch.no_grad():
             e = model.embed(b)
             scores = model.similarity(e["img"], e["cap"], e["cap_mask"], train=True)
         grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
-        return loss.detach().cpu(), grads, scores.cpu()
+        return loss.detach().cpu(), grads, scores.cpu(), stats
 
-    (lk, gk, sk), (lc, gc, sc) = step_on(DEV), step_on(torch.device("cpu"))
+    t0 = time.perf_counter()
+    (lk, gk, sk, tk), (lc, gc, sc, tc) = step_on(DEV), step_on(torch.device("cpu"))
+    log(f"  first-step witness (card, then a CPU copy): {time.perf_counter() - t0:.1f} s")
     loss_err = abs(float(lk) - float(lc)) / abs(float(lc))
     log(f"  first step loss: card {float(lk):.7f}, cpu {float(lc):.7f}, rel_err "
         f"{loss_err:.3e} (limit {TRAIN_LOSS_REL:g})")
@@ -1131,11 +1315,31 @@ def _first_step_witness(cfg, batch) -> dict:
     if not loss_err <= TRAIN_LOSS_REL:
         raise AssertionError(f"first-step loss differs card vs cpu by {loss_err}")
     grad_errs = {}
+    scale = max(float(g.abs().max()) for g in gc.values())
     for k in gc:
+        if k in ZERO_GRADS:
+            noise = max(float(gk[k].abs().max()), float(gc[k].abs().max())) / scale
+            log(f"  first step grad {k} (zero in exact arithmetic): {noise:.3e} of the "
+                f"largest gradient (limit {ZERO_GRAD_REL:g})")
+            if not noise <= ZERO_GRAD_REL:
+                raise AssertionError(f"{k}: gradient {noise} of scale, expected noise")
+            continue
         grad_errs[k] = check_rel(f"first step grad {k} (card vs cpu)", gk[k], gc[k],
-                                 TRAIN_GRAD_REL)
+                                 grad_rel)
+    stat_errs = {}
+    for k in tc:
+        # a running mean is a mean of centred values (~0 by cancellation), so
+        # it is held in units of its channel's standard deviation
+        var = tc[k.replace("running_mean", "running_var")]
+        scale = max(float(tc[k].abs().max()), float(var.max()) ** 0.5)
+        stat_errs[k] = float((tk[k] - tc[k]).abs().max()) / scale
+        log(f"  first step {k} (card vs cpu): {stat_errs[k]:.3e} of scale "
+            f"(limit {TRAIN_STAT_REL:g})")
+        if not stat_errs[k] <= TRAIN_STAT_REL:
+            raise AssertionError(f"first-step {k} differs card vs cpu by {stat_errs[k]}")
     return {"loss_card": float(lk), "loss_cpu": float(lc), "loss_rel_err": loss_err,
             "grad_rel_err_max": max(grad_errs.values()),
+            "stat_rel_err_max": max(stat_errs.values()) if stat_errs else None,
             "hardest_negative_agreement": hn_agree}
 
 
@@ -1170,17 +1374,44 @@ def _profile_steps(step_fn, batches) -> dict:
     return out
 
 
-def phase_train(root: str, card: str) -> dict:
-    log("training slice: SCAN f30k t2i training configuration at full width")
+# the training slices: (title, method overlay and overrides, steps of the one
+# epoch, validation step, synthetic data seed, kernels the path must launch,
+# launches a step each alignment kernel must show, overrides of the
+# first-step witness, its gradient limit)
+TRAIN_SLICES = {
+    # SCAN's published f30k t2i command (kuanghuei/SCAN README)
+    "scan": ("SCAN f30k t2i training configuration",
+             ("SCAN", "bi_gru=True", "max_violation=True"), TRAIN_STEPS, TRAIN_VAL_STEP, 1,
+             ("gru", "gru_bwd", "xattn"), {}, {}, TRAIN_GRAD_REL),
+    # SGRAF's published f30k SAF command (Paranioar/SGRAF README: --module_name
+    # SAF --max_violation --embed_size 1024 --sim_dim 256), the bf16 chain;
+    # the witness at dropout 0, since the two devices' random streams differ
+    "saf": ("SGRAF-SAF f30k training configuration (sim_bf16)",
+            ("SGRAF", "module_name=SAF", "max_violation=True", "sim_bf16=True"),
+            SAF_TRAIN_STEPS, SAF_TRAIN_VAL_STEP, 3,
+            ("gru", "gru_bwd", "sgraf_align", "sgraf_align_bwd", "sgraf_eval_saf"),
+            {"sgraf_align": 1, "sgraf_align_bwd": 1}, {"sgraf_dropout": 0.0},
+            TRAIN_GRAD_REL_BF16),
+}
+
+
+def phase_train(root: str, card: str, name: str) -> dict:
+    """A training slice at full width through fit: one epoch of a synthetic
+    split, one validation and checkpoint mid-epoch and one at its end; the
+    first-step witness, the counters, finite and falling losses,
+    evalrank_single reproducing best_rsum, then the median step time, peak
+    memory and a profile of 3 steps."""
+    (title, method, steps, val_step, data_seed, used, per_chunk, witness_cfg,
+     grad_rel) = TRAIN_SLICES[name]
+    log(f"training slice: {title} at full width")
     t0 = time.perf_counter()
-    n_images = TRAIN_STEPS * 128 // 5  # 5 captions per image
-    generate(os.path.join(root, "f30k_precomp"), n_images=n_images, img_dim=2048,
-             splits=("train", "dev"), seed=1, n_concepts_range=(2, 10))
+    generate(os.path.join(root, "f30k_precomp"), n_images=steps * 128 // 5, img_dim=2048,
+             splits=("train", "dev"), seed=data_seed, n_concepts_range=(2, 10))
     cfg = parse_cli(
-        ["with", "SCAN", "data_name=f30k_precomp", f"data_path={root}",
+        ["with", *method, "data_name=f30k_precomp", f"data_path={root}",
          f"vocab_path={os.path.join(REPO, 'itrx', 'vocab')}", "vocab_type=json",
-         "bi_gru=True", "max_violation=True", "num_epochs=1",
-         f"val_step={TRAIN_VAL_STEP}", "log_step=1", f"save_path={root}/runs", "seed=0"],
+         "num_epochs=1", f"val_step={val_step}", "log_step=1", f"save_path={root}/runs",
+         "seed=0"],
     )
     train_ds, val_ds, vocab_size = get_loaders(cfg)
     cfg["vocab_size"] = vocab_size
@@ -1188,10 +1419,11 @@ def phase_train(root: str, card: str) -> dict:
         f"{len(val_ds)} dev captions, vocab {vocab_size}); batch {cfg['batch_size']}, "
         f"embed {cfg['embed_size']}, word_dim {cfg['word_dim']}, img_dim {cfg['img_dim']}, "
         f"lr {cfg['learning_rate']}, clip {cfg['grad_clip']}, train_bf16 "
-        f"{cfg['train_bf16']}")
+        f"{cfg['train_bf16']}, sim_bf16 {cfg['sim_bf16']}, sim_dim {cfg['sim_dim']}, "
+        f"cap_chunk {cfg['cap_chunk']}")
 
     first = next(train_ds.train_batches(cfg["batch_size"], cfg["seed"], 0))
-    witness = _first_step_witness(cfg, first)
+    witness = _first_step_witness(dict(cfg, **witness_cfg), first, grad_rel)
 
     # the main path, counted: the port's train entry
     reset_counters()
@@ -1202,22 +1434,27 @@ def phase_train(root: str, card: str) -> dict:
     fit_s = time.perf_counter() - t0
     launches = read_counters()
     log(f"  main path (fit, 1 epoch) launches: {launches}; {fit_s:.2f} s")
-    for k in ("gru", "gru_bwd", "xattn"):
-        if launches[k] <= 0:
+    for k in COUNTERS:
+        if k in used and launches[k] <= 0:
             raise AssertionError(f"the training path never launched the {k} kernel")
-    if launches["xattn_i2t"]:
-        raise AssertionError("t2i training launched the i2t kernel")
-    if state.step != TRAIN_STEPS:
-        raise AssertionError(f"fit ran {state.step} steps, expected {TRAIN_STEPS}")
+        if k not in used and launches[k]:
+            raise AssertionError(f"the training path launched the {k} kernel")
+    chunks = -(-cfg["batch_size"] // cfg["cap_chunk"])
+    for k, n in per_chunk.items():
+        if launches[k] != n * chunks * steps:
+            raise AssertionError(f"{k}: {launches[k]} launches, expected {n * chunks} a step")
+    if state.step != steps:
+        raise AssertionError(f"fit ran {state.step} steps, expected {steps}")
 
     losses, rsums = _losses_from_events(cfg["save_dir"])
-    if len(losses) != TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"expected {TRAIN_STEPS} finite losses, got {losses}")
-    first10, last10 = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
-    log(f"  loss: first {losses[0]:.4f}, mean of first 10 {first10:.4f}, of last 10 "
-        f"{last10:.4f}; validation rsums {rsums}")
-    if not last10 < first10:
-        raise AssertionError(f"the loss did not fall: {first10} -> {last10}")
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"expected {steps} finite losses, got {losses}")
+    w = steps // 5
+    first_w, last_w = statistics.mean(losses[:w]), statistics.mean(losses[-w:])
+    log(f"  loss: first {losses[0]:.4f}, mean of first {w} {first_w:.4f}, of last {w} "
+        f"{last_w:.4f}; validation rsums {rsums}")
+    if not last_w < first_w:
+        raise AssertionError(f"the loss did not fall: {first_w} -> {last_w}")
     if len(rsums) != 2:
         raise AssertionError(f"expected one validation mid-epoch and one at its end, "
                              f"got {rsums}")
@@ -1234,8 +1471,9 @@ def phase_train(root: str, card: str) -> dict:
         raise AssertionError("evalrank_single does not reproduce the checkpoint's best_rsum")
 
     # step time after warm-up (host clock, each step ending in a synchronize)
-    step_fn = make_train_step(state)
+    step_fn = make_train_step(state, cfg["seed"])
     it = prefetch(train_ds.train_batches(cfg["batch_size"], cfg["seed"], 1), DEV)
+    torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(12):
         torch.cuda.synchronize()
@@ -1244,20 +1482,21 @@ def phase_train(root: str, card: str) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     step_s = statistics.median(times[2:])
+    peak = torch.cuda.max_memory_allocated() / 1e9
     prof = _profile_steps(step_fn, [next(it) for _ in range(3)])
     out = {
         "card": card,
-        "steps": TRAIN_STEPS,
+        "steps": steps,
         "fit_seconds": fit_s,
         "step_seconds_median": step_s,
         "step_seconds": times,
         "samples_per_sec": cfg["batch_size"] / step_s,
-        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "loss_first": losses[0], "loss_mean_first10": first10,
-        "loss_mean_last10": last10, "val_rsums": rsums, "best_rsum": best_rsum,
+        "peak_memory_gb": peak,
+        "loss_first": losses[0], f"loss_mean_first{w}": first_w,
+        f"loss_mean_last{w}": last_w, "val_rsums": rsums, "best_rsum": best_rsum,
         "witness": witness, "profile": prof, "launches": launches,
     }
-    log("training result: " + json.dumps(out))
+    log(f"{name} training result: " + json.dumps(out))
     return out
 
 
@@ -1267,7 +1506,8 @@ def main():
     g = torch.Generator().manual_seed(0)
     results = {"gru": phase_gru(g), "gru_bwd": phase_gru_bwd(g), "xattn": phase_xattn(g),
                "xattn_i2t": phase_xattn_i2t(g), "sgraf_eval_saf": phase_sgraf_eval_saf(g),
-               "sgraf_eval_sgr": phase_sgraf_eval_sgr(g)}
+               "sgraf_eval_sgr": phase_sgraf_eval_sgr(g), "sgraf_align": phase_sgraf_align(g)}
+    results["sgraf_align_bwd"] = align_bwd_result(results["sgraf_align"])
     with tempfile.TemporaryDirectory(prefix="itrx_smoke_") as data_root:
         # bench.py's split: 4000 // 4 = 1000 test images x 36 x 2048, 5000 captions
         generate(os.path.join(data_root, "f30k_precomp"), n_images=4000, img_dim=2048,
@@ -1281,13 +1521,18 @@ def main():
     with tempfile.TemporaryDirectory(prefix="itrx_smoke_fold5_") as root:
         phase_fold5(root, card)
     with tempfile.TemporaryDirectory(prefix="itrx_smoke_train_") as root:
-        tr = phase_train(root, card)
-    # launches: each kernel's count from the main path that runs it (the
+        tr = phase_train(root, card, "scan")
+    with tempfile.TemporaryDirectory(prefix="itrx_smoke_train_saf_") as root:
+        tr_saf = phase_train(root, card, "saf")
+    # launches: each kernel's count from the main path that runs it (SCAN's
     # training path for the GRU kernels and t2i validation, the i2t slice's
-    # evaluate_split for xattn_i2t, the SAF and SGR slices' for their kernels)
+    # evaluate_split for xattn_i2t, the SAF and SGR slices' for their eval
+    # kernels, SGRAF-SAF's training path for the alignment kernels)
     launches = dict(tr["launches"], xattn_i2t=i2t["launches"]["xattn_i2t"],
                     sgraf_eval_saf=saf["launches"]["sgraf_eval_saf"],
-                    sgraf_eval_sgr=sgr["launches"]["sgraf_eval_sgr"])
+                    sgraf_eval_sgr=sgr["launches"]["sgraf_eval_sgr"],
+                    sgraf_align=tr_saf["launches"]["sgraf_align"],
+                    sgraf_align_bwd=tr_saf["launches"]["sgraf_align_bwd"])
     log(f"card: {card}")
     print(json.dumps({"kernels": [
         {

@@ -42,6 +42,9 @@ def get_model(config: dict, device=None, generator: torch.Generator | None = Non
             cap_chunk=config.get("cap_chunk", 32),
             sim_bf16=config.get("sim_bf16", False),
             dropout=config.get("sgraf_dropout", 0.4),
+            margin=config.get("margin", 0.2),
+            max_violation=config.get("max_violation", False),
+            dropout_seed=config.get("seed", 0),
             generator=generator,
         )
         return model.to(device).eval()

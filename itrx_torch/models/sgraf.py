@@ -13,15 +13,21 @@ scores the result.
 Module names are the reference PyTorch SGRAF's, so the state dict carries
 its keys (`v_global_w.embedding_local.0.weight`, ...,
 `SGR_module.sgr0.graph_query_w.weight`, `SAF_module.bn.running_var`;
-itrx/utils/ref_convert.py:277-308 maps them).  Only evaluation is ported:
-training, whose SAF BatchNorm takes per-caption statistics, raises, naming
-its ROADMAP item.
+itrx/utils/ref_convert.py:277-308 maps them).  The module's mode decides
+the path: in eval mode the tower scores on running statistics (a CUDA
+kernel per grid, or the plain chain); in train mode (SAF only; SGR training
+raises, naming its ROADMAP item) the heads' BatchNorms take batch
+statistics, the 0.4 dropouts act, and each chunk of captions runs SAF with
+the per-caption BatchNorm statistics of the reference.  With `sim_bf16`
+the training chunk's word nodes come from `sgraf_align_fused` (the CUDA
+kernels on the card), else from the plain chain, as `itrx` dispatches.
 
 Arithmetic: the self-attention heads take their inputs in fp32 (their
 parameters are fp32; the embeddings may arrive in bf16 from eval_bf16), and
 the global embeddings they give are then rounded to the grid's dtype, so the
 score reads the values the CUDA kernel reads.  The plain score chain runs in
-fp32 on those values, the kernel's arithmetic.
+fp32 on those values, the kernel's arithmetic; in training too, where the
+bf16 word nodes of the alignment kernel are read back in fp32.
 """
 
 from __future__ import annotations
@@ -30,36 +36,43 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.kernels.sgraf_align import sgraf_align_fused
 from ..ops.kernels.sgraf_eval import fold_saf_bn, sgraf_eval_saf_fused, sgraf_eval_sgr_fused
 from ..ops.norms import l1norm, l2norm, safe_sqrt
-from .layers import xavier_linear
+from .layers import DropoutRNG, SeededDropout, xavier_linear
 
 NEG_INF = -1e18
 EPS = 1e-8
 LAMBDA_SOFTMAX = 9.0
-TRAIN_ITEM = "ROADMAP queue 1 item 8c"
+BN_MOMENTUM = 0.1
+BN_EPS = 1e-5
+TRAIN_ITEM = "ROADMAP queue 1 item 8d"
 
 
 def training_not_ported(what: str):
     return NotImplementedError(
-        f"{what}: SGRAF training is not ported yet (the SAF BatchNorm's per-caption "
-        f"train statistics come with it): {TRAIN_ITEM}")
+        f"{what}: SGRAF-SGR training is not ported yet (the SGR reasoning kernels "
+        f"itrx/ops/pallas/sgr.py::_fwd_kernel and ::_bwd_kernel come with it; "
+        f"SGRAF-SAF trains): {TRAIN_ITEM}")
 
 
 class VisualSA(nn.Module):
     """Global image embedding by region self-attention (ref :464-512).  The
-    local branch's BatchNorm1d(num_region) normalizes per region; the Tanh
-    and Dropout of the reference's Sequentials follow at indices 2-3."""
+    local branch's BatchNorm1d(num_region) normalizes per region (over the
+    batch and the embedding); the Tanh and Dropout of the reference's
+    Sequentials follow at indices 2-3.  In train mode the BatchNorms take
+    batch statistics and update their running ones (torch's: unbiased
+    variance, momentum 0.1), as `itrx`'s TorchBatchNorm does."""
 
     def __init__(self, embed_dim: int, num_region: int = 36, dropout_rate: float = 0.4,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, rng: DropoutRNG | None = None):
         super().__init__()
         self.embedding_local = nn.Sequential(
             xavier_linear(embed_dim, embed_dim, generator), nn.BatchNorm1d(num_region),
-            nn.Tanh(), nn.Dropout(dropout_rate))
+            nn.Tanh(), SeededDropout(dropout_rate, rng))
         self.embedding_global = nn.Sequential(
             xavier_linear(embed_dim, embed_dim, generator), nn.BatchNorm1d(embed_dim),
-            nn.Tanh(), nn.Dropout(dropout_rate))
+            nn.Tanh(), SeededDropout(dropout_rate, rng))
         self.embedding_common = nn.Sequential(xavier_linear(embed_dim, 1, generator))
 
     def forward(self, local, raw_global):
@@ -75,12 +88,14 @@ class TextSA(nn.Module):
     softmax masked to the caption's words."""
 
     def __init__(self, embed_dim: int, dropout_rate: float = 0.4,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, rng: DropoutRNG | None = None):
         super().__init__()
         self.embedding_local = nn.Sequential(
-            xavier_linear(embed_dim, embed_dim, generator), nn.Tanh(), nn.Dropout(dropout_rate))
+            xavier_linear(embed_dim, embed_dim, generator), nn.Tanh(),
+            SeededDropout(dropout_rate, rng))
         self.embedding_global = nn.Sequential(
-            xavier_linear(embed_dim, embed_dim, generator), nn.Tanh(), nn.Dropout(dropout_rate))
+            xavier_linear(embed_dim, embed_dim, generator), nn.Tanh(),
+            SeededDropout(dropout_rate, rng))
         self.embedding_common = nn.Sequential(xavier_linear(embed_dim, 1, generator))
 
     def forward(self, local, raw_global, mask):
@@ -111,19 +126,50 @@ class GraphReasoning(nn.Module):
 
 class AttentionFiltration(nn.Module):
     """SAF: sigmoid-gated l1norm attention pooling over the nodes (ref
-    :600-629), in evaluation: the single-channel BatchNorm on its running
-    statistics."""
+    :600-629).  In eval mode the single-channel BatchNorm runs on its
+    running statistics.  In train mode it follows the reference, which
+    scores one caption at a time (Fusionmodule.py:406-451): each caption's
+    statistics over its Ni x (L_i + 1) valid nodes normalize its rows, and
+    the running statistics take the C captions' updates in order, folded in
+    closed form, r' = 0.9^C r + sum_i 0.1 0.9^(C-1-i) stat_i with the
+    unbiased variance (itrx/models/sgraf.py:114-181).  `bn` stays an
+    nn.BatchNorm1d(1), so the keys `SAF_module.bn.*` stay."""
 
     def __init__(self, sim_dim: int, generator: torch.Generator | None = None):
         super().__init__()
         self.attn_sim_w = xavier_linear(sim_dim, 1, generator)
         self.bn = nn.BatchNorm1d(1)
 
-    def forward(self, sim_emb, node_mask, train: bool = False):
-        """sim_emb (B, N, S), node_mask (B, N) -> (B, S)."""
-        if train or self.training:
-            raise training_not_ported("AttentionFiltration(train=True)")
-        attn = self.bn(self.attn_sim_w(sim_emb).transpose(1, 2))[:, 0]  # (B, N)
+    def _batch_norm(self, x, node_mask, cap_rows: int):
+        """x, node_mask (B, N), rows grouped by caption, `cap_rows` captions
+        -> x normalized by each caption's statistics; updates the running
+        statistics (fp32)."""
+        b, n = x.shape
+        xc = x.float().reshape(cap_rows, b // cap_rows, n)
+        mc = node_mask.float().reshape(cap_rows, b // cap_rows, n)
+        cnt = mc.sum(dim=(1, 2))
+        mean = (xc * mc).sum(dim=(1, 2)) / cnt
+        var = (xc * xc * mc).sum(dim=(1, 2)) / cnt - mean * mean
+        bn = self.bn
+        with torch.no_grad():
+            unbiased = var * (cnt / torch.clamp(cnt - 1.0, min=1.0))
+            decay = 1.0 - BN_MOMENTUM
+            w = BN_MOMENTUM * decay ** torch.arange(cap_rows - 1, -1, -1, dtype=torch.float32,
+                                                     device=x.device)
+            bn.running_mean.mul_(decay ** cap_rows).add_((w * mean).sum())
+            bn.running_var.mul_(decay ** cap_rows).add_((w * unbiased).sum())
+            bn.num_batches_tracked.add_(cap_rows)
+        out = (xc - mean[:, None, None]) * torch.rsqrt(var + BN_EPS)[:, None, None]
+        return (out * bn.weight + bn.bias).reshape(b, n)
+
+    def forward(self, sim_emb, node_mask, cap_rows: int = 1):
+        """sim_emb (B, N, S), node_mask (B, N) -> (B, S).  In train mode the
+        B rows are `cap_rows` captions' rows, caption-major."""
+        x = self.attn_sim_w(sim_emb)[..., 0]  # (B, N)
+        if self.training:
+            attn = self._batch_norm(x, node_mask, cap_rows)
+        else:
+            attn = self.bn(x[:, None])[:, 0]
         attn = l1norm(torch.sigmoid(attn) * node_mask, dim=-1)
         return l2norm(torch.einsum("bn,bnd->bd", attn, sim_emb), dim=-1)
 
@@ -135,8 +181,8 @@ def _norm(x, dim: int):
 
 
 class EncoderSimilarity(nn.Module):
-    """SGRAF image-text similarity (ref :373-451) with SGR or SAF,
-    evaluation only.
+    """SGRAF image-text similarity (ref :373-451) with SGR or SAF; SAF also
+    in train mode.
 
     `forward(img (Ni, R, D), cap (Nc, L, D), cap_mask (Nc, L), kernel)`
     returns the (Ni, Nc) fp32 grid: with `kernel`, one call of the module's
@@ -147,7 +193,8 @@ class EncoderSimilarity(nn.Module):
 
     def __init__(self, embed_size: int, sim_dim: int, module_name: str = "SAF",
                  sgr_step: int = 3, cap_chunk: int = 32, sim_bf16: bool = False,
-                 dropout: float = 0.4, generator: torch.Generator | None = None):
+                 dropout: float = 0.4, generator: torch.Generator | None = None,
+                 rng: DropoutRNG | None = None):
         super().__init__()
         if module_name not in ("SGR", "SAF"):
             raise ValueError(f"SGRAF module_name must be 'SGR' or 'SAF', got {module_name!r}")
@@ -156,8 +203,9 @@ class EncoderSimilarity(nn.Module):
         self.module_name = module_name
         self.cap_chunk = cap_chunk
         self.sim_bf16 = sim_bf16
-        self.v_global_w = VisualSA(embed_size, dropout_rate=dropout, generator=generator)
-        self.t_global_w = TextSA(embed_size, dropout, generator)
+        self.v_global_w = VisualSA(embed_size, dropout_rate=dropout, generator=generator,
+                                   rng=rng)
+        self.t_global_w = TextSA(embed_size, dropout, generator, rng)
         self.sim_tranloc_w = xavier_linear(embed_size, sim_dim, generator)
         self.sim_tranglo_w = xavier_linear(embed_size, sim_dim, generator)
         self.sim_eval_w = xavier_linear(sim_dim, 1, generator)
@@ -192,8 +240,15 @@ class EncoderSimilarity(nn.Module):
                            saf.bn.bias, saf.bn.running_mean, saf.bn.running_var)
 
     def forward(self, img, cap, cap_mask, kernel: bool = False):
+        """In eval mode the (Ni, Nc) grid on running statistics; in train
+        mode the training grid (SAF only; `kernel` must be False there: the
+        word nodes go to the alignment kernels when `sim_bf16`)."""
         if self.training:
-            raise training_not_ported("EncoderSimilarity in training mode")
+            if self.module_name == "SGR":
+                raise training_not_ported("EncoderSimilarity in training mode")
+            if kernel:
+                raise ValueError("the SGRAF eval kernels score evaluation only; in train mode "
+                                 "the word nodes go to sgraf_align_fused")
         dt = torch.bfloat16 if self.sim_bf16 else img.dtype
         img_glo, cap_glo = self.global_embeddings(img, cap, cap_mask)
         if kernel:
@@ -219,14 +274,23 @@ class EncoderSimilarity(nn.Module):
     def _score_chunk(self, img, img_glo, cap, mask, cap_glo):
         """(Ni, C) scores of one caption chunk (ref :406-451, 632-664): the
         pair-batched SCAN attention, the alignment nodes, SGR (every step on
-        every node, node 0 kept) or SAF, and the sim_eval_w epilogue."""
+        every node, node 0 kept) or SAF, and the sim_eval_w epilogue.  In
+        train mode with `sim_bf16` the word nodes come from the alignment
+        kernels' wrapper on the bf16 values (zero at masked words, which SAF
+        weighs zero), read back in fp32; the rest is the same fp32 chain.
+        The SAF BatchNorm takes this chunk's per-caption statistics."""
         c, l = mask.shape
         ni = img.shape[0]
-        a = torch.einsum("ird,cld->cirl", img, cap)  # (C, Ni, R, L)
-        a = _norm(F.leaky_relu(a, negative_slope=0.1) * mask[:, None, None, :], dim=3)
-        attn = torch.softmax(a.transpose(2, 3) * LAMBDA_SOFTMAX, dim=3)  # (C, Ni, L, R)
-        ctx = _norm(torch.einsum("cilr,ird->cild", attn, img), dim=-1)
-        sim_loc = _norm(self.sim_tranloc_w((ctx - cap[:, None]) ** 2), dim=-1)
+        if self.training and self.sim_bf16:
+            bf = torch.bfloat16
+            sim_loc = sgraf_align_fused(cap.to(bf), mask, img.to(bf), self.sim_tranloc_w.weight,
+                                        self.sim_tranloc_w.bias).float()
+        else:
+            a = torch.einsum("ird,cld->cirl", img, cap)  # (C, Ni, R, L)
+            a = _norm(F.leaky_relu(a, negative_slope=0.1) * mask[:, None, None, :], dim=3)
+            attn = torch.softmax(a.transpose(2, 3) * LAMBDA_SOFTMAX, dim=3)  # (C, Ni, L, R)
+            ctx = _norm(torch.einsum("cilr,ird->cild", attn, img), dim=-1)
+            sim_loc = _norm(self.sim_tranloc_w((ctx - cap[:, None]) ** 2), dim=-1)
         sim_glo = l2norm(self.sim_tranglo_w((img_glo[None] - cap_glo[:, None]) ** 2), dim=-1)
         sim_emb = torch.cat([sim_glo[:, :, None], sim_loc], dim=2).reshape(c * ni, l + 1, -1)
         node_mask = torch.cat([torch.ones_like(mask[:, :1]), mask], dim=1)
@@ -236,5 +300,5 @@ class EncoderSimilarity(nn.Module):
                 sim_emb = step(sim_emb, node_mask)
             sim_vec = sim_emb[:, 0]
         else:
-            sim_vec = self.SAF_module(sim_emb, node_mask)
+            sim_vec = self.SAF_module(sim_emb, node_mask, cap_rows=c)
         return torch.sigmoid(self.sim_eval_w(sim_vec))[:, 0].reshape(c, ni).t()

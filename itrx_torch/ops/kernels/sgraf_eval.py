@@ -155,8 +155,9 @@ def _guard(name, cap, mask, img, w, gloc, imgglo, gw, extra=()) -> str:
         t.requires_grad for t in (cap, img, w, gloc, imgglo, gw, *extra)
     ):
         raise RuntimeError(
-            f"{name}: the kernel is forward-only (it has no backward); SGRAF training "
-            "is not ported yet (ROADMAP queue 1 item 8c)")
+            f"{name}: the kernel is forward-only (it has no backward): SGRAF training "
+            "takes the train-mode tower, whose word nodes go to sgraf_align_fused "
+            "(ops/kernels/sgraf_align.py)")
     if img.device.type == "cpu":
         return "cpu"
     if img.device.type != "cuda":

@@ -44,19 +44,31 @@ def check_supported(config: dict) -> None:
         raise NotImplementedError(
             "multi-device training (mesh_shape / multihost) is not ported yet: "
             "ROADMAP queue 1 item 13")
-    if config["name"] != "SCAN":
+    if config["name"] == "SGRAF" and config.get("module_name", "SAF") == "SGR":
         raise NotImplementedError(
-            f"training {config['name']} is not ported yet: only SCAN is "
-            "(ROADMAP queue 1 items 3 and 8-11)")
+            "training SGRAF with module_name=SGR is not ported yet: only SGRAF-SAF is "
+            "(ROADMAP queue 1 item 8d: the SGR reasoning kernels)")
+    if config["name"] not in ("SCAN", "SGRAF"):
+        raise NotImplementedError(
+            f"training {config['name']} is not ported yet: only SCAN and SGRAF-SAF are "
+            "(ROADMAP queue 1 items 3 and 9-11)")
 
 
-def make_train_step(state: TrainState):
-    """step(batch, log) -> aux floats when `log`, else None.  One update:
-    zero the grads, loss forward and backward, then clip, rate and Adam
-    (TrainState.apply_gradients).  Nothing waits for the device unless
-    `log`."""
+def make_train_step(state: TrainState, seed: int = 0):
+    """step(batch, log) -> aux floats when `log`, else None.  One update in
+    train mode (BatchNorm on batch statistics, dropout on): reseed the
+    model's dropout stream from (seed, update count), so a resumed run draws
+    the masks an uninterrupted one draws; zero the grads, loss forward and
+    backward, then clip, rate and Adam (TrainState.apply_gradients).
+    Nothing waits for the device unless `log`."""
+    model = state.model
+    model.train()
 
     def step(batch: dict, log: bool = False):
+        if not model.training:
+            model.train()
+        if hasattr(model, "dropout_rng"):
+            model.dropout_rng.manual_seed(seed * 100003 + state.step)
         state.optimizer.zero_grad(set_to_none=True)
         loss, aux = state.model.loss(batch, train=True)
         loss.backward()
@@ -98,9 +110,15 @@ def prefetch(iterator, device):
 
 def validate_step(config: dict, state: TrainState, val_dataset, device, writer):
     """Evaluate on the validation split (the port's evaluate_split, the
-    xattn kernel on a GPU).  Returns (rsum, i2t r1)."""
+    method's eval kernel on a GPU) with the model in eval mode (running
+    statistics, no dropout), then restore its mode.  Returns (rsum, i2t r1)."""
     start = time.time()
-    res = engine.evaluate_split(state.model, val_dataset, config, device=device)
+    was_training = state.model.training
+    state.model.eval()
+    try:
+        res = engine.evaluate_split(state.model, val_dataset, config, device=device)
+    finally:
+        state.model.train(was_training)
     print("Calculate similarity time:", time.time() - start)
     logger.info(
         "Image to text: r1 %.1f; r5 %.1f; r10 %.1f; medr %.1f; meanr %.1f",
@@ -131,7 +149,7 @@ def train_epoch(config: dict, state: TrainState, train_dataset, val_dataset,
     batch_time = AverageMeter()
     data_time = AverageMeter()
     train_logger = LogCollector()
-    step_fn = make_train_step(state)
+    step_fn = make_train_step(state, config["seed"])
     n_batches = len(train_dataset) // config["batch_size"]
     it = prefetch(
         train_dataset.train_batches(config["batch_size"], config["seed"], epoch), device

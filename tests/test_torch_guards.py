@@ -16,7 +16,7 @@ import torch
 from itrx_torch.eval import engine
 from itrx_torch.models import get_model, methods, sgraf
 from itrx_torch.ops import kernels
-from itrx_torch.ops.kernels import gru, sgraf_eval, xattn
+from itrx_torch.ops.kernels import gru, sgraf_align, sgraf_eval, xattn
 from itrx_torch.train import loop
 
 torch.set_num_threads(1)
@@ -229,7 +229,7 @@ def test_gitignore_lists_kernel_build_dir():
                if ln.strip() and not ln.startswith(("#", "!")))
 
 
-@pytest.mark.parametrize("module", [gru, xattn, sgraf_eval])
+@pytest.mark.parametrize("module", [gru, xattn, sgraf_eval, sgraf_align])
 def test_kernel_sources_exist(module):
     src = kernels.CSRC / module.SOURCE
     assert src.exists(), src
@@ -296,7 +296,7 @@ def test_sgraf_eval_sgr_refuses_to_build_a_graph(which):
     args = _sgr_args()
     args[which].requires_grad_()
     before = sgraf_eval.sgraf_eval_sgr_fused.launches
-    with pytest.raises(RuntimeError, match="forward-only.*item 8c"):
+    with pytest.raises(RuntimeError, match="forward-only.*sgraf_align_fused"):
         sgraf_eval.sgraf_eval_sgr_fused(**args)
     with torch.no_grad():
         assert sgraf_eval.sgraf_eval_sgr_fused(**args).shape == (3, 2)
@@ -318,7 +318,7 @@ def test_sgraf_eval_saf_refuses_to_build_a_graph(which):
     args = _saf_args()
     args[which].requires_grad_()
     before = sgraf_eval.sgraf_eval_saf_fused.launches
-    with pytest.raises(RuntimeError, match="forward-only.*item 8c"):
+    with pytest.raises(RuntimeError, match="forward-only.*sgraf_align_fused"):
         sgraf_eval.sgraf_eval_saf_fused(**args)
     with torch.no_grad():
         assert sgraf_eval.sgraf_eval_saf_fused(**args).shape == (3, 2)
@@ -333,8 +333,9 @@ def _sgraf(**kw):
 
 def test_sgraf_sends_only_evaluation_to_the_kernel(monkeypatch):
     """Evaluation on the card goes to the kernel wrapper (the BatchNorm
-    folded into the gate); on the CPU to the plain chain; training raises,
-    naming the item that ports it."""
+    folded into the gate); on the CPU to the plain chain; training never
+    reaches the eval kernel, and a `train` flag that disagrees with the
+    module's mode raises."""
     model = _sgraf()
     assert model.fused_eval_active(torch.device("cuda", 0))
     assert model.fused_eval_active("cuda", train=False)
@@ -348,8 +349,10 @@ def test_sgraf_sends_only_evaluation_to_the_kernel(monkeypatch):
     img, cap, mask = torch.zeros(2, 36, 16), torch.zeros(3, 4, 16), torch.ones(3, 4)
     assert model.similarity(img, cap, mask).shape == (2, 3)
     assert calls == [13]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8c"):
+    with pytest.raises(ValueError, match="model.train"):
         model.similarity(img, cap, mask, train=True)
+    model.train()
+    assert model.similarity(img, cap, mask, train=True).shape == (2, 3)
     assert calls == [13]
 
 
@@ -375,10 +378,10 @@ def test_sgraf_sgr_sends_only_evaluation_to_the_kernel(monkeypatch):
     with torch.no_grad():
         assert model.similarity(img, cap, mask).shape == (2, 3)
     assert calls == [("sgr", [(2, 8, 8), (2, 8)] * 3)]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8c"):
-        model.similarity(img, cap, mask, train=True)
     model.train()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8c"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8d"):
+        model.similarity(img, cap, mask, train=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8d"):
         model.sim_enc(img, cap, mask)
     assert len(calls) == 1
 
@@ -391,18 +394,108 @@ def test_sgraf_refuses_an_unknown_module():
 
 
 def test_sgraf_saf_training_names_its_roadmap_item():
+    """SAF trains (its BatchNorm takes the chunk's per-caption statistics);
+    SGR training names the item that ports it, 8d."""
     model = _sgraf()
-    nodes, nmask = torch.zeros(2, 3, 8), torch.ones(2, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8c"):
-        model.sim_enc.SAF_module(nodes, nmask, train=True)
-    model.train()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8c"):
-        model.sim_enc(torch.zeros(2, 36, 16), torch.zeros(3, 4, 16), torch.ones(3, 4))
+    nodes, nmask = torch.randn(4, 3, 8), torch.ones(4, 3)
+    saf = model.sim_enc.SAF_module.train()
+    assert saf(nodes, nmask, cap_rows=2).shape == (4, 8)
+    assert int(saf.bn.num_batches_tracked) == 2 and float(saf.bn.running_var) != 1.0
+    sgr = _sgraf(module_name="SGR").train()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8d"):
+        sgr.sim_enc(torch.zeros(2, 36, 16), torch.zeros(3, 4, 16), torch.ones(3, 4))
 
 
 def test_check_supported_refuses_sgraf_training():
-    with pytest.raises(NotImplementedError, match="only SCAN"):
-        loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SAF"))
+    """check_supported accepts SGRAF-SAF and refuses SGRAF-SGR (item 8d)
+    and the methods not ported (their items)."""
+    loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SAF"))
+    loop.check_supported(_cfg())
+    with pytest.raises(NotImplementedError, match="item 8d"):
+        loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SGR"))
+    with pytest.raises(NotImplementedError, match="only SCAN and SGRAF-SAF.*items 3 and 9-11"):
+        loop.check_supported(dict(_cfg(), name="VSRN"))
+
+
+def _align_args(dev="cpu", nc=3, ni=2, l=5, d=16, s=8):
+    g = torch.Generator().manual_seed(2)
+    t = lambda *sh: torch.randn(*sh, generator=g).to(dev)  # noqa: E731
+    return dict(cap=t(nc, l, d), mask=torch.ones(nc, l, device=dev), img=t(ni, 36, d),
+                w=t(s, d), b=t(s))
+
+
+def test_sgraf_align_wrappers_raise_off_cpu():
+    """The alignment wrappers (forward and backward) raise on a device that
+    is neither the CPU nor CUDA, without counting, grad or no grad."""
+    before = (sgraf_align.sgraf_align_fused.launches,
+              sgraf_align.sgraf_align_bwd_fused.launches)
+    args = _align_args("meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        sgraf_align.sgraf_align_fused(**args)
+    args["w"].requires_grad_()
+    with pytest.raises(ValueError, match="no kernel"):
+        sgraf_align.sgraf_align_fused(**args)
+    with pytest.raises(ValueError, match="no kernel"):
+        sgraf_align.sgraf_align_bwd_fused(**_align_args("meta"), g=torch.zeros(3, 2, 5, 8,
+                                                                             device="meta"))
+    assert (sgraf_align.sgraf_align_fused.launches,
+            sgraf_align.sgraf_align_bwd_fused.launches) == before
+
+
+@pytest.mark.parametrize("sim_bf16", [True, False])
+def test_sgraf_saf_training_routes_the_chain_by_sim_bf16(monkeypatch, sim_bf16):
+    """SGRAF-SAF training sends each chunk's word nodes to sgraf_align_fused
+    (bf16 embeddings, the sim_tranloc_w Linear) when sim_bf16, and never
+    without it (the plain chain, as `itrx` runs its XLA chain); neither
+    route reaches an eval kernel, and every trained parameter gets a
+    gradient."""
+    calls = []
+    real = sgraf.sgraf_align_fused
+
+    def spy(cap, mask, img, w, b):
+        calls.append((tuple(cap.shape), cap.dtype, img.dtype, w.requires_grad))
+        return real(cap, mask, img, w, b)
+
+    monkeypatch.setattr(sgraf, "sgraf_align_fused", spy)
+    for name in ("sgraf_eval_saf_fused", "sgraf_eval_sgr_fused"):
+        monkeypatch.setattr(sgraf, name, lambda *a: pytest.fail("eval kernel in training"))
+    model = _sgraf(sim_bf16=sim_bf16, cap_chunk=2).train()
+    g = torch.Generator().manual_seed(0)
+    batch = {"images": torch.randn(3, 36, 12, generator=g),
+             "cap_ids": torch.randint(1, 20, (3, 4), generator=g),
+             "cap_mask": torch.tensor([[1.0, 1, 1, 1], [1, 0, 0, 0], [1, 1, 0, 0]])}
+    loss, _ = model.loss(batch)
+    loss.backward()
+    if sim_bf16:
+        assert calls == [((2, 4, 16), torch.bfloat16, torch.bfloat16, True),
+                         ((1, 4, 16), torch.bfloat16, torch.bfloat16, True)]
+    else:
+        assert calls == []
+    assert all(p.grad is not None for p in model.parameters())
+
+
+def test_sgraf_align_sources_are_built_and_hashed(tmp_path, monkeypatch):
+    """The forward and backward kernels exist with their C interfaces; the
+    forward includes the node assembly (and through it the A product), and
+    both library names change when their source or a shared header
+    changes."""
+    fwd, bwd = (kernels.CSRC / n for n in (sgraf_align.SOURCE, sgraf_align.BWD_SOURCE))
+    assert "int itrx_sgraf_align(" in fwd.read_text()
+    assert "int itrx_sgraf_align_bwd(" in bwd.read_text()
+    for src in (fwd, bwd):
+        assert '#include "sgraf_nodes.cuh"' in src.read_text()
+    names = (sgraf_align.SOURCE, sgraf_align.BWD_SOURCE, "sgraf_nodes.cuh", "xattn_product.cuh")
+    for name in names:
+        (tmp_path / name).write_text((kernels.CSRC / name).read_text())
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    libs = ("sgraf_align", "sgraf_align_bwd")
+    seen = [[kernels.library_path(n) for n in libs]]
+    for edited in ("sgraf_nodes.cuh", "xattn_product.cuh", sgraf_align.SOURCE,
+                   sgraf_align.BWD_SOURCE):
+        (tmp_path / edited).write_text("// edited\n")
+        seen.append([kernels.library_path(n) for n in libs])
+    assert len({paths[0] for paths in seen}) == 4  # the forward: all but bwd's source
+    assert len({paths[1] for paths in seen}) == 4  # the backward: all but fwd's source
 
 
 def test_sgraf_eval_saf_source_is_built_and_hashed(tmp_path, monkeypatch):
