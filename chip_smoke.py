@@ -22,7 +22,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    alignment kernels (forward and backward) to `sgraf_align_plain` and
    `sgraf_align_bwd_plain` (all four gradients, and two backward calls
    bit-identical) at one training chunk, 32 captions x 128 images x 24
-   words, and at a ragged odd shape, bf16 and fp32;
+   words, and at a ragged odd shape, bf16 and fp32; the SGR training
+   reasoning kernels to `sgr_reason_plain` and `sgr_reason_bwd_plain`
+   (the final nodes, all seven cotangents, dbk identically 0, two backward
+   calls bit-identical) at one training chunk, 4096 pairs x 25 nodes,
+   S 256, sgr_step 3, at a ragged odd shape and at 129 nodes, fp32 and bf16;
 4. the evaluation slices at full width on an f30k-1K-shaped synthetic split
    (1000 images x 36 x 2048 regions, 5000 captions) through get_model ->
    evaluate_split (encode_data -> cal_sims -> cal_recall) with encode_bf16
@@ -63,7 +67,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel; the losses are finite and fall; evalrank_single reproduces
    best_rsum; the first step at dropout 0 (loss, every gradient, the SAF and
    visual BatchNorm running statistics) matches a CPU copy.  Then the
-   median step time, samples/s, peak memory and a profile of 3 steps.
+   median step time, samples/s, peak memory and a profile of 3 steps;
+8. the SGRAF-SGR training slice, the same with SGRAF's published f30k SGR
+   command (`module_name=SGR sgr_step=3`): the counters show both
+   alignment kernels and both reasoning kernels, 4 launches each a step,
+   and the SGR eval kernel in validation; the first-step witness also holds
+   the card's step to the same step with the chunk kernels swapped for
+   their plain pairs on the card.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -71,6 +81,7 @@ The line before the last is a JSON object of the kernels; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -89,9 +100,12 @@ from itrx_torch.data.precomp import get_loaders, get_test_loader
 from itrx_torch.data.synthetic import generate
 from itrx_torch.eval import engine, metrics
 from itrx_torch.models import get_model
+from itrx_torch.models import sgraf as sgraf_model
 from itrx_torch.ops import kernels
 from itrx_torch.ops.kernels import gru as kgru
 from itrx_torch.ops.kernels.gru import gru_bwd_fused, gru_scan_fused
+from itrx_torch.ops.kernels.sgr import (sgr_reason_bwd_fused, sgr_reason_bwd_plain,
+                                        sgr_reason_fused, sgr_reason_plain)
 from itrx_torch.ops.kernels.sgraf_align import (sgraf_align_bwd_fused, sgraf_align_bwd_plain,
                                                 sgraf_align_fused, sgraf_align_plain)
 from itrx_torch.ops.kernels.sgraf_eval import (sgraf_eval_saf_fused, sgraf_eval_saf_plain,
@@ -147,13 +161,23 @@ TRAIN_STAT_REL = 1e-4
 # value sits near a rounding boundary may round apart; measured on the H100
 # up to 8.8e-4 of a gradient's scale
 TRAIN_GRAD_REL_BF16 = 1e-2
+# SGRAF-SGR with sim_bf16: the three reasoning steps amplify those rounding
+# flips further.  Measured on the H100 (the witness's own attribution): the
+# same plain chain on the card and on the CPU 1.4e-2 of a gradient's scale
+# (the embedding and GRU weights, step 1's sim_graph_w), the card's kernels
+# against their plain pairs on the card, in the same step, 2.6e-3; so the
+# card is held to the CPU within TRAIN_GRAD_REL_SGR and to its own plain
+# chain within SGR_KERNEL_GRAD_REL
+TRAIN_GRAD_REL_SGR = 3e-2
+SGR_KERNEL_GRAD_REL = 1e-2
 # biases whose gradient is zero in exact arithmetic (before a per-feature
 # BatchNorm, or a softmax): rounding noise on both devices, held to this
 # share of the model's largest gradient entry instead
 ZERO_GRADS = ("sim_enc.v_global_w.embedding_global.0.bias",
               "sim_enc.v_global_w.embedding_common.0.bias",
               "sim_enc.t_global_w.embedding_common.0.bias",
-              "sim_enc.SAF_module.attn_sim_w.bias")
+              "sim_enc.SAF_module.attn_sim_w.bias") + tuple(
+    f"sim_enc.SGR_module.sgr{i}.graph_key_w.bias" for i in range(3))
 ZERO_GRAD_REL = 1e-4
 TRAIN_STEPS = 50  # one epoch of the synthetic train split at batch 128
 TRAIN_VAL_STEP = 30  # one validation + checkpoint mid-epoch, one at the end
@@ -179,6 +203,26 @@ ALIGN_BWD_BF16_REL = 2.0 ** -8
 # caption bound 24), then a ragged odd shape (Nc not a multiple of the
 # caption group, Ni odd, a one-word caption, L 21)
 ALIGN_SHAPES = ((32, 128, 24), (37, 37, 21))
+# the SGR reasoning kernels vs their plain pair on the same inputs (fp32
+# arithmetic on both sides, bf16 nodes read as they are): the final nodes
+# (relu outputs, entries up to ~1) differ by summation order only, through
+# sgr_step steps; the backward's seven cotangents, per tensor
+# max|kernel - plain| over the larger of its largest entry and SGR_FLOOR of
+# the largest entry of the seven (the later steps' q/k gradients are the
+# small remainder of a cancellation over near-uniform edges, whose rounding
+# is that of the cancelling terms).  A gradient that loses one pair's
+# cotangent is printed beside each reading and must exceed the limit
+SGR_FWD_REL = 1e-5
+SGR_BWD_REL = 1e-4
+SGR_FLOOR = 1e-3
+# bf16 nodes give bf16 final nodes and a bf16 g_s0, rounded on both sides,
+# which may put them one bf16 step (2^-8 of an entry) apart
+SGR_BF16_REL = 2.0 ** -8
+# (pairs, L, sgr_step, S): one training chunk (cap_chunk 32 x batch 128,
+# caption bound 24, the published sgr_step 3 and sim_dim 256), a ragged odd
+# shape (odd pairs, a one-word caption, N = 22 nodes, sgr_step 1), and the
+# longest caption the kernels take (128 words, 129 nodes) at S 128
+SGR_SHAPES = ((32 * 128, 24, 3, 256), (185, 21, 1, 256), (64, 128, 2, 128))
 REPLACES = {
     "gru": "itrx/ops/pallas/gru.py:37 (_fwd_kernel)",
     "gru_bwd": "itrx/ops/pallas/gru.py:68 (_bwd_kernel)",
@@ -188,15 +232,18 @@ REPLACES = {
     "sgraf_eval_sgr": "itrx/ops/pallas/sgraf_eval.py:171 (_eval_kernel)",
     "sgraf_align": "itrx/ops/pallas/sgraf_align.py:102 (_fwd_kernel)",
     "sgraf_align_bwd": "itrx/ops/pallas/sgraf_align.py:112 (_bwd_kernel)",
+    "sgr": "itrx/ops/pallas/sgr.py:78 (_fwd_kernel)",
+    "sgr_bwd": "itrx/ops/pallas/sgr.py:91 (_bwd_kernel)",
 }
 SOURCES = {"gru": "gru.cu", "gru_bwd": "gru_bwd.cu", "xattn": "xattn.cu",
            "xattn_i2t": "xattn_i2t.cu", "sgraf_eval_saf": "sgraf_eval_saf.cu",
            "sgraf_eval_sgr": "sgraf_eval_sgr.cu", "sgraf_align": "sgraf_align.cu",
-           "sgraf_align_bwd": "sgraf_align_bwd.cu"}
+           "sgraf_align_bwd": "sgraf_align_bwd.cu", "sgr": "sgr.cu", "sgr_bwd": "sgr_bwd.cu"}
 COUNTERS = {"gru": gru_scan_fused, "gru_bwd": gru_bwd_fused, "xattn": xattn_t2i_fused,
             "xattn_i2t": xattn_i2t_fused, "sgraf_eval_saf": sgraf_eval_saf_fused,
             "sgraf_eval_sgr": sgraf_eval_sgr_fused, "sgraf_align": sgraf_align_fused,
-            "sgraf_align_bwd": sgraf_align_bwd_fused}
+            "sgraf_align_bwd": sgraf_align_bwd_fused, "sgr": sgr_reason_fused,
+            "sgr_bwd": sgr_reason_bwd_fused}
 GRID_KERNELS = ("xattn", "xattn_i2t", "sgraf_eval_saf", "sgraf_eval_sgr")
 # PR 6's SAF kernel at 64 x 320 x 36 x 24 x 1024, S 256 (ms, bf16 and fp32;
 # NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
@@ -911,6 +958,156 @@ def align_bwd_result(res: dict) -> dict:
             "bound_by": res["bwd_bound_by"], "library_ms": None}
 
 
+def _sgr_reason_inputs(g, pairs, l, steps, s):
+    """Nodes as the training tower gives them: per pair a global node and
+    one node per valid word of a ragged caption (lengths 1..l, one caption
+    of one word and one of l), unit rows, zero at masked words; the steps'
+    Linears at the reference's init scale with small random biases; a
+    cotangent that is random at every valid node and zero elsewhere."""
+    lengths = torch.randint(1, l + 1, (pairs,), generator=g)
+    lengths[0], lengths[-1] = 1, l
+    mask = torch.cat([torch.ones(pairs, 1), (torch.arange(l)[None] < lengths[:, None]).float()],
+                     dim=1)
+    s0 = torch.randn(pairs, l + 1, s, generator=g)
+    s0 = s0 / s0.norm(dim=-1, keepdim=True) * mask[..., None]
+    r = math.sqrt(6.0 / (2 * s))
+    u = lambda a, *sh: (torch.rand(*sh, generator=g) * 2 - 1) * a  # noqa: E731
+    w = {}
+    for k in ("q", "k", "g"):
+        w[f"w{k}"], w[f"b{k}"] = u(r, steps, s, s), u(0.05, steps, s)
+    cot = torch.randn(pairs, l + 1, s, generator=g) * mask[..., None]
+    x = dict(s0=s0, mask=mask, **{k: w[k] for k in SGR_STEP_WEIGHTS})
+    return {k: v.to(DEV) for k, v in x.items()}, cot.to(DEV)
+
+
+def sgr_train_bound(s0, mask, steps: int, backward: bool = False) -> dict:
+    """The bounds of one reasoning call at the fp32 peak (the kernels' and
+    the training path's arithmetic) and at the bf16 peak (the work as
+    `itrx` runs it, bf16 operands on the MXU).  Per pair over its n valid
+    nodes and per step, the forward does the folded q/k product s M and
+    ctx Wg^T (4 n S^2) and the edges and contexts (4 n^2 S); the backward
+    recomputes s M and the edges and adds g_pre Wg, the two weight sums and
+    g_sm M^T (10 n S^2 in all) and g_a, g_sm and the key-side sums (12 n^2 S
+    in all).  Bytes: the nodes, the mask and the steps' weights read once;
+    the forward writes every step's fp32 output, the backward reads them
+    and the cotangent and writes g_s0 and the weight gradients."""
+    b, nn_, s = s0.shape
+    n = mask.sum(dim=1).double()
+    if backward:
+        ops = steps * float((10 * n * s * s + 12 * n * n * s).sum())
+    else:
+        ops = steps * float((4 * n * s * s + 4 * n * n * s).sum())
+    weights = 4 * steps * (3 * s * s + 3 * s)
+    saves = 4 * steps * b * nn_ * s
+    if backward:
+        n_bytes = nbytes(s0, mask) + weights + saves + 4 * b * nn_ * s \
+            + s0.numel() * s0.element_size() + weights
+    else:
+        n_bytes = nbytes(s0, mask) + weights + saves
+    b32, b16 = bound(n_bytes, {"fp32": ops}), bound(n_bytes, {"bf16": ops})
+    return {"bound_ms": b32["bound_ms"], "bound_by": b32["bound_by"],
+            "bound_ms_bf16_peak": b16["bound_ms"], "bound_by_bf16_peak": b16["bound_by"]}
+
+
+def _sgr_rel(got, want, scale: float) -> float:
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), SGR_FLOOR * scale)
+
+
+def phase_sgr(g) -> dict:
+    """The training reasoning kernels vs their plain pair: one training
+    chunk (4096 pairs, ragged 1-24 words, S 256, sgr_step 3) in fp32 (the
+    path's dtype) and bf16, a ragged odd shape and the 129-node limit at
+    S 128; the final nodes, all seven cotangents (dbk identically 0) and
+    two backward calls bit-identical; then times and bounds at the
+    training chunk."""
+    log("sgr reasoning forward + backward kernels vs plain (q/k fold, fp32 arithmetic)")
+    res = {}
+    names = ("g_s0", "dWq", "dbq", "dWk", "dbk", "dWg", "dbg")
+    for pairs, l, steps, s in SGR_SHAPES:
+        x, cot = _sgr_reason_inputs(g, pairs, l, steps, s)
+        for dt in (torch.float32, torch.bfloat16):
+            tag = (f"sgr {pairs} pairs x {l + 1} nodes, S {s}, sgr_step {steps} "
+                   f"{'bf16' if dt == torch.bfloat16 else 'fp32'}")
+            xd = dict(x, s0=x["s0"].to(dt))
+            with torch.no_grad():
+                got = sgr_reason_fused(**xd)
+            want, outs = sgr_reason_plain(**xd)
+            bf16 = dt == torch.bfloat16
+            e_fwd = check_rel(f"{tag} forward nodes", got, want,
+                              SGR_BF16_REL if bf16 else SGR_FWD_REL)
+            kb = sgr_reason_bwd_fused(**xd, outs=outs, g=cot)
+            pb = sgr_reason_bwd_plain(**xd, outs=outs, g=cot)
+            # the fault the limit must separate: one pair's cotangent lost
+            lost = cot.clone()
+            lost[pairs // 2] = 0.0
+            lb = sgr_reason_bwd_plain(**xd, outs=outs, g=lost)
+            scale = max(float(t.float().abs().max()) for t in pb)
+            if not torch.equal(kb[4], torch.zeros_like(kb[4])):
+                raise AssertionError(f"{tag}: dbk is not identically 0")
+            errs = {}
+            for name, a, w_, c_ in zip(names, kb, pb, lb):
+                if name == "dbk":
+                    continue
+                lim = SGR_BF16_REL if a.dtype == torch.bfloat16 else SGR_BWD_REL
+                errs[name] = _sgr_rel(a, w_, scale)
+                wrong = _sgr_rel(c_, w_, scale)
+                log(f"  {tag} backward {name}: rel_err {errs[name]:.3e} (limit {lim:g}; "
+                    f"the plain {name} with pair {pairs // 2}'s cotangent dropped: {wrong:.3e})")
+                if not torch.isfinite(a).all() or not errs[name] <= lim:
+                    raise AssertionError(f"{tag}: {name} rel_err {errs[name]} > {lim}")
+                if not wrong > lim:
+                    raise AssertionError(f"the limit {lim} does not separate a lost "
+                                         f"pair ({wrong}) in {name}")
+            again = sgr_reason_bwd_fused(**xd, outs=outs, g=cot)
+            same = all(torch.equal(a, b_) for a, b_ in zip(kb, again))
+            log(f"  {tag}: dbk identically 0; two backward calls bit-identical: {same}")
+            if not same:
+                raise AssertionError(f"{tag}: the backward is not deterministic")
+            if (pairs, l, steps, s) == SGR_SHAPES[0] and dt == torch.float32:
+                res["max_abs_err"] = float((got - want).abs().max())
+                res["fwd_rel_err"] = e_fwd
+                res["bwd_max_abs_err"] = max(float((a.float() - w_.float()).abs().max())
+                                             for a, w_ in zip(kb, pb))
+                res["bwd_rel_err"] = errs
+    pairs, l, steps, s = SGR_SHAPES[0]
+    x, cot = _sgr_reason_inputs(g, pairs, l, steps, s)
+    for dt, suf in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        xd = dict(x, s0=x["s0"].to(dt))
+        _, outs = sgr_reason_plain(**xd)
+        with torch.no_grad():
+            res["ms" + suf] = cuda_ms(lambda: sgr_reason_fused(**xd), reps=10)
+            res["plain_ms" + suf] = cuda_ms(lambda: sgr_reason_plain(**xd), reps=5)
+        res["bwd_ms" + suf] = cuda_ms(lambda: sgr_reason_bwd_fused(**xd, outs=outs, g=cot),
+                                      reps=10)
+        res["bwd_plain_ms" + suf] = cuda_ms(
+            lambda: sgr_reason_bwd_plain(**xd, outs=outs, g=cot), reps=5)
+        for pre, bwd in (("", False), ("bwd_", True)):
+            for k, v in sgr_train_bound(xd["s0"], xd["mask"], steps, bwd).items():
+                res[pre + k + suf] = v
+    res["nodes_per_pair_mean"] = float(x["mask"].sum(dim=1).mean())
+    # no single PyTorch call computes the reasoning chain or its backward
+    res["library_ms"] = None
+    log(f"  time {pairs} pairs x {l + 1} nodes (mean {res['nodes_per_pair_mean']:.2f} valid), "
+        f"S {s}, sgr_step {steps}, fp32: forward kernels {res['ms']:.3f} ms, plain "
+        f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}; "
+        f"{res['bound_ms_bf16_peak']:.4f} ms at the bf16 peak); backward kernels "
+        f"{res['bwd_ms']:.3f} ms, plain {res['bwd_plain_ms']:.3f} ms, bound "
+        f"{res['bwd_bound_ms']:.4f} ms ({res['bwd_bound_by']}; "
+        f"{res['bwd_bound_ms_bf16_peak']:.4f} ms at the bf16 peak); bf16 nodes: forward "
+        f"{res['ms_bf16']:.3f} ms (plain {res['plain_ms_bf16']:.3f}), backward "
+        f"{res['bwd_ms_bf16']:.3f} ms (plain {res['bwd_plain_ms_bf16']:.3f})")
+    return res
+
+
+def sgr_bwd_result(res: dict) -> dict:
+    """The backward kernels' row of the kernels line, from the phase's
+    result."""
+    return {"max_abs_err": res["bwd_max_abs_err"], "ms": res["bwd_ms"],
+            "plain_ms": res["bwd_plain_ms"], "bound_ms": res["bwd_bound_ms"],
+            "bound_by": res["bwd_bound_by"], "library_ms": None}
+
+
 def plain_grid(model, imgs, caps, cap_mask, cfg) -> torch.Tensor:
     """The (Ni, Nc) grid through the plain path alone, in cal_sims' length
     buckets: for SCAN the plain version of the config's direction on the
@@ -1280,17 +1477,62 @@ def _losses_from_events(save_dir: str) -> tuple[list, list]:
     return losses, rsums
 
 
-def _first_step_witness(cfg, batch, grad_rel: float = TRAIN_GRAD_REL) -> dict:
+@contextlib.contextmanager
+def _sgraf_plain_chain():
+    """The SGRAF train tower with its chunk kernels' wrappers swapped for
+    their plain pairs (differentiable PyTorch on any device): the same
+    step's plain chain on the card."""
+    saved = sgraf_model.sgraf_align_fused, sgraf_model.sgr_reason_fused
+    sgraf_model.sgraf_align_fused = sgraf_align_plain
+    sgraf_model.sgr_reason_fused = lambda *a: sgr_reason_plain(*a)[0]
+    try:
+        yield
+    finally:
+        sgraf_model.sgraf_align_fused, sgraf_model.sgr_reason_fused = saved
+
+
+def _grad_errs(tag, got, want, limit, floor, scale) -> dict:
+    """Each gradient's max abs error over the larger of its own largest
+    entry and `floor` x scale, held to `limit`; ZERO_GRADS held to noise."""
+    errs = {}
+    for k in want:
+        if k in ZERO_GRADS:
+            noise = max(float(got[k].abs().max()), float(want[k].abs().max())) / scale
+            log(f"  first step grad {k} (zero in exact arithmetic, {tag}): {noise:.3e} of the "
+                f"largest gradient (limit {ZERO_GRAD_REL:g})")
+            if not noise <= ZERO_GRAD_REL:
+                raise AssertionError(f"{k}: gradient {noise} of scale, expected noise")
+            continue
+        if not floor:
+            errs[k] = check_rel(f"first step grad {k} ({tag})", got[k], want[k], limit)
+            continue
+        errs[k] = float((got[k] - want[k]).abs().max()) / max(float(want[k].abs().max()),
+                                                               floor * scale)
+        log(f"  first step grad {k} ({tag}): {errs[k]:.3e} of the larger of its scale and "
+            f"{floor:g} of the largest gradient (limit {limit:g})")
+        if not torch.isfinite(got[k]).all() or not errs[k] <= limit:
+            raise AssertionError(f"first step grad {k} ({tag}): {errs[k]} > {limit}")
+    return errs
+
+
+def _first_step_witness(cfg, batch, grad_rel: float = TRAIN_GRAD_REL, floor: float = 0.0,
+                        kernel_rel: float | None = None) -> dict:
     """The first training step's loss, gradients and (SGRAF) BatchNorm
     running statistics on the card (the kernels) against the same step on a
     CPU copy (plain path throughout), from one seed's weights and one batch,
-    in train mode."""
-    def step_on(dev):
+    in train mode.  Each gradient's max abs error is held to `grad_rel` of
+    the larger of its own largest entry and `floor` of the model's largest
+    gradient entry (SGR: see SGR_FLOOR).  With `kernel_rel`, the card's
+    gradients are also held to that limit against the same step on the card
+    with the SGRAF chunk kernels' plain pairs (`_sgraf_plain_chain`), which
+    tells the kernels' share of the card-vs-CPU difference."""
+    def step_on(dev, plain=False):
         model = get_model(cfg, device=dev,
                           generator=torch.Generator().manual_seed(cfg["seed"])).train()
         b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        loss, _ = model.loss(b, train=True)
-        loss.backward()
+        with _sgraf_plain_chain() if plain else contextlib.nullcontext():
+            loss, _ = model.loss(b, train=True)
+            loss.backward()
         # copies: on the CPU .cpu() would alias the buffers that the next
         # train-mode call updates
         stats = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
@@ -1298,7 +1540,9 @@ def _first_step_witness(cfg, batch, grad_rel: float = TRAIN_GRAD_REL) -> dict:
         with torch.no_grad():
             e = model.embed(b)
             scores = model.similarity(e["img"], e["cap"], e["cap_mask"], train=True)
-        grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+        # the plain chain leaves bk out of the graph (the fold drops it)
+        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
+                 for k, p in model.named_parameters()}
         return loss.detach().cpu(), grads, scores.cpu(), stats
 
     t0 = time.perf_counter()
@@ -1314,18 +1558,21 @@ def _first_step_witness(cfg, batch, grad_rel: float = TRAIN_GRAD_REL) -> dict:
     log(f"  hardest-negative captions agreeing card vs cpu: {hn_agree:.4f}")
     if not loss_err <= TRAIN_LOSS_REL:
         raise AssertionError(f"first-step loss differs card vs cpu by {loss_err}")
-    grad_errs = {}
     scale = max(float(g.abs().max()) for g in gc.values())
-    for k in gc:
-        if k in ZERO_GRADS:
-            noise = max(float(gk[k].abs().max()), float(gc[k].abs().max())) / scale
-            log(f"  first step grad {k} (zero in exact arithmetic): {noise:.3e} of the "
-                f"largest gradient (limit {ZERO_GRAD_REL:g})")
-            if not noise <= ZERO_GRAD_REL:
-                raise AssertionError(f"{k}: gradient {noise} of scale, expected noise")
-            continue
-        grad_errs[k] = check_rel(f"first step grad {k} (card vs cpu)", gk[k], gc[k],
-                                 grad_rel)
+    kernel_errs, plain_err = {}, None
+    if kernel_rel is not None:
+        _, gp, _, _ = step_on(DEV, plain=True)
+        kernel_errs = _grad_errs("card kernels vs card plain chain", gk, gp, kernel_rel,
+                                 floor, scale)
+        # the devices' own share, no limit: the same plain chain on both
+        plain = {k: float((gp[k] - gc[k]).abs().max()) / max(float(gc[k].abs().max()),
+                                                              floor * scale)
+                 for k in gc if k not in ZERO_GRADS}
+        worst = max(plain, key=plain.get)
+        plain_err = plain[worst]
+        log(f"  first step grads, the card's plain chain vs cpu (the devices' share, no "
+            f"limit): at most {plain_err:.3e} ({worst})")
+    grad_errs = _grad_errs("card vs cpu", gk, gc, grad_rel, floor, scale)
     stat_errs = {}
     for k in tc:
         # a running mean is a mean of centred values (~0 by cancellation), so
@@ -1340,6 +1587,8 @@ def _first_step_witness(cfg, batch, grad_rel: float = TRAIN_GRAD_REL) -> dict:
     return {"loss_card": float(lk), "loss_cpu": float(lc), "loss_rel_err": loss_err,
             "grad_rel_err_max": max(grad_errs.values()),
             "stat_rel_err_max": max(stat_errs.values()) if stat_errs else None,
+            "kernel_grad_rel_err_max": max(kernel_errs.values()) if kernel_errs else None,
+            "plain_chain_grad_rel_err_max": plain_err,
             "hardest_negative_agreement": hn_agree}
 
 
@@ -1376,13 +1625,13 @@ def _profile_steps(step_fn, batches) -> dict:
 
 # the training slices: (title, method overlay and overrides, steps of the one
 # epoch, validation step, synthetic data seed, kernels the path must launch,
-# launches a step each alignment kernel must show, overrides of the
-# first-step witness, its gradient limit)
+# launches a step each chunk kernel must show, overrides of the first-step
+# witness, the witness's limits)
 TRAIN_SLICES = {
     # SCAN's published f30k t2i command (kuanghuei/SCAN README)
     "scan": ("SCAN f30k t2i training configuration",
              ("SCAN", "bi_gru=True", "max_violation=True"), TRAIN_STEPS, TRAIN_VAL_STEP, 1,
-             ("gru", "gru_bwd", "xattn"), {}, {}, TRAIN_GRAD_REL),
+             ("gru", "gru_bwd", "xattn"), {}, {}, {"grad_rel": TRAIN_GRAD_REL}),
     # SGRAF's published f30k SAF command (Paranioar/SGRAF README: --module_name
     # SAF --max_violation --embed_size 1024 --sim_dim 256), the bf16 chain;
     # the witness at dropout 0, since the two devices' random streams differ
@@ -1391,7 +1640,20 @@ TRAIN_SLICES = {
             SAF_TRAIN_STEPS, SAF_TRAIN_VAL_STEP, 3,
             ("gru", "gru_bwd", "sgraf_align", "sgraf_align_bwd", "sgraf_eval_saf"),
             {"sgraf_align": 1, "sgraf_align_bwd": 1}, {"sgraf_dropout": 0.0},
-            TRAIN_GRAD_REL_BF16),
+            {"grad_rel": TRAIN_GRAD_REL_BF16}),
+    # SGRAF's published f30k SGR command (Paranioar/SGRAF README: --module_name
+    # SGR --sgr_step 3 --max_violation --embed_size 1024 --sim_dim 256), the
+    # bf16 alignment chain and the fp32 reasoning kernels; the witness at
+    # dropout 0, against the CPU and against the card's plain chain
+    "sgr": ("SGRAF-SGR f30k training configuration (sim_bf16)",
+            ("SGRAF", "module_name=SGR", "sgr_step=3", "max_violation=True", "sim_bf16=True"),
+            SAF_TRAIN_STEPS, SAF_TRAIN_VAL_STEP, 4,
+            ("gru", "gru_bwd", "sgraf_align", "sgraf_align_bwd", "sgr", "sgr_bwd",
+             "sgraf_eval_sgr"),
+            {"sgraf_align": 1, "sgraf_align_bwd": 1, "sgr": 1, "sgr_bwd": 1},
+            {"sgraf_dropout": 0.0},
+            {"grad_rel": TRAIN_GRAD_REL_SGR, "floor": SGR_FLOOR,
+             "kernel_rel": SGR_KERNEL_GRAD_REL}),
 }
 
 
@@ -1402,7 +1664,7 @@ def phase_train(root: str, card: str, name: str) -> dict:
     evalrank_single reproducing best_rsum, then the median step time, peak
     memory and a profile of 3 steps."""
     (title, method, steps, val_step, data_seed, used, per_chunk, witness_cfg,
-     grad_rel) = TRAIN_SLICES[name]
+     limits) = TRAIN_SLICES[name]
     log(f"training slice: {title} at full width")
     t0 = time.perf_counter()
     generate(os.path.join(root, "f30k_precomp"), n_images=steps * 128 // 5, img_dim=2048,
@@ -1423,7 +1685,7 @@ def phase_train(root: str, card: str, name: str) -> dict:
         f"cap_chunk {cfg['cap_chunk']}")
 
     first = next(train_ds.train_batches(cfg["batch_size"], cfg["seed"], 0))
-    witness = _first_step_witness(dict(cfg, **witness_cfg), first, grad_rel)
+    witness = _first_step_witness(dict(cfg, **witness_cfg), first, **limits)
 
     # the main path, counted: the port's train entry
     reset_counters()
@@ -1508,6 +1770,8 @@ def main():
                "xattn_i2t": phase_xattn_i2t(g), "sgraf_eval_saf": phase_sgraf_eval_saf(g),
                "sgraf_eval_sgr": phase_sgraf_eval_sgr(g), "sgraf_align": phase_sgraf_align(g)}
     results["sgraf_align_bwd"] = align_bwd_result(results["sgraf_align"])
+    results["sgr"] = phase_sgr(g)
+    results["sgr_bwd"] = sgr_bwd_result(results["sgr"])
     with tempfile.TemporaryDirectory(prefix="itrx_smoke_") as data_root:
         # bench.py's split: 4000 // 4 = 1000 test images x 36 x 2048, 5000 captions
         generate(os.path.join(data_root, "f30k_precomp"), n_images=4000, img_dim=2048,
@@ -1524,15 +1788,19 @@ def main():
         tr = phase_train(root, card, "scan")
     with tempfile.TemporaryDirectory(prefix="itrx_smoke_train_saf_") as root:
         tr_saf = phase_train(root, card, "saf")
+    with tempfile.TemporaryDirectory(prefix="itrx_smoke_train_sgr_") as root:
+        tr_sgr = phase_train(root, card, "sgr")
     # launches: each kernel's count from the main path that runs it (SCAN's
     # training path for the GRU kernels and t2i validation, the i2t slice's
     # evaluate_split for xattn_i2t, the SAF and SGR slices' for their eval
-    # kernels, SGRAF-SAF's training path for the alignment kernels)
+    # kernels, SGRAF-SAF's training path for the alignment kernels,
+    # SGRAF-SGR's for the reasoning kernels)
     launches = dict(tr["launches"], xattn_i2t=i2t["launches"]["xattn_i2t"],
                     sgraf_eval_saf=saf["launches"]["sgraf_eval_saf"],
                     sgraf_eval_sgr=sgr["launches"]["sgraf_eval_sgr"],
                     sgraf_align=tr_saf["launches"]["sgraf_align"],
-                    sgraf_align_bwd=tr_saf["launches"]["sgraf_align_bwd"])
+                    sgraf_align_bwd=tr_saf["launches"]["sgraf_align_bwd"],
+                    sgr=tr_sgr["launches"]["sgr"], sgr_bwd=tr_sgr["launches"]["sgr_bwd"])
     log(f"card: {card}")
     print(json.dumps({"kernels": [
         {

@@ -90,8 +90,7 @@ class SGRAF(nn.Module):
     reasoning module `module_name`: "SGR" (`sgr_step` graph-reasoning
     steps) or "SAF", and the hinge loss on the in-batch grid.  Every dropout
     (the reference's 0.4, `dropout`) draws its masks from `dropout_rng`,
-    seeded from `dropout_seed`.  SGR trains not yet (ROADMAP queue 1 item
-    8d)."""
+    seeded from `dropout_seed`."""
 
     def __init__(self, vocab_size: int, img_dim: int = 2048, embed_size: int = 1024,
                  word_dim: int = 300, sim_dim: int = 256, bi_gru: bool = True,

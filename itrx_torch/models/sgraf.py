@@ -1,5 +1,5 @@
-"""SGRAF similarity tower, evaluation with SGR or SAF (counterpart of
-itrx/models/sgraf.py; reference Fusionmodule.py:373-629).
+"""SGRAF similarity tower, evaluation and training with SGR or SAF
+(counterpart of itrx/models/sgraf.py; reference Fusionmodule.py:373-629).
 
 For caption c and image i the tower forms one node per valid word (the
 SCAN attention context of the word over the 36 regions at lambda 9, its
@@ -15,19 +15,21 @@ its keys (`v_global_w.embedding_local.0.weight`, ...,
 `SGR_module.sgr0.graph_query_w.weight`, `SAF_module.bn.running_var`;
 itrx/utils/ref_convert.py:277-308 maps them).  The module's mode decides
 the path: in eval mode the tower scores on running statistics (a CUDA
-kernel per grid, or the plain chain); in train mode (SAF only; SGR training
-raises, naming its ROADMAP item) the heads' BatchNorms take batch
-statistics, the 0.4 dropouts act, and each chunk of captions runs SAF with
-the per-caption BatchNorm statistics of the reference.  With `sim_bf16`
-the training chunk's word nodes come from `sgraf_align_fused` (the CUDA
-kernels on the card), else from the plain chain, as `itrx` dispatches.
+kernel per grid, or the plain chain); in train mode the heads' BatchNorms
+take batch statistics, the 0.4 dropouts act, and each chunk of captions runs
+SGR, or SAF with the per-caption BatchNorm statistics of the reference.
+With `sim_bf16` the training chunk's word nodes come from
+`sgraf_align_fused` and SGR's reasoning steps from `sgr_reason_fused` (the
+CUDA kernels on the card), else both from the plain chain, as `itrx`
+dispatches.
 
 Arithmetic: the self-attention heads take their inputs in fp32 (their
 parameters are fp32; the embeddings may arrive in bf16 from eval_bf16), and
 the global embeddings they give are then rounded to the grid's dtype, so the
 score reads the values the CUDA kernel reads.  The plain score chain runs in
 fp32 on those values, the kernel's arithmetic; in training too, where the
-bf16 word nodes of the alignment kernel are read back in fp32.
+bf16 word nodes of the alignment kernel are read back in fp32 and SGR's
+steps run in fp32 on them (`itrx` runs that chain in bf16).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from torch import nn
 
 from ..ops.kernels.sgraf_align import sgraf_align_fused
 from ..ops.kernels.sgraf_eval import fold_saf_bn, sgraf_eval_saf_fused, sgraf_eval_sgr_fused
+from ..ops.kernels.sgr import sgr_reason_fused
 from ..ops.norms import l1norm, l2norm, safe_sqrt
 from .layers import DropoutRNG, SeededDropout, xavier_linear
 
@@ -46,14 +49,6 @@ EPS = 1e-8
 LAMBDA_SOFTMAX = 9.0
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
-TRAIN_ITEM = "ROADMAP queue 1 item 8d"
-
-
-def training_not_ported(what: str):
-    return NotImplementedError(
-        f"{what}: SGRAF-SGR training is not ported yet (the SGR reasoning kernels "
-        f"itrx/ops/pallas/sgr.py::_fwd_kernel and ::_bwd_kernel come with it; "
-        f"SGRAF-SAF trains): {TRAIN_ITEM}")
 
 
 class VisualSA(nn.Module):
@@ -181,8 +176,8 @@ def _norm(x, dim: int):
 
 
 class EncoderSimilarity(nn.Module):
-    """SGRAF image-text similarity (ref :373-451) with SGR or SAF; SAF also
-    in train mode.
+    """SGRAF image-text similarity (ref :373-451) with SGR or SAF, in eval
+    and in train mode.
 
     `forward(img (Ni, R, D), cap (Nc, L, D), cap_mask (Nc, L), kernel)`
     returns the (Ni, Nc) fp32 grid: with `kernel`, one call of the module's
@@ -241,14 +236,13 @@ class EncoderSimilarity(nn.Module):
 
     def forward(self, img, cap, cap_mask, kernel: bool = False):
         """In eval mode the (Ni, Nc) grid on running statistics; in train
-        mode the training grid (SAF only; `kernel` must be False there: the
-        word nodes go to the alignment kernels when `sim_bf16`)."""
-        if self.training:
-            if self.module_name == "SGR":
-                raise training_not_ported("EncoderSimilarity in training mode")
-            if kernel:
-                raise ValueError("the SGRAF eval kernels score evaluation only; in train mode "
-                                 "the word nodes go to sgraf_align_fused")
+        mode the training grid (`kernel` must be False there: with `sim_bf16`
+        the word nodes go to the alignment kernels and SGR's steps to the
+        reasoning kernels)."""
+        if self.training and kernel:
+            raise ValueError("the SGRAF eval kernels score evaluation only; in train mode "
+                             "the word nodes go to sgraf_align_fused and SGR's steps to "
+                             "sgr_reason_fused")
         dt = torch.bfloat16 if self.sim_bf16 else img.dtype
         img_glo, cap_glo = self.global_embeddings(img, cap, cap_mask)
         if kernel:
@@ -277,8 +271,12 @@ class EncoderSimilarity(nn.Module):
         every node, node 0 kept) or SAF, and the sim_eval_w epilogue.  In
         train mode with `sim_bf16` the word nodes come from the alignment
         kernels' wrapper on the bf16 values (zero at masked words, which SAF
-        weighs zero), read back in fp32; the rest is the same fp32 chain.
-        The SAF BatchNorm takes this chunk's per-caption statistics."""
+        weighs zero and SGR's softmax masks), read back in fp32, and SGR's
+        steps from the reasoning kernels' wrapper in fp32 (zero at masked
+        nodes; node 0 is kept), as `itrx` routes its bf16 chain to its SGR
+        kernel (itrx/models/sgraf.py:436-459); the rest is the same fp32
+        chain.  The SAF BatchNorm takes this chunk's per-caption
+        statistics."""
         c, l = mask.shape
         ni = img.shape[0]
         if self.training and self.sim_bf16:
@@ -296,8 +294,11 @@ class EncoderSimilarity(nn.Module):
         node_mask = torch.cat([torch.ones_like(mask[:, :1]), mask], dim=1)
         node_mask = node_mask[:, None].expand(c, ni, l + 1).reshape(c * ni, l + 1)
         if self.module_name == "SGR":
-            for step in self.SGR_module.values():
-                sim_emb = step(sim_emb, node_mask)
+            if self.training and self.sim_bf16:
+                sim_emb = sgr_reason_fused(sim_emb, node_mask, *self._module_weights())
+            else:
+                for step in self.SGR_module.values():
+                    sim_emb = step(sim_emb, node_mask)
             sim_vec = sim_emb[:, 0]
         else:
             sim_vec = self.SAF_module(sim_emb, node_mask, cap_rows=c)

@@ -62,14 +62,15 @@ def fold_saf_bn(attn_w, attn_b, bn_weight, bn_bias, running_mean, running_var):
     return f(attn_w)[0] * aprime, (f(attn_b) * aprime + bprime).reshape(1)
 
 
-def fold_sgr_qk(wq, bq, wk):
+def fold_sgr_qk(wq, bq, wk, dtype: torch.dtype = torch.float32):
     """The q/k fold of SGR's edge logits (itrx/ops/pallas/sgraf_eval.py:
-    22-31), in fp32.  With q = s Wq^T + bq and k = s Wk^T + bk (torch's
-    (out, in) layout), e_ij = q_i . k_j = s_i M s_j^T + s_j . v + (terms
-    constant along the keys j, which the softmax drops) with M = Wq^T Wk and
-    v = Wk^T bq.  wq, wk (..., S, S), bq (..., S) -> (M (..., S, S),
-    v (..., S))."""
-    wq, bq, wk = (t.detach().float() for t in (wq, bq, wk))
+    22-31), in `dtype` (fp32; the training plain pair folds float64 inputs in
+    float64), differentiable.  With q = s Wq^T + bq and k = s Wk^T + bk
+    (torch's (out, in) layout), e_ij = q_i . k_j = s_i M s_j^T + s_j . v +
+    (terms constant along the keys j, which the softmax drops) with
+    M = Wq^T Wk and v = Wk^T bq.  wq, wk (..., S, S), bq (..., S) ->
+    (M (..., S, S), v (..., S))."""
+    wq, bq, wk = (t.to(dtype) for t in (wq, bq, wk))
     return wq.transpose(-1, -2) @ wk, (bq.unsqueeze(-2) @ wk).squeeze(-2)
 
 

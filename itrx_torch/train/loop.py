@@ -44,13 +44,9 @@ def check_supported(config: dict) -> None:
         raise NotImplementedError(
             "multi-device training (mesh_shape / multihost) is not ported yet: "
             "ROADMAP queue 1 item 13")
-    if config["name"] == "SGRAF" and config.get("module_name", "SAF") == "SGR":
-        raise NotImplementedError(
-            "training SGRAF with module_name=SGR is not ported yet: only SGRAF-SAF is "
-            "(ROADMAP queue 1 item 8d: the SGR reasoning kernels)")
     if config["name"] not in ("SCAN", "SGRAF"):
         raise NotImplementedError(
-            f"training {config['name']} is not ported yet: only SCAN and SGRAF-SAF are "
+            f"training {config['name']} is not ported yet: only SCAN and SGRAF are "
             "(ROADMAP queue 1 items 3 and 9-11)")
 
 

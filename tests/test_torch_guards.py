@@ -16,7 +16,7 @@ import torch
 from itrx_torch.eval import engine
 from itrx_torch.models import get_model, methods, sgraf
 from itrx_torch.ops import kernels
-from itrx_torch.ops.kernels import gru, sgraf_align, sgraf_eval, xattn
+from itrx_torch.ops.kernels import gru, sgr, sgraf_align, sgraf_eval, xattn
 from itrx_torch.train import loop
 
 torch.set_num_threads(1)
@@ -359,7 +359,8 @@ def test_sgraf_sends_only_evaluation_to_the_kernel(monkeypatch):
 def test_sgraf_sgr_sends_only_evaluation_to_the_kernel(monkeypatch):
     """SGR's evaluation on the card goes to the SGR kernel wrapper with the
     steps' Linears stacked (the SAF wrapper never); on the CPU to the plain
-    chain; training raises, naming the item that ports it."""
+    chain; training never reaches an eval kernel, and asking for one in
+    train mode raises."""
     model = _sgraf(module_name="SGR", sgr_step=2)
     assert model.fused_eval_active("cuda", train=False)
     assert not model.fused_eval_active("cuda", train=True)
@@ -379,10 +380,10 @@ def test_sgraf_sgr_sends_only_evaluation_to_the_kernel(monkeypatch):
         assert model.similarity(img, cap, mask).shape == (2, 3)
     assert calls == [("sgr", [(2, 8, 8), (2, 8)] * 3)]
     model.train()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8d"):
-        model.similarity(img, cap, mask, train=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8d"):
-        model.sim_enc(img, cap, mask)
+    assert model.similarity(img, cap, mask, train=True).shape == (2, 3)
+    assert model.sim_enc(img, cap, mask).shape == (2, 3)
+    with pytest.raises(ValueError, match="evaluation only"):
+        model.sim_enc(img, cap, mask, kernel=True)
     assert len(calls) == 1
 
 
@@ -395,26 +396,32 @@ def test_sgraf_refuses_an_unknown_module():
 
 def test_sgraf_saf_training_names_its_roadmap_item():
     """SAF trains (its BatchNorm takes the chunk's per-caption statistics);
-    SGR training names the item that ports it, 8d."""
+    SGR trains too (its training item, 8d, is done): the train-mode tower
+    gives the grid and a loss whose gradient reaches every step."""
     model = _sgraf()
     nodes, nmask = torch.randn(4, 3, 8), torch.ones(4, 3)
     saf = model.sim_enc.SAF_module.train()
     assert saf(nodes, nmask, cap_rows=2).shape == (4, 8)
     assert int(saf.bn.num_batches_tracked) == 2 and float(saf.bn.running_var) != 1.0
     sgr = _sgraf(module_name="SGR").train()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8d"):
-        sgr.sim_enc(torch.zeros(2, 36, 16), torch.zeros(3, 4, 16), torch.ones(3, 4))
+    grid = sgr.sim_enc(torch.randn(2, 36, 16), torch.randn(3, 4, 16), torch.ones(3, 4))
+    assert grid.shape == (2, 3)
+    grid.sum().backward()
+    assert all(p.grad is not None for p in sgr.sim_enc.SGR_module.parameters())
 
 
 def test_check_supported_refuses_sgraf_training():
-    """check_supported accepts SGRAF-SAF and refuses SGRAF-SGR (item 8d)
-    and the methods not ported (their items)."""
+    """check_supported accepts SGRAF with SAF and with SGR, and still
+    refuses train_bf16, meshes and the methods not ported (their items)."""
     loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SAF"))
+    loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SGR"))
     loop.check_supported(_cfg())
-    with pytest.raises(NotImplementedError, match="item 8d"):
-        loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SGR"))
-    with pytest.raises(NotImplementedError, match="only SCAN and SGRAF-SAF.*items 3 and 9-11"):
+    with pytest.raises(NotImplementedError, match="only SCAN and SGRAF are.*items 3 and 9-11"):
         loop.check_supported(dict(_cfg(), name="VSRN"))
+    with pytest.raises(NotImplementedError, match="train_bf16"):
+        loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SGR", train_bf16=True))
+    with pytest.raises(NotImplementedError, match="mesh_shape"):
+        loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SGR", mesh_shape=[2]))
 
 
 def _align_args(dev="cpu", nc=3, ni=2, l=5, d=16, s=8):
@@ -496,6 +503,96 @@ def test_sgraf_align_sources_are_built_and_hashed(tmp_path, monkeypatch):
         seen.append([kernels.library_path(n) for n in libs])
     assert len({paths[0] for paths in seen}) == 4  # the forward: all but bwd's source
     assert len({paths[1] for paths in seen}) == 4  # the backward: all but fwd's source
+
+
+@pytest.mark.parametrize("sim_bf16", [True, False])
+def test_sgraf_sgr_training_routes_the_reasoning_by_sim_bf16(monkeypatch, sim_bf16):
+    """SGRAF-SGR training sends each chunk's reasoning steps to
+    sgr_reason_fused (the fp32 nodes, the node mask and the steps' Linears
+    stacked, under grad) when sim_bf16, beside the word nodes to
+    sgraf_align_fused; without sim_bf16 neither wrapper is called (the
+    GraphReasoning module loop, as `itrx` runs its XLA chain).  No route
+    reaches an eval kernel, and every trained parameter gets a gradient."""
+    calls = []
+    real = sgraf.sgr_reason_fused
+
+    def spy(s0, mask, *w):
+        calls.append((tuple(s0.shape), s0.dtype, tuple(mask.shape),
+                      [tuple(t.shape) for t in w], all(t.requires_grad for t in w)))
+        return real(s0, mask, *w)
+
+    monkeypatch.setattr(sgraf, "sgr_reason_fused", spy)
+    aligned = []
+    real_align = sgraf.sgraf_align_fused
+    monkeypatch.setattr(sgraf, "sgraf_align_fused",
+                        lambda *a: aligned.append(1) or real_align(*a))
+    for name in ("sgraf_eval_saf_fused", "sgraf_eval_sgr_fused"):
+        monkeypatch.setattr(sgraf, name, lambda *a: pytest.fail("eval kernel in training"))
+    model = _sgraf(module_name="SGR", sgr_step=2, sim_bf16=sim_bf16, cap_chunk=2).train()
+    g = torch.Generator().manual_seed(0)
+    batch = {"images": torch.randn(3, 36, 12, generator=g),
+             "cap_ids": torch.randint(1, 20, (3, 4), generator=g),
+             "cap_mask": torch.tensor([[1.0, 1, 1, 1], [1, 0, 0, 0], [1, 1, 0, 0]])}
+    loss, _ = model.loss(batch)
+    loss.backward()
+    if sim_bf16:
+        w = [(2, 8, 8), (2, 8)] * 3
+        assert calls == [((6, 5, 8), torch.float32, (6, 5), w, True),
+                         ((3, 5, 8), torch.float32, (3, 5), w, True)]
+        assert aligned == [1, 1]
+    else:
+        assert calls == [] and aligned == []
+    assert all(p.grad is not None for p in model.parameters())
+
+
+def _reason_args(dev="cpu", b=3, n=4, s=8, steps=2):
+    g = torch.Generator().manual_seed(3)
+    t = lambda *sh: torch.randn(*sh, generator=g).to(dev)  # noqa: E731
+    return dict(s0=t(b, n, s), mask=torch.ones(b, n, device=dev), wq=t(steps, s, s),
+                bq=t(steps, s), wk=t(steps, s, s), bk=t(steps, s), wg=t(steps, s, s),
+                bg=t(steps, s))
+
+
+def test_sgr_wrappers_raise_off_cpu():
+    """The reasoning wrappers (forward and backward) raise on a device that
+    is neither the CPU nor CUDA, without counting, grad or no grad."""
+    before = (sgr.sgr_reason_fused.launches, sgr.sgr_reason_bwd_fused.launches)
+    args = _reason_args("meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        sgr.sgr_reason_fused(**args)
+    args["wg"].requires_grad_()
+    with pytest.raises(ValueError, match="no kernel"):
+        sgr.sgr_reason_fused(**args)
+    with pytest.raises(ValueError, match="no kernel"):
+        sgr.sgr_reason_bwd_fused(**_reason_args("meta"),
+                                 outs=torch.zeros(2, 3, 4, 8, device="meta"),
+                                 g=torch.zeros(3, 4, 8, device="meta"))
+    assert (sgr.sgr_reason_fused.launches, sgr.sgr_reason_bwd_fused.launches) == before
+
+
+def test_sgr_sources_are_built_and_hashed(tmp_path, monkeypatch):
+    """The forward and backward kernels exist with their C interfaces, both
+    include the listed-row product (which includes the node tile product),
+    the backward the split tile product, and both library names change when
+    their source or a header they include changes."""
+    fwd, bwd = (kernels.CSRC / n for n in (sgr.SOURCE, sgr.BWD_SOURCE))
+    assert "int itrx_sgr_fwd(" in fwd.read_text()
+    assert "int itrx_sgr_bwd(" in bwd.read_text()
+    for src in (fwd, bwd):
+        assert '#include "sgr_rows.cuh"' in src.read_text()
+    assert '#include "gemm_tile.cuh"' in bwd.read_text()
+    assert '#include "sgraf_nodes.cuh"' in (kernels.CSRC / "sgr_rows.cuh").read_text()
+    headers = ("sgr_rows.cuh", "gemm_tile.cuh", "sgraf_nodes.cuh", "xattn_product.cuh")
+    for name in (sgr.SOURCE, sgr.BWD_SOURCE) + headers:
+        (tmp_path / name).write_text((kernels.CSRC / name).read_text())
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    libs = ("sgr", "sgr_bwd")
+    seen = [[kernels.library_path(n) for n in libs]]
+    for edited in headers + (sgr.SOURCE, sgr.BWD_SOURCE):
+        (tmp_path / edited).write_text("// edited\n")
+        seen.append([kernels.library_path(n) for n in libs])
+    assert len({paths[0] for paths in seen}) == 6  # the forward: all but bwd's source
+    assert len({paths[1] for paths in seen}) == 6  # the backward: all but fwd's source
 
 
 def test_sgraf_eval_saf_source_is_built_and_hashed(tmp_path, monkeypatch):

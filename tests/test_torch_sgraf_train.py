@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from itrx.configs import parse_cli
 from itrx.data import synthetic
@@ -29,7 +30,9 @@ from itrx.train import loop as jloop
 from itrx.train import state as jstate
 from itrx_torch.eval.engine import evalrank_single
 from itrx_torch.models import get_model
+from itrx_torch.models import sgraf
 from itrx_torch.models.layers import DropoutRNG, SeededDropout
+from itrx_torch.models.sgraf import NEG_INF
 from itrx_torch.train import loop
 from itrx_torch.train.loop import fit, make_train_step
 from itrx_torch.train.state import create_train_state
@@ -37,6 +40,8 @@ from itrx_torch.utils.checkpoint import load_checkpoint
 from itrx_torch.utils.convert import from_itrx_variables
 
 from tests.test_torch_sgraf import E, S, _batch, _cfg, _perturb_stats, _sub
+from tests.test_torch_sgraf_sgr import STEPS as SGR_STEPS
+from tests.test_torch_sgraf_sgr import _perturb as _perturb_sgr
 
 torch.set_num_threads(1)
 
@@ -71,6 +76,27 @@ ZERO_GRADS = ("sim_enc.v_global_w.embedding_global.0.bias",
               "sim_enc.t_global_w.embedding_common.0.bias")
 
 
+# SGRAF-SGR: the reasoning steps make a pair's nodes alike, so the later
+# steps' edge softmax is near uniform and their q/k gradients are the small
+# remainder of a cancellation (measured: 1e-6 of the model's largest gradient
+# entry at step 1, 1e-9 at step 2), whose fp32 rounding is that of the
+# cancelling terms.  Each tensor is held to its limit over the larger of its
+# own largest entry and this share of the model's largest gradient entry.
+SGR_FLOOR = 1e-3
+# sim_bf16: the port's gradients against `itrx`'s fp32 step.  `itrx`'s bf16
+# chain runs the reasoning in bf16, which moves its own sim_graph_w
+# gradients of steps 1-2 by up to 61% of their scale from its fp32 step (the
+# test checks that it moves farther than the port's).  Measured: the port at
+# most 17% from it (the GRU weights and the embedding), the bf16 word nodes
+# and their bf16 cotangents of the alignment route; the reasoning wrapper's
+# own gradients equal the module loop's on those nodes to 1e-7
+SGR_BF16_REL = 0.25
+# SGRAF-SGR adds the steps' key biases: bk moves each query's edge logits by
+# a constant, which the softmax drops
+SGR_ZERO_GRADS = tuple(k for k in ZERO_GRADS if "SAF_module" not in k) + tuple(
+    f"sim_enc.SGR_module.sgr{i}.graph_key_w.bias" for i in range(SGR_STEPS))
+
+
 def _rel(got, want) -> float:
     return float(np.abs(got - want).max() / np.abs(want).max())
 
@@ -86,6 +112,19 @@ def jax_init():
     variables = jax.device_get(jax.jit(lambda b: jmodel.init(
         {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}, b, train=False))(jb))
     return cfg, _perturb_stats(jax.tree.map(np.array, variables), rng)
+
+
+@pytest.fixture(scope="module")
+def sgr_init():
+    """(cfg with module_name SGR, JAX variables as numpy: the steps' biases
+    and the visual BatchNorms' statistics moved off their init)."""
+    rng = np.random.default_rng(12)
+    cfg = _cfg(module_name="SGR", sgr_step=SGR_STEPS)
+    jmodel = jget_model(cfg)
+    jb = {k: jnp.asarray(v) for k, v in _batch(rng).items()}
+    variables = jax.device_get(jax.jit(lambda b: jmodel.init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}, b, train=False))(jb))
+    return cfg, _perturb_sgr(jax.tree.map(np.array, variables), rng)
 
 
 def _port(cfg, variables):
@@ -169,48 +208,75 @@ def _jax_step(cfg, variables, batch):
     return float(loss), grads
 
 
+def _spread(variables):
+    """The variables with sim_eval_w x 50: at the init scale the scores sit
+    within ~1e-3 of 0.5, where bf16's step is 2^-9, and `itrx`'s hardest
+    negatives would be near-ties that the two packages break differently."""
+    variables = jax.tree.map(lambda a: a, variables)
+    ev = variables["params"]["sim_enc"]["scorer"]["sim_eval_w"]
+    ev["kernel"] = ev["kernel"] * np.float32(50.0)
+    return variables
+
+
+def _port_step(cfg, variables, batch):
+    """The port's train-mode loss at max_violation, backward: (loss, each
+    parameter's gradient and each running statistic as numpy, the largest
+    gradient entry)."""
+    model = _port(cfg, variables).train()
+    loss, _ = model.loss({k: torch.from_numpy(v) for k, v in batch.items()})
+    loss.backward()
+    params = dict(model.named_parameters())
+    out = {k: _np(params[k].grad) if k in params else _np(v)
+           for k, v in model.state_dict().items() if not k.endswith("num_batches_tracked")}
+    return float(loss.detach()), out, max(float(p.grad.abs().max()) for p in params.values())
+
+
+def _errors(got, want, scale, zero_grads, zero, floor=0.0):
+    """Each tensor's max abs error over the larger of its largest entry and
+    `floor` x scale.  The biases in `zero_grads` (zero gradient in exact
+    arithmetic) are held to rounding noise instead: both sides within
+    `zero` x scale."""
+    errs = {}
+    for k, g in got.items():
+        if k in zero_grads:
+            assert max(np.abs(g).max(), np.abs(want[k]).max()) <= zero * scale, k
+            continue
+        errs[k] = float(np.abs(g - want[k]).max() / max(np.abs(want[k]).max(), floor * scale))
+    return errs
+
+
+def _step_errors(cfg, variables, sim_bf16, zero_grads):
+    """One SGRAF step at max_violation, the port against `itrx` from the
+    same weights, statistics and batch: (the loss's relative error, each
+    gradient's and running statistic's error over its tensor's largest
+    entry).  The biases in `zero_grads` are held to 2e-3 of the largest
+    gradient entry with sim_bf16 (`itrx` normalizes in bf16), else 1e-4."""
+    cfg = dict(cfg, sim_bf16=sim_bf16)
+    variables = _spread(variables)
+    batch = _batch(np.random.default_rng(3))
+    want_loss, want = _jax_step(cfg, variables, batch)
+    loss, got, scale = _port_step(cfg, variables, batch)
+    errs = _errors(got, want, scale, zero_grads, 2e-3 if sim_bf16 else 1e-4)
+    return abs(loss - want_loss) / abs(want_loss), errs
+
+
 @pytest.mark.parametrize("sim_bf16", [False, True])
 def test_sgraf_saf_step_matches_jax(jax_init, sim_bf16):
     """One SGRAF-SAF step at max_violation: the loss, every parameter's
     gradient and every running statistic after it (both visual BatchNorms
     and SAF's, which two chunks update) vs `itrx`."""
     cfg, variables = jax_init
-    cfg = dict(cfg, sim_bf16=sim_bf16)
-    # at the init scale the scores sit within ~1e-3 of 0.5, where bf16's
-    # step is 2^-9: `itrx`'s hardest negatives would be near-ties that the
-    # two packages break differently.  sim_eval_w x 50 spreads them.
-    variables = jax.tree.map(lambda a: a, variables)
-    ev = variables["params"]["sim_enc"]["scorer"]["sim_eval_w"]
-    ev["kernel"] = ev["kernel"] * np.float32(50.0)
-    batch = _batch(np.random.default_rng(3))
-    want_loss, want = _jax_step(cfg, variables, batch)
-    model = _port(cfg, variables).train()
-    loss, _ = model.loss({k: torch.from_numpy(v) for k, v in batch.items()})
-    loss.backward()
-    loss = loss.detach()
+    loss_err, errs = _step_errors(cfg, variables, sim_bf16, ZERO_GRADS)
     loss_rel, rel = (BF16_LOSS_REL, BF16_REL) if sim_bf16 else (FP32_LOSS_REL, FP32_REL)
-    assert abs(float(loss) - want_loss) <= loss_rel * abs(want_loss), (float(loss), want_loss)
-    params = dict(model.named_parameters())
-    scale = max(float(p.grad.abs().max()) for p in params.values())
-    errs = {}
-    for k, v in model.state_dict().items():
-        if k.endswith("num_batches_tracked"):
-            continue
-        got = _np(params[k].grad) if k in params else _np(v)
-        if k in ZERO_GRADS:
-            # rounding noise on both sides (`itrx` normalizes in bf16)
-            zero = 2e-3 if sim_bf16 else 1e-4
-            assert max(np.abs(got).max(), np.abs(want[k]).max()) <= zero * scale, k
-            continue
-        errs[k] = _rel(got, want[k])
+    assert loss_err <= loss_rel, loss_err
     assert max(errs.values()) <= rel, sorted(errs.items(), key=lambda kv: kv[1])[-4:]
 
 
-def test_sgraf_saf_train_steps_match_jax(jax_init):
+def _train_steps(cfg, variables):
     """Three updates of make_train_step (clip, Adam, steps_per_epoch 2 so
-    the third runs at lr / 10) vs `itrx`'s make_train_step from the same
-    weights, statistics and batches: the three losses."""
-    cfg, variables = jax_init
+    the third runs at lr / 10), the port against `itrx`'s make_train_step
+    from the same weights, statistics and batches: (the port's losses,
+    `itrx`'s, the port's state dict, `itrx`'s as port names)."""
     cfg = dict(cfg, learning_rate=2e-4, grad_clip=2.0, lr_update=1, seed=0)
     rng = np.random.default_rng(4)
     batches = [_batch(rng) for _ in range(3)]
@@ -231,11 +297,18 @@ def test_sgraf_saf_train_steps_match_jax(jax_init):
     got = [step({k: torch.from_numpy(v) for k, v in b.items()}, log=True)["Loss"]
            for b in batches]
     assert state.step == 3 and model.training
-    np.testing.assert_allclose(got, want, rtol=STEPS_LOSS_REL)
     stats = from_itrx_variables({"params": jax.device_get(jst.params),
                                  "batch_stats": jax.device_get(jst.batch_stats)})
+    return got, want, model.state_dict(), stats
+
+
+def test_sgraf_saf_train_steps_match_jax(jax_init):
+    """Three updates of make_train_step vs `itrx`'s from the same weights,
+    statistics and batches: the three losses and SAF's running variance."""
+    got, want, sd, stats = _train_steps(*jax_init)
+    np.testing.assert_allclose(got, want, rtol=STEPS_LOSS_REL)
     k = "sim_enc.SAF_module.bn.running_var"
-    assert _rel(_np(model.state_dict()[k]), stats[k]) <= STEPS_LOSS_REL
+    assert _rel(_np(sd[k]), stats[k]) <= STEPS_LOSS_REL
 
 
 def test_seeded_dropout_rate_eval_and_seed():
@@ -314,18 +387,47 @@ def test_loop_switches_modes_and_validation_keeps_statistics(jax_init, monkeypat
         model.similarity(img, cap, mask, train=True)
 
 
-@pytest.fixture(scope="module")
-def saf_fit(tmp_path_factory):
-    root = tmp_path_factory.mktemp("torch_sgraf_fit")
+def _fit(root, module_name):
+    """A tiny SGRAF fit on the CPU (sim_bf16: the alignment wrapper's plain
+    pair under autograd, and for SGR the reasoning wrapper's): (cfg, its
+    arguments, the state, best_rsum)."""
     d = synthetic.generate(str(root / "synthetic"), n_images=24, img_dim=48)
     args = dict(data_path=str(root), data_name="synthetic", vocab_path=f"{d}/vocab",
                 vocab_type="json", img_dim=48, embed_size=32, word_dim=16, sim_dim=16,
                 batch_size=24, num_epochs=2, val_step=3, log_step=5, cap_chunk=8,
                 learning_rate=0.002, max_violation=True, sim_bf16=True, seed=3,
                 save_path=f"{root}/runs")
-    cfg = parse_cli(["with", "SGRAF", "module_name=SAF"] + [f"{k}={v}" for k, v in args.items()])
+    cfg = parse_cli(["with", "SGRAF", f"module_name={module_name}"]
+                    + [f"{k}={v}" for k, v in args.items()])
     state, best_rsum = fit(cfg, device="cpu")
-    return cfg, args, state, best_rsum, root
+    return cfg, args, state, best_rsum
+
+
+def _resume(cfg, args, root, module_name):
+    """Resume from the last epoch's checkpoint (nothing left to train):
+    (the resumed state, its best_rsum, the checkpoint)."""
+    ckpt = os.path.join(cfg["save_dir"], "epo1_checkpoint.pth.tar")
+    # the checkpoint's epoch is run again on resume, as in the JAX package,
+    # so num_epochs 1 leaves nothing to train
+    args2 = dict(args, resume=ckpt, save_path=f"{root}/resumed", num_epochs=1)
+    cfg2 = parse_cli(["with", "SGRAF", f"module_name={module_name}"]
+                     + [f"{k}={v}" for k, v in args2.items()])
+    state2, best = fit(cfg2, device="cpu")
+    return state2, best, load_checkpoint(ckpt)
+
+
+def _same_state(model, ck):
+    for name, sd in zip(("img_enc", "txt_enc", "sim_enc"), ck["model"]):
+        got = getattr(model, name).state_dict()
+        assert got.keys() == sd.keys()
+        for k, v in sd.items():
+            torch.testing.assert_close(got[k], v, rtol=0, atol=0)
+
+
+@pytest.fixture(scope="module")
+def saf_fit(tmp_path_factory):
+    root = tmp_path_factory.mktemp("torch_sgraf_fit")
+    return (*_fit(root, "SAF"), root)
 
 
 def test_sgraf_saf_fit_checkpoints_and_evalrank_reproduces_best(saf_fit):
@@ -350,19 +452,9 @@ def test_sgraf_saf_resume_restores_statistics(saf_fit):
     restores the weights and every running statistic bit for bit: the
     validation that a resume runs is in eval mode and moves nothing."""
     cfg, args, _, _, root = saf_fit
-    ckpt = os.path.join(cfg["save_dir"], "epo1_checkpoint.pth.tar")
-    ck = load_checkpoint(ckpt)
-    # the checkpoint's epoch is run again on resume, as in the JAX package,
-    # so num_epochs 1 leaves nothing to train
-    args2 = dict(args, resume=ckpt, save_path=f"{root}/resumed", num_epochs=1)
-    cfg2 = parse_cli(["with", "SGRAF", "module_name=SAF"] + [f"{k}={v}" for k, v in args2.items()])
-    state2, best = fit(cfg2, device="cpu")
+    state2, best, ck = _resume(cfg, args, root, "SAF")
     assert state2.step == ck["Eiters"] == 10 and best == ck["best_rsum"]
-    for name, sd in zip(("img_enc", "txt_enc", "sim_enc"), ck["model"]):
-        got = getattr(state2.model, name).state_dict()
-        assert got.keys() == sd.keys()
-        for k, v in sd.items():
-            torch.testing.assert_close(got[k], v, rtol=0, atol=0)
+    _same_state(state2.model, ck)
 
 
 def test_train_step_masks_follow_seed_and_update_count(jax_init):
@@ -382,3 +474,77 @@ def test_train_step_masks_follow_seed_and_update_count(jax_init):
     first = losses(0)
     assert losses(0) == first
     assert losses(1) != first
+
+
+def _module_loop(s, mask, wq, bq, wk, bk, wg, bg):
+    """The GraphReasoning steps from their stacked Linears, unfolded: the
+    chain the train tower runs without sim_bf16."""
+    for i in range(wq.shape[0]):
+        e = F.linear(s, wq[i], bq[i]) @ F.linear(s, wk[i], bk[i]).transpose(1, 2)
+        a = torch.softmax(e.masked_fill(mask[:, None, :] <= 0, NEG_INF), dim=-1)
+        s = torch.relu(F.linear(a @ s, wg[i], bg[i]))
+    return s
+
+
+@pytest.mark.parametrize("sim_bf16", [False, True])
+def test_sgraf_sgr_step_matches_jax(sgr_init, sim_bf16, monkeypatch):
+    """One SGRAF-SGR step at max_violation: the loss, every parameter's
+    gradient (the reasoning steps' included; bk's is zero) and both visual
+    BatchNorms' running statistics vs `itrx`.  Without sim_bf16 against
+    `itrx`'s fp32 step.  With sim_bf16 the port's chunks go through the
+    alignment and reasoning wrappers (their plain pairs on the CPU: fp32
+    steps on bf16 word nodes): the loss against `itrx`'s bf16 step, the
+    gradients and statistics against its fp32 step (its bf16 chain runs the
+    reasoning in bf16, ROADMAP queue 3), and the reasoning wrapper's
+    gradients against the unfolded module loop's on the same bf16 nodes."""
+    cfg, variables = sgr_init
+    variables = _spread(variables)
+    batch = _batch(np.random.default_rng(3))
+    want_loss, want = _jax_step(dict(cfg, sim_bf16=False), variables, batch)
+    loss, got, scale = _port_step(dict(cfg, sim_bf16=sim_bf16), variables, batch)
+    if sim_bf16:
+        want_loss, want16 = _jax_step(dict(cfg, sim_bf16=True), variables, batch)
+    loss_rel, rel = (BF16_LOSS_REL, SGR_BF16_REL) if sim_bf16 else (FP32_LOSS_REL, FP32_REL)
+    assert abs(loss - want_loss) <= loss_rel * abs(want_loss), (loss, want_loss)
+    errs = _errors(got, want, scale, SGR_ZERO_GRADS, 2e-3 if sim_bf16 else 1e-4, SGR_FLOOR)
+    assert max(errs.values()) <= rel, sorted(errs.items(), key=lambda kv: kv[1])[-4:]
+    if sim_bf16:
+        # why the fp32 reference: `itrx`'s own bf16 step is farther from it
+        ref = _errors(want16, want, scale, SGR_ZERO_GRADS, 2e-3, SGR_FLOOR)
+        assert max(ref.values()) > max(errs.values()), (max(ref.values()), max(errs.values()))
+        monkeypatch.setattr(sgraf, "sgr_reason_fused", _module_loop)
+        _, loop, _ = _port_step(dict(cfg, sim_bf16=True), variables, batch)
+        errs = _errors(got, loop, scale, SGR_ZERO_GRADS, 1e-4, SGR_FLOOR)
+        assert max(errs.values()) <= FP32_REL, sorted(errs.items(), key=lambda kv: kv[1])[-4:]
+
+
+def test_sgraf_sgr_train_steps_match_jax(sgr_init):
+    """Three updates of make_train_step (sim_bf16 off) vs `itrx`'s from the
+    same weights, statistics and batches: the three losses and a visual
+    BatchNorm's running variance."""
+    got, want, sd, stats = _train_steps(*sgr_init)
+    np.testing.assert_allclose(got, want, rtol=STEPS_LOSS_REL)
+    k = "sim_enc.v_global_w.embedding_local.1.running_var"
+    assert _rel(_np(sd[k]), stats[k]) <= STEPS_LOSS_REL
+
+
+def test_sgraf_sgr_fit_checkpoints_resume_and_evalrank(tmp_path):
+    """A tiny SGRAF-SGR fit on the CPU with sim_bf16 (both training
+    wrappers' plain pairs under autograd): every loss finite, the
+    checkpoints' three state dicts with the reasoning steps and the visual
+    BatchNorm statistics moved by training, evalrank_single on model_best
+    reproducing best_rsum, and a resume from the last epoch restoring every
+    weight and statistic bit for bit."""
+    cfg, args, state, best_rsum = _fit(tmp_path, "SGR")
+    assert state.step == 2 * 5
+    best = os.path.join(cfg["save_dir"], "model_best.pth.tar")
+    ck = load_checkpoint(best)
+    assert len(ck["model"]) == 3 and ck["best_rsum"] == pytest.approx(best_rsum)
+    sim = ck["model"][2]
+    assert "SGR_module.sgr2.sim_graph_w.weight" in sim and "SAF_module.bn.running_var" not in sim
+    assert not torch.equal(sim["v_global_w.embedding_local.1.running_var"], torch.ones(36))
+    res = evalrank_single(best, split="dev", device="cpu")
+    assert res["rsum"] == pytest.approx(ck["best_rsum"], abs=1e-9)
+    state2, best2, last = _resume(cfg, args, tmp_path, "SGR")
+    assert state2.step == last["Eiters"] == 10 and best2 == last["best_rsum"]
+    _same_state(state2.model, last)
