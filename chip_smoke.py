@@ -27,6 +27,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    (the final nodes, all seven cotangents, dbk identically 0, two backward
    calls bit-identical) at one training chunk, 4096 pairs x 25 nodes,
    S 256, sgr_step 3, at a ragged odd shape and at 129 nodes, fp32 and bf16;
+   VSRN's caption-decoder kernels to `vsrn_dec_plain` and
+   `vsrn_dec_bwd_plain` (the states and residuals, all nine cotangents, two
+   backward calls bit-identical) at the training path's decode, 59 steps x
+   128 x 36 regions, H 512, without and with the context dropout, and at a
+   ragged odd shape; and the GRU kernels at VSRN's text width (H 2048, 61
+   steps) against autograd through the plain GRU;
 4. the evaluation slices at full width on an f30k-1K-shaped synthetic split
    (1000 images x 36 x 2048 regions, 5000 captions) through get_model ->
    evaluate_split (encode_data -> cal_sims -> cal_recall) with encode_bf16
@@ -73,7 +79,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    alignment kernels and both reasoning kernels, 4 launches each a step,
    and the SGR eval kernel in validation; the first-step witness also holds
    the card's step to the same step with the chunk kernels swapped for
-   their plain pairs on the card.
+   their plain pairs on the card;
+9. the VSRN training slice: VSRN's published f30k command (the VSRN()
+   overlay with max_violation, lr_update 10, max_len 60: embed 2048,
+   dim_hidden 512, 36 x 2048 regions, 61 caption slots, batch 128, Adam
+   2e-4, clip 2.0, fp32), one 25-step epoch through fit with validation at
+   step 15 and the end: the counters show the GRU kernels (text, region and
+   the decoder's encoder) and both decoder kernels, once each a step, and no
+   grid kernel; the first step at input_dropout_p 0, with the RsGCN blocks
+   moved off the identity, matches a CPU copy (loss, every gradient, every
+   BatchNorm statistic).
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -101,15 +116,19 @@ from itrx_torch.data.synthetic import generate
 from itrx_torch.eval import engine, metrics
 from itrx_torch.models import get_model
 from itrx_torch.models import sgraf as sgraf_model
+from itrx_torch.models.layers import TorchBatchNorm
 from itrx_torch.ops import kernels
 from itrx_torch.ops.kernels import gru as kgru
 from itrx_torch.ops.kernels.gru import gru_bwd_fused, gru_scan_fused
+from itrx_torch.ops.kernels import vsrn_dec as kvsrn
 from itrx_torch.ops.kernels.sgr import (sgr_reason_bwd_fused, sgr_reason_bwd_plain,
                                         sgr_reason_fused, sgr_reason_plain)
 from itrx_torch.ops.kernels.sgraf_align import (sgraf_align_bwd_fused, sgraf_align_bwd_plain,
                                                 sgraf_align_fused, sgraf_align_plain)
 from itrx_torch.ops.kernels.sgraf_eval import (sgraf_eval_saf_fused, sgraf_eval_saf_plain,
                                                sgraf_eval_sgr_fused, sgraf_eval_sgr_plain)
+from itrx_torch.ops.kernels.vsrn_dec import (vsrn_dec_bwd_fused, vsrn_dec_bwd_plain,
+                                             vsrn_dec_fused, vsrn_dec_plain)
 from itrx_torch.ops.kernels.xattn import (xattn_i2t_fused, xattn_i2t_plain,
                                           xattn_t2i_fused, xattn_t2i_plain)
 from itrx_torch.ops.rnn import gru_bwd_plain, gru_fwd_plain, gru_scan
@@ -177,13 +196,17 @@ ZERO_GRADS = ("sim_enc.v_global_w.embedding_global.0.bias",
               "sim_enc.v_global_w.embedding_common.0.bias",
               "sim_enc.t_global_w.embedding_common.0.bias",
               "sim_enc.SAF_module.attn_sim_w.bias") + tuple(
-    f"sim_enc.SGR_module.sgr{i}.graph_key_w.bias" for i in range(3))
+    f"sim_enc.SGR_module.sgr{i}.graph_key_w.bias" for i in range(3)) + tuple(
+    # VSRN: each RsGCN block's W.0 conv feeds a train-mode BatchNorm
+    f"img_enc.Rs_GCN_{i}.W.0.bias" for i in range(1, 5))
 ZERO_GRAD_REL = 1e-4
 TRAIN_STEPS = 50  # one epoch of the synthetic train split at batch 128
 TRAIN_VAL_STEP = 30  # one validation + checkpoint mid-epoch, one at the end
 # SGRAF-SAF training: one epoch of 25 steps, validation at step 15 and the end
 SAF_TRAIN_STEPS = 25
 SAF_TRAIN_VAL_STEP = 15
+# SGRAF's training chunks a step: batch 128 / cap_chunk 32
+SGRAF_CHUNKS = 4
 # the alignment kernels vs their plain pair on the same inputs: the forward's
 # nodes (l2-normalized, entries up to ~0.3) in fp32 differ by summation order
 # only; in bf16 both sides round the same fp32 node to bf16, so they may sit
@@ -223,6 +246,19 @@ SGR_BF16_REL = 2.0 ** -8
 # shape (odd pairs, a one-word caption, N = 22 nodes, sgr_step 1), and the
 # longest caption the kernels take (128 words, 129 nodes) at S 128
 SGR_SHAPES = ((32 * 128, 24, 3, 256), (185, 21, 1, 256), (64, 128, 2, 128))
+# VSRN's decoder kernels vs their plain pair on the same inputs (fp32 on both
+# sides): the states and the residuals, and each of the nine cotangents, per
+# tensor max|kernel - plain| / max|plain|; the two differ by fp32 summation
+# order through the T steps.  A gradient that loses the second step's
+# cotangent is printed beside each reading and must exceed the limit
+VSRN_FWD_REL = 1e-5
+VSRN_BWD_REL = 1e-4
+# (T, B, R, H, keep of the context dropout): the training path's decode (max_len
+# 60, batch 128, 36 regions, dim_hidden 512) without and with its 0.2
+# dropout, then a ragged odd shape
+VSRN_DEC_SHAPES = ((59, 128, 36, 512, 1.0), (59, 128, 36, 512, 0.8), (7, 37, 5, 96, 0.5))
+VSRN_DEC_NAMES = ("g_gxw", "g_cmask", "g_enc_out", "g_enc_att", "g_h0", "dWatt", "dw2",
+                  "dWctx", "dWhh", "dbhh")
 REPLACES = {
     "gru": "itrx/ops/pallas/gru.py:37 (_fwd_kernel)",
     "gru_bwd": "itrx/ops/pallas/gru.py:68 (_bwd_kernel)",
@@ -234,16 +270,20 @@ REPLACES = {
     "sgraf_align_bwd": "itrx/ops/pallas/sgraf_align.py:112 (_bwd_kernel)",
     "sgr": "itrx/ops/pallas/sgr.py:78 (_fwd_kernel)",
     "sgr_bwd": "itrx/ops/pallas/sgr.py:91 (_bwd_kernel)",
+    "vsrn_dec": "itrx/ops/pallas/vsrn_dec.py:79 (_fwd_kernel)",
+    "vsrn_dec_bwd": "itrx/ops/pallas/vsrn_dec.py:103 (_bwd_kernel)",
 }
 SOURCES = {"gru": "gru.cu", "gru_bwd": "gru_bwd.cu", "xattn": "xattn.cu",
            "xattn_i2t": "xattn_i2t.cu", "sgraf_eval_saf": "sgraf_eval_saf.cu",
            "sgraf_eval_sgr": "sgraf_eval_sgr.cu", "sgraf_align": "sgraf_align.cu",
-           "sgraf_align_bwd": "sgraf_align_bwd.cu", "sgr": "sgr.cu", "sgr_bwd": "sgr_bwd.cu"}
+           "sgraf_align_bwd": "sgraf_align_bwd.cu", "sgr": "sgr.cu", "sgr_bwd": "sgr_bwd.cu",
+           "vsrn_dec": "vsrn_dec.cu", "vsrn_dec_bwd": "vsrn_dec_bwd.cu"}
 COUNTERS = {"gru": gru_scan_fused, "gru_bwd": gru_bwd_fused, "xattn": xattn_t2i_fused,
             "xattn_i2t": xattn_i2t_fused, "sgraf_eval_saf": sgraf_eval_saf_fused,
             "sgraf_eval_sgr": sgraf_eval_sgr_fused, "sgraf_align": sgraf_align_fused,
             "sgraf_align_bwd": sgraf_align_bwd_fused, "sgr": sgr_reason_fused,
-            "sgr_bwd": sgr_reason_bwd_fused}
+            "sgr_bwd": sgr_reason_bwd_fused, "vsrn_dec": vsrn_dec_fused,
+            "vsrn_dec_bwd": vsrn_dec_bwd_fused}
 GRID_KERNELS = ("xattn", "xattn_i2t", "sgraf_eval_saf", "sgraf_eval_sgr")
 # PR 6's SAF kernel at 64 x 320 x 36 x 24 x 1024, S 256 (ms, bf16 and fp32;
 # NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
@@ -453,11 +493,11 @@ def phase_gru(g) -> dict:
     return res
 
 
-def phase_gru_bwd(g, b=128, l=48, d=300, h=1024) -> dict:
+def phase_gru_bwd(g, b=128, l=48, d=300, h=1024, timed: bool = True) -> dict:
     """The GRU adjoint kernel (and the forward's residual mode) against the
     plain versions, at the training path's widths: B=128, L=48 (the caption
     length of scripts/train_bench.py), D=300, H=1024, fp32, ragged lengths
-    1..48, both directions."""
+    1..48, both directions; with `timed`, then the times and the bound."""
     log(f"GRU adjoint kernel vs plain (B={b}, L={l}, D={d}, H={h}, fp32, ragged 1..{l})")
     x, mask, w_ih, w_hh, b_ih, b_hh = _gru_inputs(g, b, l, d, h)
     g_out = torch.randn(b, l, h, generator=g).to(DEV)
@@ -508,6 +548,8 @@ def phase_gru_bwd(g, b=128, l=48, d=300, h=1024) -> dict:
         z = gru_bwd_fused(gates_x, mask, hall, ghall, None, None, w_hh, reverse)
         if any(float(t.abs().max()) != 0.0 for t in z):
             raise AssertionError("gru_bwd with no cotangent gave non-zero gradients")
+    if not timed:
+        return res
 
     gates_x = (x @ w_ih.t() + b_ih).contiguous()
     _, _, hall, ghall = kgru._launch(gates_x, mask, w_hh, b_hh, False, residuals=True)
@@ -1463,6 +1505,130 @@ def phase_fold5(root: str, card: str) -> dict:
     return out
 
 
+def _vsrn_dec_inputs(g, t, b, r, h, keep):
+    """The decode loop's inputs at the training path's scales: encoder
+    outputs and final state in (-1, 1) as a GRU gives them, enc_att from
+    them through linear1's encoder half, the word gates, the weights at
+    torch's init (linear1 over 2H), and the context-dropout mask pre-scaled
+    by 1 / keep (ones at keep 1), with the states' cotangent."""
+    def u(lim, *shape):
+        return torch.empty(*shape).uniform_(-lim, lim, generator=g)
+
+    k, k2 = 1.0 / math.sqrt(h), 1.0 / math.sqrt(2 * h)
+    enc_out = torch.tanh(torch.randn(b, r, h, generator=g) * 0.5)
+    w1, b1 = u(k2, h, 2 * h), u(k2, h)
+    cmask = torch.ones(t, b, h)
+    if keep < 1.0:
+        cmask = (torch.rand(t, b, h, generator=g) < keep).float() / keep
+    x = {"gxw": torch.randn(t, b, 3 * h, generator=g) * 0.3, "cmask": cmask,
+         "enc_out": enc_out, "enc_att": enc_out @ w1[:, :h].t() + b1,
+         "h0": torch.tanh(torch.randn(b, h, generator=g) * 0.5), "watt": w1[:, h:],
+         "w2": u(k, 1, h), "wctx": u(k, 3 * h, h), "whh": u(k, 3 * h, h), "bhh": u(k, 3 * h)}
+    ghs = torch.randn(t, b, h, generator=g)
+    return {n: v.to(DEV).contiguous() for n, v in x.items()}, ghs.to(DEV)
+
+
+def vsrn_dec_bound(x: dict, backward: bool = False) -> dict:
+    """The bound of one decode call (fp32): the inputs read once and the
+    outputs written once (the forward's states and residuals; the backward's
+    ten cotangents), against the products (forward 2 B H^2 x 7 a step:
+    h [Watt | Whh]^T and ctx Wctx^T; backward 2 B H^2 x 18: the recomputed
+    hq and gx, g_gx Wctx, the carry's [g_hq | g_gh] [Watt ; Whh] and the
+    weight sums) and the attention's elementwise work (about 6 and 16
+    operations per (b, r, h) a step) at the fp32 peak."""
+    t, b, h3 = x["gxw"].shape
+    h, r = h3 // 3, x["enc_out"].shape[1]
+    ins = nbytes(*x.values())
+    if not backward:
+        return bound(ins + 4 * t * b * (h + h + h3), {"fp32": t * (14 * b * h * h + 6 * b * r * h)})
+    saves = 4 * t * b * (h + h3 + h)  # hall, ghall, g_hs
+    outs = ins - nbytes(x["cmask"])  # every input's cotangent but the mask's
+    return bound(ins + saves + outs, {"fp32": t * (36 * b * h * h + 16 * b * r * h)})
+
+
+def phase_vsrn_dec(g) -> dict:
+    """VSRN's decoder kernels vs their plain pair: the training path's decode
+    (59 steps x 128 x 36 regions, H 512) without and with the context
+    dropout, and a ragged odd shape; the states, the residuals, all nine
+    cotangents (the mask's zero), two backward calls bit-identical; then the
+    times and bounds at the path's shape."""
+    log("vsrn_dec decoder forward + backward kernels vs plain (fp32)")
+    res = {}
+    for t, b, r, h, keep in VSRN_DEC_SHAPES:
+        tag = f"vsrn_dec T {t} x B {b} x R {r} x H {h}, keep {keep}"
+        x, ghs = _vsrn_dec_inputs(g, t, b, r, h, keep)
+        args = tuple(x.values())
+        with torch.no_grad():
+            got = vsrn_dec_fused(*args)
+        k_hs, k_hall, k_ghall = kvsrn._launch_fwd(*args, residuals=True)
+        want, hall, ghall = vsrn_dec_plain(*args)
+        e_fwd = check_rel(f"{tag} states", got, want, VSRN_FWD_REL)
+        for name, a, w in (("states with residuals", k_hs, want), ("hall", k_hall, hall),
+                           ("ghall", k_ghall, ghall)):
+            check_rel(f"{tag} {name}", a, w, VSRN_FWD_REL)
+        kb = vsrn_dec_bwd_fused(*args, hall, ghall, ghs)
+        pb = vsrn_dec_bwd_plain(*args, hall, ghall, ghs)
+        # the fault the limit must separate: the second step's cotangent lost
+        lost = ghs.clone()
+        lost[1] = 0.0
+        lb = vsrn_dec_bwd_plain(*args, hall, ghall, lost)
+        if float(kb[1].abs().max()) != 0.0:
+            raise AssertionError(f"{tag}: the mask's cotangent is not 0")
+        errs = {}
+        for name, a, w_, c_ in zip(VSRN_DEC_NAMES, kb, pb, lb):
+            if name == "g_cmask":
+                continue
+            errs[name] = rel_err(a, w_)
+            wrong = rel_err(c_, w_)
+            log(f"  {tag} backward {name}: rel_err {errs[name]:.3e} (limit {VSRN_BWD_REL:g}; "
+                f"the plain {name} with step 1's cotangent dropped: {wrong:.3e})")
+            if not torch.isfinite(a).all() or not errs[name] <= VSRN_BWD_REL:
+                raise AssertionError(f"{tag}: {name} rel_err {errs[name]} > {VSRN_BWD_REL}")
+            if not wrong > VSRN_BWD_REL:
+                raise AssertionError(f"the limit {VSRN_BWD_REL} does not separate a lost "
+                                     f"step ({wrong}) in {name}")
+        again = vsrn_dec_bwd_fused(*args, hall, ghall, ghs)
+        same = all(torch.equal(a, b_) for a, b_ in zip(kb, again))
+        log(f"  {tag}: two backward calls bit-identical: {same}")
+        if not same:
+            raise AssertionError(f"{tag}: the backward is not deterministic")
+        if (t, b, r, h, keep) == VSRN_DEC_SHAPES[1]:
+            res["max_abs_err"] = float((got - want).abs().max())
+            res["fwd_rel_err"] = e_fwd
+            res["bwd_max_abs_err"] = max(float((a - w_).abs().max()) for a, w_ in zip(kb, pb))
+            res["bwd_rel_err"] = errs
+    x, ghs = _vsrn_dec_inputs(g, *VSRN_DEC_SHAPES[1])
+    args = tuple(x.values())
+    _, hall, ghall = vsrn_dec_plain(*args)
+    with torch.no_grad():
+        # the training path's forward writes the residuals
+        res["ms"] = cuda_ms(lambda: kvsrn._launch_fwd(*args, residuals=True), reps=10)
+        res["fwd_no_residuals_ms"] = cuda_ms(lambda: vsrn_dec_fused(*args), reps=10)
+        res["plain_ms"] = cuda_ms(lambda: vsrn_dec_plain(*args), reps=5)
+    res["bwd_ms"] = cuda_ms(lambda: vsrn_dec_bwd_fused(*args, hall, ghall, ghs), reps=10)
+    res["bwd_plain_ms"] = cuda_ms(lambda: vsrn_dec_bwd_plain(*args, hall, ghall, ghs), reps=5)
+    res.update(vsrn_dec_bound(x))
+    for k, v in vsrn_dec_bound(x, backward=True).items():
+        res["bwd_" + k] = v
+    # no PyTorch call computes the decode loop or its backward
+    res["library_ms"] = None
+    t, b, r, h, keep = VSRN_DEC_SHAPES[1]
+    log(f"  time T {t} x B {b} x R {r} x H {h} (keep {keep}), fp32: forward kernels "
+        f"{res['ms']:.3f} ms with residuals ({res['fwd_no_residuals_ms']:.3f} without), plain "
+        f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
+        f"backward kernels {res['bwd_ms']:.3f} ms, plain {res['bwd_plain_ms']:.3f} ms, bound "
+        f"{res['bwd_bound_ms']:.4f} ms ({res['bwd_bound_by']})")
+    return res
+
+
+def vsrn_bwd_result(res: dict) -> dict:
+    """The backward kernels' row of the kernels line, from the phase's
+    result."""
+    return {"max_abs_err": res["bwd_max_abs_err"], "ms": res["bwd_ms"],
+            "plain_ms": res["bwd_plain_ms"], "bound_ms": res["bwd_bound_ms"],
+            "bound_by": res["bwd_bound_by"], "library_ms": None}
+
+
 def _losses_from_events(save_dir: str) -> tuple[list, list]:
     """(every logged training loss, every validation rsum) from the run's
     MetricWriter log, in order."""
@@ -1515,8 +1681,25 @@ def _grad_errs(tag, got, want, limit, floor, scale) -> dict:
     return errs
 
 
+def _vsrn_off_identity(model) -> None:
+    """Moves VSRN's BatchNorms off their init, the same values on every
+    device (drawn on the CPU from a fixed seed): each RsGCN block's W.1 scale
+    (zero at init, which makes the block the identity and the gradients of
+    its g, theta, phi and W.0 exactly zero) and bias, and every running
+    statistic, the f30k `bn`'s too."""
+    g = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, TorchBatchNorm):
+                c = m.num_features
+                m.weight.copy_(torch.empty(c).uniform_(0.5, 1.5, generator=g))
+                m.bias.copy_(torch.randn(c, generator=g) * 0.1)
+                m.running_mean.copy_(torch.randn(c, generator=g) * 0.1)
+                m.running_var.copy_(torch.empty(c).uniform_(0.5, 2.0, generator=g))
+
+
 def _first_step_witness(cfg, batch, grad_rel: float = TRAIN_GRAD_REL, floor: float = 0.0,
-                        kernel_rel: float | None = None) -> dict:
+                        kernel_rel: float | None = None, prepare=None) -> dict:
     """The first training step's loss, gradients and (SGRAF) BatchNorm
     running statistics on the card (the kernels) against the same step on a
     CPU copy (plain path throughout), from one seed's weights and one batch,
@@ -1525,10 +1708,13 @@ def _first_step_witness(cfg, batch, grad_rel: float = TRAIN_GRAD_REL, floor: flo
     gradient entry (SGR: see SGR_FLOOR).  With `kernel_rel`, the card's
     gradients are also held to that limit against the same step on the card
     with the SGRAF chunk kernels' plain pairs (`_sgraf_plain_chain`), which
-    tells the kernels' share of the card-vs-CPU difference."""
+    tells the kernels' share of the card-vs-CPU difference.  `prepare(model)`,
+    when given, sets the weights before the step (VSRN: `_vsrn_off_identity`)."""
     def step_on(dev, plain=False):
         model = get_model(cfg, device=dev,
                           generator=torch.Generator().manual_seed(cfg["seed"])).train()
+        if prepare is not None:
+            prepare(model)
         b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         with _sgraf_plain_chain() if plain else contextlib.nullcontext():
             loss, _ = model.loss(b, train=True)
@@ -1539,7 +1725,7 @@ def _first_step_witness(cfg, batch, grad_rel: float = TRAIN_GRAD_REL, floor: flo
                  if k.endswith(("running_mean", "running_var"))}
         with torch.no_grad():
             e = model.embed(b)
-            scores = model.similarity(e["img"], e["cap"], e["cap_mask"], train=True)
+            scores = model.similarity(e["img"], e["cap"], e.get("cap_mask"), train=True)
         # the plain chain leaves bk out of the graph (the fold drops it)
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
                  for k, p in model.named_parameters()}
@@ -1625,8 +1811,8 @@ def _profile_steps(step_fn, batches) -> dict:
 
 # the training slices: (title, method overlay and overrides, steps of the one
 # epoch, validation step, synthetic data seed, kernels the path must launch,
-# launches a step each chunk kernel must show, overrides of the first-step
-# witness, the witness's limits)
+# the launches a step that some of them must show, overrides of the
+# first-step witness, the witness's limits and preparation)
 TRAIN_SLICES = {
     # SCAN's published f30k t2i command (kuanghuei/SCAN README)
     "scan": ("SCAN f30k t2i training configuration",
@@ -1639,7 +1825,8 @@ TRAIN_SLICES = {
             ("SGRAF", "module_name=SAF", "max_violation=True", "sim_bf16=True"),
             SAF_TRAIN_STEPS, SAF_TRAIN_VAL_STEP, 3,
             ("gru", "gru_bwd", "sgraf_align", "sgraf_align_bwd", "sgraf_eval_saf"),
-            {"sgraf_align": 1, "sgraf_align_bwd": 1}, {"sgraf_dropout": 0.0},
+            {"sgraf_align": SGRAF_CHUNKS, "sgraf_align_bwd": SGRAF_CHUNKS},
+            {"sgraf_dropout": 0.0},
             {"grad_rel": TRAIN_GRAD_REL_BF16}),
     # SGRAF's published f30k SGR command (Paranioar/SGRAF README: --module_name
     # SGR --sgr_step 3 --max_violation --embed_size 1024 --sim_dim 256), the
@@ -1650,10 +1837,22 @@ TRAIN_SLICES = {
             SAF_TRAIN_STEPS, SAF_TRAIN_VAL_STEP, 4,
             ("gru", "gru_bwd", "sgraf_align", "sgraf_align_bwd", "sgr", "sgr_bwd",
              "sgraf_eval_sgr"),
-            {"sgraf_align": 1, "sgraf_align_bwd": 1, "sgr": 1, "sgr_bwd": 1},
+            {k: SGRAF_CHUNKS for k in ("sgraf_align", "sgraf_align_bwd", "sgr", "sgr_bwd")},
             {"sgraf_dropout": 0.0},
             {"grad_rel": TRAIN_GRAD_REL_SGR, "floor": SGR_FLOOR,
              "kernel_rel": SGR_KERNEL_GRAD_REL}),
+    # VSRN's published f30k command (KunpengLi1994/VSRN README: --data_name
+    # f30k_precomp --max_violation --lr_update 10 --max_len 60), the VSRN()
+    # overlay: embed 2048, dim_hidden 512, input_dropout_p 0.2, cosine; fp32.
+    # The decoder kernels run once a step each; validation runs no kernel but
+    # the GRU's.  The witness at input_dropout_p 0 with the RsGCN blocks moved
+    # off the identity
+    "vsrn": ("VSRN f30k training configuration",
+             ("VSRN", "max_violation=True", "lr_update=10", "max_len=60"),
+             SAF_TRAIN_STEPS, SAF_TRAIN_VAL_STEP, 5,
+             ("gru", "gru_bwd", "vsrn_dec", "vsrn_dec_bwd"),
+             {"vsrn_dec": 1, "vsrn_dec_bwd": 1}, {"input_dropout_p": 0.0},
+             {"grad_rel": TRAIN_GRAD_REL, "prepare": _vsrn_off_identity}),
 }
 
 
@@ -1663,7 +1862,7 @@ def phase_train(root: str, card: str, name: str) -> dict:
     first-step witness, the counters, finite and falling losses,
     evalrank_single reproducing best_rsum, then the median step time, peak
     memory and a profile of 3 steps."""
-    (title, method, steps, val_step, data_seed, used, per_chunk, witness_cfg,
+    (title, method, steps, val_step, data_seed, used, per_step, witness_cfg,
      limits) = TRAIN_SLICES[name]
     log(f"training slice: {title} at full width")
     t0 = time.perf_counter()
@@ -1701,10 +1900,9 @@ def phase_train(root: str, card: str, name: str) -> dict:
             raise AssertionError(f"the training path never launched the {k} kernel")
         if k not in used and launches[k]:
             raise AssertionError(f"the training path launched the {k} kernel")
-    chunks = -(-cfg["batch_size"] // cfg["cap_chunk"])
-    for k, n in per_chunk.items():
-        if launches[k] != n * chunks * steps:
-            raise AssertionError(f"{k}: {launches[k]} launches, expected {n * chunks} a step")
+    for k, n in per_step.items():
+        if launches[k] != n * steps:
+            raise AssertionError(f"{k}: {launches[k]} launches, expected {n} a step")
     if state.step != steps:
         raise AssertionError(f"fit ran {state.step} steps, expected {steps}")
 
@@ -1772,6 +1970,11 @@ def main():
     results["sgraf_align_bwd"] = align_bwd_result(results["sgraf_align"])
     results["sgr"] = phase_sgr(g)
     results["sgr_bwd"] = sgr_bwd_result(results["sgr"])
+    results["vsrn_dec"] = phase_vsrn_dec(g)
+    results["vsrn_dec_bwd"] = vsrn_bwd_result(results["vsrn_dec"])
+    # the GRU kernels at VSRN's text width (H 2048, 61 slots; the region GRU is
+    # the same recurrence over 36 steps)
+    phase_gru_bwd(g, b=128, l=61, d=300, h=2048, timed=False)
     with tempfile.TemporaryDirectory(prefix="itrx_smoke_") as data_root:
         # bench.py's split: 4000 // 4 = 1000 test images x 36 x 2048, 5000 captions
         generate(os.path.join(data_root, "f30k_precomp"), n_images=4000, img_dim=2048,
@@ -1790,17 +1993,21 @@ def main():
         tr_saf = phase_train(root, card, "saf")
     with tempfile.TemporaryDirectory(prefix="itrx_smoke_train_sgr_") as root:
         tr_sgr = phase_train(root, card, "sgr")
+    with tempfile.TemporaryDirectory(prefix="itrx_smoke_train_vsrn_") as root:
+        tr_vsrn = phase_train(root, card, "vsrn")
     # launches: each kernel's count from the main path that runs it (SCAN's
     # training path for the GRU kernels and t2i validation, the i2t slice's
     # evaluate_split for xattn_i2t, the SAF and SGR slices' for their eval
     # kernels, SGRAF-SAF's training path for the alignment kernels,
-    # SGRAF-SGR's for the reasoning kernels)
+    # SGRAF-SGR's for the reasoning kernels, VSRN's for the decoder kernels)
     launches = dict(tr["launches"], xattn_i2t=i2t["launches"]["xattn_i2t"],
                     sgraf_eval_saf=saf["launches"]["sgraf_eval_saf"],
                     sgraf_eval_sgr=sgr["launches"]["sgraf_eval_sgr"],
                     sgraf_align=tr_saf["launches"]["sgraf_align"],
                     sgraf_align_bwd=tr_saf["launches"]["sgraf_align_bwd"],
-                    sgr=tr_sgr["launches"]["sgr"], sgr_bwd=tr_sgr["launches"]["sgr_bwd"])
+                    sgr=tr_sgr["launches"]["sgr"], sgr_bwd=tr_sgr["launches"]["sgr_bwd"],
+                    vsrn_dec=tr_vsrn["launches"]["vsrn_dec"],
+                    vsrn_dec_bwd=tr_vsrn["launches"]["vsrn_dec_bwd"])
     log(f"card: {card}")
     print(json.dumps({"kernels": [
         {

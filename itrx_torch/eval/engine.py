@@ -21,6 +21,10 @@ from . import metrics
 # budget of the plain path's (Ni, tile, R, L) fp32 attention tensor; the
 # kernel path holds no such tensor
 PLAIN_ATTN_BYTES = 1 << 30
+# tiles of a grid of sentence-level (2-D) embeddings (itrx's cal_sims
+# defaults): bounds order_sim's (cap tile, img tile, D) difference tensor
+IMG_TILE = 256
+CAP_TILE = 1024
 
 
 def _to_device(v: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -93,28 +97,46 @@ def length_buckets(cap_mask: torch.Tensor, max_len: int):
     return buckets
 
 
+def _cal_sims_tiled(model, img_embs, cap_embs):
+    """The (Ni, Nc) fp32 grid of `model.similarity` on sentence-level
+    embeddings (no mask), over tiles of IMG_TILE images x CAP_TILE captions:
+    the unbucketed path of itrx/eval/engine.py::_cal_sims_tiled."""
+    ni, nc = img_embs.shape[0], cap_embs.shape[0]
+    sims = torch.zeros(ni, nc, dtype=torch.float32, device=img_embs.device)
+    for i0 in range(0, ni, IMG_TILE):
+        for j0 in range(0, nc, CAP_TILE):
+            sims[i0:i0 + IMG_TILE, j0:j0 + CAP_TILE] = model.similarity(
+                img_embs[i0:i0 + IMG_TILE], cap_embs[j0:j0 + CAP_TILE], None, train=False)
+    return sims
+
+
 @torch.no_grad()
-def cal_sims(model, img_embs, cap_embs, cap_mask,
+def cal_sims(model, img_embs, cap_embs, cap_mask=None,
              compute_dtype: torch.dtype | None = None, verbose: bool = True):
     """The (Ni, Nc) fp32 similarity grid.
 
-    Captions are sorted into length buckets, each trimmed to its own word
-    bound (the similarity cost is linear in it), scored, and scattered back
-    to their columns.  With fewer than 64 captions everything is one bucket
+    Sentence-level (2-D) caption embeddings (VSRN; no mask) go through
+    `_cal_sims_tiled`.  Per-word (3-D) captions are sorted into length
+    buckets, each trimmed to its own word bound (the similarity cost is
+    linear in it), scored, and scattered back to their columns.  With fewer than 64 captions everything is one bucket
     at full length.  On the kernel path each bucket is one launch; on the
     plain path a bucket is tiled over captions so that its (Ni, tile, R, L)
     attention tensor stays under PLAIN_ATTN_BYTES.
     """
     t0 = time.perf_counter()
+    if compute_dtype is not None:
+        img_embs = img_embs.to(compute_dtype)
+        cap_embs = cap_embs.to(compute_dtype)
+    if cap_embs.dim() != 3:
+        sims = _cal_sims_tiled(model, img_embs, cap_embs)
+        _report(sims, t0, verbose)
+        return sims
     ni, r = img_embs.shape[:2]
     nc, max_len = cap_embs.shape[:2]
     if nc < 64:
         buckets = [(np.arange(nc), max_len)]
     else:
         buckets = length_buckets(cap_mask, max_len)
-    if compute_dtype is not None:
-        img_embs = img_embs.to(compute_dtype)
-        cap_embs = cap_embs.to(compute_dtype)
     kernel = model.fused_eval_active(img_embs.device, train=False)
     sims = torch.zeros(ni, nc, dtype=torch.float32, device=img_embs.device)
     for in_bucket, b in buckets:
@@ -126,11 +148,15 @@ def cal_sims(model, img_embs, cap_embs, cap_mask,
             sims[:, idx[j0:j0 + tile]] = model.similarity(
                 img_embs, caps_b[j0:j0 + tile], mask_b[j0:j0 + tile], train=False
             )
+    _report(sims, t0, verbose)
+    return sims
+
+
+def _report(sims, t0: float, verbose: bool) -> None:
     if verbose:
         if sims.is_cuda:
             torch.cuda.synchronize(sims.device)
         print("Calculate similarity matrix elapses: {:.3f}s".format(time.perf_counter() - t0))
-    return sims
 
 
 def _eval_dtypes(config: dict):
@@ -150,7 +176,8 @@ def _encode(model, dataset, config: dict, device) -> dict:
 def _grid(model, enc: dict, config: dict, im_div: int, sl: slice = slice(None)):
     """cal_sims of the encoded split (or of its caption slice `sl`): every
     im_div-th image row against every caption."""
-    return cal_sims(model, enc["img"][sl][::im_div], enc["cap"][sl], enc["cap_mask"][sl],
+    mask = enc["cap_mask"][sl] if "cap_mask" in enc else None
+    return cal_sims(model, enc["img"][sl][::im_div], enc["cap"][sl], mask,
                     compute_dtype=_eval_dtypes(config)[1])
 
 

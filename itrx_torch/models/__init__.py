@@ -11,7 +11,6 @@ from . import methods
 _NOT_PORTED = {
     "VSE_PP": "ROADMAP queue 1 item 3 (VSE_PP)",
     "VSE++": "ROADMAP queue 1 item 3 (VSE_PP)",
-    "VSRN": "ROADMAP queue 1 item 9 (VSRN)",
     "SAEM": "ROADMAP queue 1 item 10 (SAEM)",
     "CAMERA": "ROADMAP queue 1 item 11 (CAMERA)",
 }
@@ -27,6 +26,28 @@ def get_model(config: dict, device=None, generator: torch.Generator | None = Non
     name = config["name"]
     if name in _NOT_PORTED:
         raise NotImplementedError(f"{name} is not ported yet: {_NOT_PORTED[name]}")
+    if name == "VSRN":
+        model = methods.VSRN(
+            vocab_size=config["vocab_size"],
+            img_dim=config["img_dim"],
+            embed_size=config["embed_size"],
+            word_dim=config["word_dim"],
+            data_name=config["data_name"],
+            measure=config["measure"],
+            use_abs=config["use_abs"],
+            no_imgnorm=config["no_imgnorm"],
+            no_txtnorm=config["no_txtnorm"],
+            margin=config.get("margin", 0.2),
+            max_violation=config.get("max_violation", False),
+            max_len=config["max_len"],
+            dim_hidden=config["dim_hidden"],
+            dim_vid=config["dim_vid"],
+            dim_word=config["dim_word"],
+            input_dropout_p=config["input_dropout_p"],
+            dropout_seed=config.get("seed", 0),
+            generator=generator,
+        )
+        return model.to(device).eval()
     if name == "SGRAF":
         model = methods.SGRAF(
             vocab_size=config["vocab_size"],

@@ -1,7 +1,8 @@
-"""Initializers of the reference, drawn from a torch.Generator, and the
-dropout of the SGRAF modules with its own random stream (counterparts of
-the parts of itrx/models/layers.py and flax's Dropout that SCAN and SGRAF
-need)."""
+"""Initializers of the reference, drawn from a torch.Generator, the
+BatchNorm of `itrx`'s TorchBatchNormCore over the last axis, and the dropout
+of the SGRAF and VSRN modules with its own random stream (counterparts of
+the parts of itrx/models/layers.py and flax's Dropout that SCAN, SGRAF and
+VSRN need)."""
 
 from __future__ import annotations
 
@@ -21,6 +22,61 @@ def xavier_linear(in_features: int, out_features: int,
         fc.weight.uniform_(-r, r, generator=generator)
         fc.bias.zero_()
     return fc
+
+
+def torch_linear(in_features: int, out_features: int, bias: bool = True,
+                 generator: torch.Generator | None = None) -> nn.Linear:
+    """Linear with torch's default init drawn from `generator`: weight and
+    bias U(-k, k), k = 1 / sqrt(in) (`itrx`'s TorchLinear)."""
+    fc = nn.Linear(in_features, out_features, bias=bias)
+    k = 1.0 / math.sqrt(in_features)
+    with torch.no_grad():
+        fc.weight.uniform_(-k, k, generator=generator)
+        if bias:
+            fc.bias.uniform_(-k, k, generator=generator)
+    return fc
+
+
+def xavier_normal_linear(in_features: int, out_features: int,
+                         generator: torch.Generator | None = None) -> nn.Linear:
+    """Linear with a xavier-normal weight, N(0, 2 / (in + out)), and a zero
+    bias (flax's Dense with `xavier_normal`, as `itrx`'s VSRN decoder
+    draws it)."""
+    fc = nn.Linear(in_features, out_features)
+    std = math.sqrt(2.0 / (in_features + out_features))
+    with torch.no_grad():
+        fc.weight.normal_(0.0, std, generator=generator)
+        fc.bias.zero_()
+    return fc
+
+
+class TorchBatchNorm(nn.BatchNorm1d):
+    """BatchNorm over the last axis of (..., C) as `itrx`'s
+    TorchBatchNormCore computes it: in train mode the statistics pool every
+    other axis (B, or B x N for region tensors, as the reference's
+    BatchNorm1d on (B, C, N)), in fp32 whatever the input dtype, and the
+    running variance takes the unbiased estimate (momentum 0.1, eps 1e-5);
+    in eval mode the running statistics.  The fp32 statistics are cast to the
+    input's dtype before they normalize it, so a bf16 input (bf16 encode, its
+    weight and bias cast to bf16, the running statistics left fp32) runs in
+    bf16 where torch's batch_norm refuses the mix.  The state-dict keys are
+    BatchNorm1d's."""
+
+    def forward(self, x):
+        dt = x.dtype
+        if self.training:
+            xf = x.float().reshape(-1, self.num_features)
+            var, mean = torch.var_mean(xf, dim=0, correction=0)
+            n = xf.shape[0]
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(m * mean.detach())
+                self.running_var.mul_(1.0 - m).add_(m * var.detach() * (n / max(n - 1, 1)))
+                self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        inv = torch.rsqrt(var + self.eps).to(dt)
+        return (x - mean.to(dt)) * (inv * self.weight.to(dt)) + self.bias.to(dt)
 
 
 def torch_embedding(vocab_size: int, word_dim: int,
@@ -70,8 +126,18 @@ class SeededDropout(nn.Module):
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
-        u = torch.rand(x.shape, generator=self.rng.generator(x.device), device=x.device)
-        return x * (u >= self.p).to(x.dtype) / (1.0 - self.p)
+        return x * self._keep(x.shape, x.device).to(x.dtype) / (1.0 - self.p)
+
+    def _keep(self, shape, device):
+        u = torch.rand(shape, generator=self.rng.generator(device), device=device)
+        return u >= self.p
+
+    def mask(self, shape, device, dtype=torch.float32):
+        """The next mask of the stream, scaled as forward scales: 0 at dropped
+        entries, 1 / (1 - p) at kept ones; all ones in eval mode and at p 0."""
+        if not self.training or self.p == 0.0:
+            return torch.ones(shape, dtype=dtype, device=device)
+        return self._keep(shape, device).to(dtype) / (1.0 - self.p)
 
     def extra_repr(self) -> str:
         return f"p={self.p}"

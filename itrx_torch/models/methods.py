@@ -1,6 +1,7 @@
-"""SCAN and SGRAF (counterparts of itrx/models/methods.py::SCAN: `embed`,
-`similarity` and `loss`, t2i and i2t; and ::SGRAF with SGR or SAF: `embed`,
-`similarity` and, for SAF, `loss`)."""
+"""SCAN, VSRN and SGRAF (counterparts of itrx/models/methods.py::SCAN:
+`embed`, `similarity` and `loss`, t2i and i2t; ::VSRN: `embed`,
+`similarity` and `loss` with the caption decoder; and ::SGRAF with SGR or
+SAF: `embed`, `similarity` and `loss`)."""
 
 from __future__ import annotations
 
@@ -9,11 +10,13 @@ from torch import nn
 
 from ..ops import attention
 from ..ops.kernels.xattn import xattn_i2t_fused, xattn_t2i_fused
-from ..ops.losses import contrastive_hinge
-from .img_encoders import EncoderImagePrecomp
+from ..ops.losses import contrastive_hinge, language_model_loss
+from ..ops.sim import cosine_sim, order_sim
+from .img_encoders import EncoderImagePrecomp, EncoderImagePrecompAttn
 from .layers import DropoutRNG
 from .sgraf import EncoderSimilarity
 from .txt_encoders import EncoderText
+from .vsrn_decoder import S2VTAttModel
 
 
 class SCAN(nn.Module):
@@ -81,6 +84,80 @@ class SCAN(nn.Module):
         scores = self.similarity(e["img"], e["cap"], e["cap_mask"], train=train)
         loss = contrastive_hinge(scores, self.margin, self.max_violation)
         return loss, {"Loss": loss}
+
+
+class VSRN(nn.Module):
+    """VSRN (ref Models.py:229-365): the GCN image tower (B, E) and its
+    region sequence, sentence-level captions (B, E) from the GRU over all
+    max_len + 1 slots (the data's all-ones `cap_mask`, a quirk kept on
+    purpose), a cosine or order grid, and the hinge loss plus the caption
+    decoder's language-model loss.  Every dropout (the encoder's input, the
+    decoder's words and context, at `input_dropout_p`) draws its masks from
+    `dropout_rng`, seeded from `dropout_seed`."""
+
+    def __init__(self, vocab_size: int, img_dim: int = 2048, embed_size: int = 2048,
+                 word_dim: int = 300, data_name: str = "f30k_precomp",
+                 measure: str = "cosine", use_abs: bool = False, no_imgnorm: bool = False,
+                 no_txtnorm: bool = False, margin: float = 0.2, max_violation: bool = False,
+                 max_len: int = 60, dim_hidden: int = 512, dim_vid: int = 2048,
+                 dim_word: int = 300, input_dropout_p: float = 0.2, dropout_seed: int = 0,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if measure not in ("cosine", "order"):
+            raise ValueError(f"VSRN measure must be 'cosine' or 'order', got {measure!r}")
+        self.measure = measure
+        self.margin = margin
+        self.max_violation = max_violation
+        self.dropout_rng = DropoutRNG(dropout_seed)
+        self.img_enc = EncoderImagePrecompAttn(img_dim, embed_size, data_name, use_abs,
+                                               no_imgnorm, generator)
+        self.txt_enc = EncoderText(vocab_size, word_dim, embed_size, no_txtnorm=no_txtnorm,
+                                   sentence_level=True, use_abs=use_abs, generator=generator)
+        self.caption_model = S2VTAttModel(vocab_size, max_len, dim_vid, dim_hidden, dim_word,
+                                          input_dropout_p, self.dropout_rng, generator)
+
+    def embed(self, batch: dict) -> dict:
+        """{"img", "cap"} (B, E) each, and in train mode "gcn", the region
+        sequence that feeds the caption decoder (not kept in evaluation)."""
+        img, gcn = self.img_enc(batch["images"])
+        cap = self.txt_enc(batch["cap_ids"], batch["cap_mask"])
+        out = {"img": img, "cap": cap}
+        if self.training:
+            out["gcn"] = gcn
+        return out
+
+    def forward(self, batch: dict) -> dict:
+        return self.embed(batch)
+
+    def fused_eval_active(self, device: torch.device, train: bool = False) -> bool:
+        """Always False: VSRN's grid is one product (`itrx` computes it
+        outside any kernel too)."""
+        return False
+
+    def similarity(self, img, cap, cap_mask=None, train: bool = False):
+        """The (Ni, Nc) fp32 grid of (Ni, E) and (Nc, E) embeddings."""
+        if self.measure == "order":
+            return order_sim(img, cap)
+        return cosine_sim(img, cap)
+
+    def loss(self, batch: dict, train: bool = True):
+        """The training objective (itrx/models/methods.py:270-283): (hinge
+        loss on the in-batch grid + the caption decoder's NLL, {"Loss",
+        "Loss_retrieval", "Loss_caption"}).  `train` must agree with the
+        module's mode (model.train())."""
+        if train != self.training:
+            raise ValueError(
+                f"VSRN.loss(train={train}) with the model in "
+                f"{'train' if self.training else 'eval'} mode: call model.train() for "
+                "training")
+        e = self.embed(batch)
+        retrieval = contrastive_hinge(self.similarity(e["img"], e["cap"]), self.margin,
+                                      self.max_violation)
+        logprobs = self.caption_model(e["gcn"], batch["label_ids"])
+        caption = language_model_loss(logprobs, batch["label_ids"][:, 1:],
+                                      batch["label_mask"][:, 1:])
+        loss = retrieval + caption
+        return loss, {"Loss": loss, "Loss_retrieval": retrieval, "Loss_caption": caption}
 
 
 class SGRAF(nn.Module):

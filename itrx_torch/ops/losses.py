@@ -1,5 +1,5 @@
-"""Training objectives (counterpart of itrx/ops/losses.py, the hinge SCAN
-trains with)."""
+"""Training objectives (counterpart of itrx/ops/losses.py: the hinge every
+method trains with, and VSRN's caption-decoder loss)."""
 
 from __future__ import annotations
 
@@ -25,3 +25,16 @@ def contrastive_hinge(scores, margin: float = 0.2, max_violation: bool = False):
         cost_s = cost_s.amax(dim=1)
         cost_im = cost_im.amax(dim=0)
     return cost_s.sum() + cost_im.sum()
+
+
+def language_model_loss(logprobs, targets, mask):
+    """Masked NLL over decoder log-probs, summed and divided by the batch.
+
+    logprobs (B, T, V) log-softmax outputs; targets (B, >= T) int ids; mask
+    (B, >= T).  Targets and mask are cut to the T steps of the logits; the
+    sum runs in fp32 whatever the input dtype."""
+    t = logprobs.shape[1]
+    targets = targets[:, :t].long()
+    mask = mask[:, :t].float()
+    nll = -torch.gather(logprobs, 2, targets[..., None])[..., 0].float()
+    return (nll * mask).sum() / logprobs.shape[0]

@@ -44,10 +44,10 @@ def check_supported(config: dict) -> None:
         raise NotImplementedError(
             "multi-device training (mesh_shape / multihost) is not ported yet: "
             "ROADMAP queue 1 item 13")
-    if config["name"] not in ("SCAN", "SGRAF"):
+    if config["name"] not in ("SCAN", "VSRN", "SGRAF"):
         raise NotImplementedError(
-            f"training {config['name']} is not ported yet: only SCAN and SGRAF are "
-            "(ROADMAP queue 1 items 3 and 9-11)")
+            f"training {config['name']} is not ported yet: only SCAN, VSRN and SGRAF are "
+            "(VSE++ is ROADMAP queue 1 item 3, SAEM item 10, CAMERA item 11)")
 
 
 def make_train_step(state: TrainState, seed: int = 0):

@@ -9,7 +9,10 @@ A checkpoint is the dict the reference's train.py saves with torch.save:
 
 with SGRAF's `sim_enc.state_dict()` third in "model", as in the reference
 layout (the reference pickles the module itself there; a state dict is what
-its converter reads out of it).
+its converter reads out of it), and VSRN's `caption_model.state_dict()`
+third: the reference never checkpoints its caption decoder, but its
+converter takes an optional third part for it, and without it a resumed run
+would start the decoder afresh beside an Adam state that is not its own.
 
 so `itrx.utils.ref_convert.convert_reference_checkpoint` reads a port
 checkpoint unchanged.  Files are `epo{epoch}_checkpoint.pth.tar` (end of
@@ -24,7 +27,7 @@ import os
 
 import torch
 
-ENCODERS = ("img_enc", "txt_enc", "sim_enc")
+ENCODERS = ("img_enc", "txt_enc", "sim_enc", "caption_model")
 
 
 def _parts(model) -> list:
@@ -34,7 +37,7 @@ def _parts(model) -> list:
 
 def state_list(model) -> list:
     """The reference's state-dict list, [img_enc, txt_enc] (+ sim_enc for
-    SGRAF), on the CPU."""
+    SGRAF, caption_model for VSRN), on the CPU."""
     return [
         {k: v.detach().cpu() for k, v in getattr(model, name).state_dict().items()}
         for name in _parts(model)

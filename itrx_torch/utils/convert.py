@@ -1,5 +1,6 @@
 """Weights between the JAX package and the port, numpy only (counterpart of
-itrx/utils/ref_convert.py for SCAN and SGRAF with SGR or SAF).
+itrx/utils/ref_convert.py for SCAN, VSRN with its caption model, and SGRAF
+with SGR or SAF).
 
 The port keeps the reference PyTorch names and layouts: Linear `weight
 (out, in)`, `torch.nn.GRU`'s `weight_ih_l0` ... (+ `_reverse`),
@@ -52,6 +53,16 @@ def _sgraf_modules(scorer) -> tuple:
                  for i in range(n) for ours, theirs in _SGR_STEP), ()
 
 
+# VSRN's caption model: port Linear -> (JAX path, the kernel's name); the
+# decoder keeps its weights as raw (in, out) arrays
+_CAPTION_LINEARS = (
+    ("encoder.vid2hid", ("encoder", "vid2hid"), "kernel", "bias"),
+    ("decoder.attention.linear1", ("decoder",), "att_w1", "att_b1"),
+    ("decoder.attention.linear2", ("decoder",), "att_w2", None),
+    ("decoder.out", ("decoder",), "out_w", "out_b"),
+)
+
+
 def _np(v) -> np.ndarray:
     if hasattr(v, "detach"):  # a torch tensor
         v = v.detach().cpu().numpy()
@@ -64,10 +75,48 @@ def _at(tree, path):
     return tree
 
 
+def _bn(sd: dict, key: str, params, stats) -> None:
+    """A flax TorchBatchNormCore's scale, bias and statistics -> the port's
+    BatchNorm1d keys under `key`."""
+    sd[f"{key}.weight"] = _np(params["scale"])
+    sd[f"{key}.bias"] = _np(params["bias"])
+    sd[f"{key}.running_mean"] = _np(stats["mean"])
+    sd[f"{key}.running_var"] = _np(stats["var"])
+    sd[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
+
+
+def _vsrn_image(sd: dict, img, stats) -> None:
+    """VSRN's EncoderImagePrecompAttn: the RsGCN blocks' 1x1 convs (out, in,
+    1) and W.1 BatchNorms, the region GRU and the f30k BatchNorm `bn`."""
+    for i in range(1, 5):
+        g = f"Rs_GCN_{i}"
+        for ours, theirs in (("g", "g"), ("theta", "theta"), ("phi", "phi"), ("W.0", "W")):
+            sd[f"img_enc.{g}.{ours}.weight"] = _np(img[g][theirs]["kernel"]).T[:, :, None]
+            sd[f"img_enc.{g}.{ours}.bias"] = _np(img[g][theirs]["bias"])
+        _bn(sd, f"img_enc.{g}.W.1", img[g]["W_bn"], stats[g]["W_bn"])
+    for ours, theirs in _GRU:
+        sd[f"img_enc.img_rnn.{ours}"] = _np(img["img_rnn"][theirs])
+    if "bn" in img:
+        _bn(sd, "img_enc.bn", img["bn"]["BatchNorm_0"], stats["bn"]["BatchNorm_0"])
+
+
+def _vsrn_caption(sd: dict, cm) -> None:
+    """VSRN's caption model (itrx/utils/ref_convert.py::convert_vsrn_caption,
+    the other way)."""
+    for ours, path, w, b in _CAPTION_LINEARS:
+        sd[f"caption_model.{ours}.weight"] = _np(_at(cm, path)[w]).T
+        if b is not None:
+            sd[f"caption_model.{ours}.bias"] = _np(_at(cm, path)[b])
+    sd["caption_model.decoder.embedding.weight"] = _np(cm["decoder"]["embedding"])
+    for ours, theirs in _GRU:
+        sd[f"caption_model.encoder.rnn.{ours}"] = _np(cm["encoder"]["rnn"][theirs])
+        sd[f"caption_model.decoder.rnn.{ours}"] = _np(cm["decoder"][theirs])
+
+
 def from_itrx_variables(variables) -> dict:
-    """A JAX SCAN or SGRAF variable tree ({'params': {...}} and, for SGRAF,
-    {'batch_stats': {...}}; leaves as arrays) -> the port's state dict
-    (numpy values)."""
+    """A JAX SCAN, VSRN or SGRAF variable tree ({'params': {...}} and, for
+    VSRN and SGRAF, {'batch_stats': {...}}; leaves as arrays) -> the port's
+    state dict (numpy values)."""
     p = variables["params"]
     img, txt = p["img_enc"], p["txt_enc"]
     sd = {
@@ -87,22 +136,24 @@ def from_itrx_variables(variables) -> dict:
             sd[f"sim_enc.{ours}.weight"] = _np(_at(sim, path)["kernel"]).T
             sd[f"sim_enc.{ours}.bias"] = _np(_at(sim, path)["bias"])
         for ours, path in _SGRAF_BNS + bns:
-            sd[f"sim_enc.{ours}.weight"] = _np(_at(sim, path)["scale"])
-            sd[f"sim_enc.{ours}.bias"] = _np(_at(sim, path)["bias"])
-            sd[f"sim_enc.{ours}.running_mean"] = _np(_at(stats, path)["mean"])
-            sd[f"sim_enc.{ours}.running_var"] = _np(_at(stats, path)["var"])
-            sd[f"sim_enc.{ours}.num_batches_tracked"] = np.zeros((), np.int64)
+            _bn(sd, f"sim_enc.{ours}", _at(sim, path), _at(stats, path))
+    if "Rs_GCN_1" in img:
+        _vsrn_image(sd, img, variables["batch_stats"]["img_enc"])
+    if "caption_model" in p:
+        _vsrn_caption(sd, p["caption_model"])
     return {k: np.ascontiguousarray(v) for k, v in sd.items()}
 
 
 def to_itrx_flat(state_dict) -> list:
     """The port's state dict -> the reference checkpoint's state-dict list,
-    [img_enc, txt_enc] for SCAN and [img_enc, txt_enc, sim_enc] for SGRAF
-    (numpy values), which `itrx.utils.ref_convert.convert_state_list` flattens
-    to the JAX package's {path: array} leaves (the BatchNorm running
-    statistics included: they are eval state)."""
-    parts = {"img_enc": {}, "txt_enc": {}, "sim_enc": {}}
+    [img_enc, txt_enc] for SCAN, [img_enc, txt_enc, sim_enc] for SGRAF and
+    [img_enc, txt_enc, caption_model] for VSRN (numpy values), which
+    `itrx.utils.ref_convert.convert_state_list` flattens to the JAX
+    package's {path: array} leaves (the BatchNorm running statistics
+    included: they are eval state)."""
+    parts = {"img_enc": {}, "txt_enc": {}, "sim_enc": {}, "caption_model": {}}
     for k, v in state_dict.items():
         head, _, rest = k.partition(".")
         parts[head][rest] = _np(v)
-    return [parts["img_enc"], parts["txt_enc"]] + ([parts["sim_enc"]] if parts["sim_enc"] else [])
+    return [parts["img_enc"], parts["txt_enc"]] + [
+        parts[k] for k in ("sim_enc", "caption_model") if parts[k]]

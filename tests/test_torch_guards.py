@@ -14,9 +14,9 @@ import pytest
 import torch
 
 from itrx_torch.eval import engine
-from itrx_torch.models import get_model, methods, sgraf
+from itrx_torch.models import get_model, methods, sgraf, vsrn_decoder
 from itrx_torch.ops import kernels
-from itrx_torch.ops.kernels import gru, sgr, sgraf_align, sgraf_eval, xattn
+from itrx_torch.ops.kernels import gru, sgr, sgraf_align, sgraf_eval, vsrn_dec, xattn
 from itrx_torch.train import loop
 
 torch.set_num_threads(1)
@@ -411,13 +411,17 @@ def test_sgraf_saf_training_names_its_roadmap_item():
 
 
 def test_check_supported_refuses_sgraf_training():
-    """check_supported accepts SGRAF with SAF and with SGR, and still
-    refuses train_bf16, meshes and the methods not ported (their items)."""
+    """check_supported accepts SGRAF with SAF and with SGR and VSRN, and
+    still refuses train_bf16, meshes and the methods not ported (VSE++,
+    SAEM and CAMERA, each naming its item)."""
     loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SAF"))
     loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SGR"))
+    loop.check_supported(dict(_cfg(), name="VSRN"))
     loop.check_supported(_cfg())
-    with pytest.raises(NotImplementedError, match="only SCAN and SGRAF are.*items 3 and 9-11"):
-        loop.check_supported(dict(_cfg(), name="VSRN"))
+    for name, item in (("VSE_PP", "VSE\\+\\+ is ROADMAP queue 1 item 3"),
+                       ("SAEM", "SAEM item 10"), ("CAMERA", "CAMERA item 11")):
+        with pytest.raises(NotImplementedError, match=f"only SCAN, VSRN and SGRAF are.*{item}"):
+            loop.check_supported(dict(_cfg(), name=name))
     with pytest.raises(NotImplementedError, match="train_bf16"):
         loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SGR", train_bf16=True))
     with pytest.raises(NotImplementedError, match="mesh_shape"):
@@ -627,6 +631,107 @@ def test_sgraf_eval_sgr_source_is_built_and_hashed(tmp_path, monkeypatch):
     seen = [[kernels.library_path(n) for n in libs]]
     for header in ("sgraf_nodes.cuh", "xattn_product.cuh"):
         (tmp_path / header).write_text("// edited\n")
+        seen.append([kernels.library_path(n) for n in libs])
+    for i, _ in enumerate(libs):
+        assert len({paths[i] for paths in seen}) == 3
+
+
+def _dec_args(dev="cpu", t=3, b=2, r=4, h=8):
+    g = torch.Generator().manual_seed(3)
+    x = lambda *sh: (torch.randn(*sh, generator=g) * 0.3).to(dev)  # noqa: E731
+    return (x(t, b, 3 * h), torch.ones(t, b, h, device=dev), x(b, r, h), x(b, r, h), x(b, h),
+            x(h, h), x(1, h), x(3 * h, h), x(3 * h, h), x(3 * h))
+
+
+def test_vsrn_dec_wrappers_raise_off_cpu_and_cuda():
+    """The decoder wrappers raise for a tensor on neither the CPU nor a CUDA
+    device, with and without grad, without counting a launch."""
+    before = vsrn_dec.vsrn_dec_fused.launches, vsrn_dec.vsrn_dec_bwd_fused.launches
+    args = _dec_args("meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        vsrn_dec.vsrn_dec_fused(*args)
+    args[5].requires_grad_()
+    with pytest.raises(ValueError, match="no kernel"):
+        vsrn_dec.vsrn_dec_fused(*args)
+    res = [torch.zeros(3, 2, 8, device="meta"), torch.zeros(3, 2, 24, device="meta"),
+           torch.zeros(3, 2, 8, device="meta")]
+    with pytest.raises(ValueError, match="no kernel"):
+        vsrn_dec.vsrn_dec_bwd_fused(*_dec_args("meta"), *res)
+    assert (vsrn_dec.vsrn_dec_fused.launches, vsrn_dec.vsrn_dec_bwd_fused.launches) == before
+
+
+def _vsrn(**kw):
+    cfg = dict(_cfg(), name="VSRN", embed_size=16, data_name="f30k_precomp",
+               measure="cosine", use_abs=False, max_len=5, dim_hidden=8, dim_vid=16,
+               dim_word=8, input_dropout_p=0.2)
+    cfg.update(kw)
+    return get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+
+
+def _vsrn_batch(b=3, l=6):
+    g = torch.Generator().manual_seed(4)
+    ids = torch.randint(1, 20, (b, l), generator=g)
+    return {"images": torch.randn(b, 5, 12, generator=g), "cap_ids": ids,
+            "cap_mask": torch.ones(b, l), "label_ids": ids, "label_mask": torch.ones(b, l)}
+
+
+def test_vsrn_training_reaches_the_decoder_wrapper(monkeypatch):
+    """VSRN's train-mode loss sends the decode loop to vsrn_dec_fused, once,
+    with grad (so the autograd Function and, on the card, both kernels run),
+    and its gradient reaches every parameter; VSRN.loss refuses a `train`
+    flag that disagrees with the module's mode."""
+    calls = []
+
+    def counting(*a):
+        calls.append(torch.is_grad_enabled() and any(t.requires_grad for t in a))
+        return vsrn_dec.vsrn_dec_fused(*a)
+
+    monkeypatch.setattr(vsrn_decoder, "vsrn_dec_fused", counting)
+    model = _vsrn().train()
+    loss, aux = model.loss(_vsrn_batch())
+    assert calls == [True] and sorted(aux) == ["Loss", "Loss_caption", "Loss_retrieval"]
+    loss.backward()
+    assert all(p.grad is not None for p in model.parameters())
+    with pytest.raises(ValueError, match="model.train"):
+        model.eval().loss(_vsrn_batch())
+
+
+def test_vsrn_evaluation_reaches_no_grid_kernel(monkeypatch):
+    """VSRN's evaluation runs no kernel but the GRU's: fused_eval_active is
+    False on every device, eval-mode embed keeps no GCN sequence and never
+    runs the caption decoder, and cal_sims takes the 2-D grid."""
+    def refuse(*a, **k):
+        raise AssertionError("an evaluation reached a kernel wrapper")
+
+    for mod, name in ((vsrn_decoder, "vsrn_dec_fused"), (methods, "xattn_t2i_fused"),
+                      (methods, "xattn_i2t_fused")):
+        monkeypatch.setattr(mod, name, refuse)
+    model = _vsrn().eval()
+    for dev in ("cpu", "cuda"):
+        assert not model.fused_eval_active(torch.device(dev), train=False)
+    with torch.no_grad():
+        e = model.embed(_vsrn_batch())
+    assert sorted(e) == ["cap", "img"]
+    assert engine.cal_sims(model, e["img"], e["cap"], verbose=False).shape == (3, 3)
+
+
+def test_vsrn_dec_sources_are_built_and_hashed(tmp_path, monkeypatch):
+    """The decoder's forward and backward kernels exist with their C
+    interfaces, both include the shared attention header and the tile
+    product, and both library names change when either header changes."""
+    fwd, bwd = (kernels.CSRC / n for n in (vsrn_dec.SOURCE, vsrn_dec.BWD_SOURCE))
+    assert "int itrx_vsrn_dec_fwd(" in fwd.read_text()
+    assert "int itrx_vsrn_dec_bwd(" in bwd.read_text()
+    headers = ("vsrn_dec.cuh", "gemm_tile.cuh")
+    for src in (fwd, bwd):
+        assert all(f'#include "{h}"' in src.read_text() for h in headers)
+    for name in (vsrn_dec.SOURCE, vsrn_dec.BWD_SOURCE) + headers:
+        (tmp_path / name).write_text((kernels.CSRC / name).read_text())
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    libs = ("vsrn_dec", "vsrn_dec_bwd")
+    seen = [[kernels.library_path(n) for n in libs]]
+    for edited in headers:
+        (tmp_path / edited).write_text("// edited\n")
         seen.append([kernels.library_path(n) for n in libs])
     for i, _ in enumerate(libs):
         assert len({paths[i] for paths in seen}) == 3

@@ -125,10 +125,27 @@ def test_sentence_level_text_encoder_matches_jax(rng):
 
 @pytest.mark.parametrize("name", ["VSE_PP", "VSRN", "SAEM", "CAMERA"])
 def test_unported_methods_name_their_roadmap_item(name):
-    """The four methods not ported yet each name their item (SGRAF's
-    evaluation is ported with SGR and SAF)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(_cfg(False, name=name, module_name="SGR", sim_dim=16), device="cpu")
+    """The three methods not ported yet each name their item; VSRN, ported
+    with its training, builds with the reference's parts and keys (SGRAF
+    is ported with SGR and SAF)."""
+    cfg = _cfg(False, name=name, module_name="SGR", sim_dim=16, data_name="f30k_precomp",
+               measure="cosine", use_abs=False, max_len=7, dim_hidden=16, dim_vid=128,
+               dim_word=8, input_dropout_p=0.2)
+    if name != "VSRN":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_model(cfg, device="cpu")
+        return
+    model = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    assert not model.training and not model.fused_eval_active(torch.device("cuda"))
+    sd = model.state_dict()
+    assert sd["img_enc.Rs_GCN_1.g.weight"].shape == (128, 128, 1)
+    assert sd["img_enc.bn.running_var"].shape == (128,)
+    assert sd["img_enc.img_rnn.weight_hh_l0"].shape == (3 * 128, 128)
+    assert sd["caption_model.decoder.rnn.weight_ih_l0"].shape == (3 * 16, 8 + 16)
+    assert sd["caption_model.decoder.attention.linear1.weight"].shape == (16, 32)
+    assert sd["caption_model.decoder.out.weight"].shape == (VOCAB, 16)
+    # W.1 starts at zero: every RsGCN block starts as the identity
+    assert not sd["img_enc.Rs_GCN_4.W.1.weight"].any()
 
 
 @pytest.mark.parametrize("train", [False, True])
