@@ -31,8 +31,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    `vsrn_dec_bwd_plain` (the states and residuals, all nine cotangents, two
    backward calls bit-identical) at the training path's decode, 59 steps x
    128 x 36 regions, H 512, without and with the context dropout, and at a
-   ragged odd shape; and the GRU kernels at VSRN's text width (H 2048, 61
-   steps) against autograd through the plain GRU;
+   ragged odd shape; CAMERA's AGSA gated attention kernel to
+   `agsa_attention_plain` at both towers' calls on the evaluation path (128
+   x 64 heads x 36 regions or 32 BERT slots x d_k 32), at a ragged odd shape
+   and at the largest shape its limits allow (N 64, d_k 128), bf16 and
+   fp32; and the GRU kernels at VSRN's text width (H 2048, 61 steps) against
+   autograd through the plain GRU;
 4. the evaluation slices at full width on an f30k-1K-shaped synthetic split
    (1000 images x 36 x 2048 regions, 5000 captions) through get_model ->
    evaluate_split (encode_data -> cal_sims -> cal_recall) with encode_bf16
@@ -40,12 +44,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    LSE (bench.py's), SCAN's published i-t AVG (bi_gru, Mean,
    lambda_softmax 4), SGRAF-SAF (the SGRAF() overlay: bi_gru, embed 1024,
    sim_dim 256) and SGRAF-SGR (the same with module_name=SGR, sgr_step 3).
-   The launch counters show which kernels ran (and that the other grid
-   kernels did not).  The phases are then timed one by one and must
+   The launch counters show which kernels ran (and that no other kernel
+   did).  The phases are then timed one by one and must
    reproduce evaluate_split's ranks.  The witness: the bf16
    kernel grid must match the plain fp32 grid on the same embeddings (max
    abs diff <= the slice's limit) and rank like it (per-caption top-1
-   agreement >= 0.95, with >= 2 distinct top-1 images);
+   agreement >= 0.95, with >= 2 distinct top-1 images).  Then the CAMERA
+   slice (the CAMERA() overlay: embed 2048, 64 heads, smry_k 12, BERT-base
+   with the split's tiny vocabulary, max_words 32, boxes and image sizes
+   from the synthetic split): the counters show agsa_attn once a tower and
+   batch (80) and no other kernel; its witnesses are an fp32 encode through
+   the kernel against the same encode through agsa_attention_plain on the
+   card (embeddings and grid within 1e-5, top-1 agreement >= 0.95) and the
+   bf16 main path's grid against that fp32 grid (at limits set from the
+   first reading on the card);
 5. the ensembles: a t2i LSE and an i-t AVG checkpoint with random weights
    through evalrank_ensemble, whose ranks must be cal_recall of the two
    averaged grids; SGRAF's published protocol, the SGR and SAF slices'
@@ -112,15 +124,17 @@ import torch
 
 from itrx_torch.configs import parse_cli
 from itrx_torch.data.precomp import get_loaders, get_test_loader
-from itrx_torch.data.synthetic import generate
+from itrx_torch.data.synthetic import generate, write_tiny_bert_vocab
 from itrx_torch.eval import engine, metrics
 from itrx_torch.models import get_model
+from itrx_torch.models import agsa as agsa_model
 from itrx_torch.models import sgraf as sgraf_model
 from itrx_torch.models.layers import TorchBatchNorm
 from itrx_torch.ops import kernels
 from itrx_torch.ops.kernels import gru as kgru
 from itrx_torch.ops.kernels.gru import gru_bwd_fused, gru_scan_fused
 from itrx_torch.ops.kernels import vsrn_dec as kvsrn
+from itrx_torch.ops.kernels.agsa_attn import agsa_attention_fused, agsa_attention_plain
 from itrx_torch.ops.kernels.sgr import (sgr_reason_bwd_fused, sgr_reason_bwd_plain,
                                         sgr_reason_fused, sgr_reason_plain)
 from itrx_torch.ops.kernels.sgraf_align import (sgraf_align_bwd_fused, sgraf_align_bwd_plain,
@@ -259,6 +273,31 @@ VSRN_BWD_REL = 1e-4
 VSRN_DEC_SHAPES = ((59, 128, 36, 512, 1.0), (59, 128, 36, 512, 0.8), (7, 37, 5, 96, 0.5))
 VSRN_DEC_NAMES = ("g_gxw", "g_cmask", "g_enc_out", "g_enc_att", "g_h0", "dWatt", "dw2",
                   "dWctx", "dWhh", "dbhh")
+# CAMERA's AGSA gated attention kernel vs its plain version on the same
+# inputs (the plain version rounds where the kernel rounds), per output
+# max|kernel - plain| / max|plain|: fp32 outputs differ by fp32 summation
+# order; bf16 outputs are rounded on both sides, and an intermediate near a
+# rounding boundary may put them one bf16 step (2^-8 of the output's scale)
+# apart.  The plain output with fc_g's two halves swapped (a wrong-operand
+# fault) is printed beside each reading and must exceed the limit
+AGSA_FP32_REL = 1e-5
+AGSA_BF16_REL = 2.0 ** -8
+# (B, h, N, d_k): the image and text towers' calls on CAMERA's eval path (the
+# CAMERA() overlay: encode batch 128, 64 heads, 36 regions or 32 BERT slots,
+# embed 2048), a ragged odd shape and the largest shape the limits allow
+AGSA_SHAPES = ((128, 64, 36, 32), (128, 64, 32, 32), (5, 3, 7, 8), (4, 2, 64, 128))
+# the CAMERA slice's first witness: an fp32 encode through the kernel vs the
+# same encode through agsa_attention_plain on the card (unit-norm
+# embeddings; the two differ by fp32 summation order in the attention)
+CAMERA_FP32_ATOL = 1e-5
+# the second witness: the bf16 main path's grid (bf16 BERT, towers and
+# kernel, bf16 embeddings) against the fp32 kernel grid of the same weights.
+# Read on an H100 80GB HBM3 at 700 W, this slice's first run: max diff
+# 9.2e-4, top-1 agreement 0.963 (random weights leave the scores 1.7e-2
+# apart on average over images, so near-ties flip); the limits sit 5x above
+# the difference and below the agreement
+CAMERA_BF16_GRID_ATOL = 5e-3
+CAMERA_BF16_TOP1_MIN = 0.9
 REPLACES = {
     "gru": "itrx/ops/pallas/gru.py:37 (_fwd_kernel)",
     "gru_bwd": "itrx/ops/pallas/gru.py:68 (_bwd_kernel)",
@@ -272,19 +311,20 @@ REPLACES = {
     "sgr_bwd": "itrx/ops/pallas/sgr.py:91 (_bwd_kernel)",
     "vsrn_dec": "itrx/ops/pallas/vsrn_dec.py:79 (_fwd_kernel)",
     "vsrn_dec_bwd": "itrx/ops/pallas/vsrn_dec.py:103 (_bwd_kernel)",
+    "agsa_attn": "itrx/ops/pallas/agsa_attn.py:64 (_fwd_kernel)",
 }
 SOURCES = {"gru": "gru.cu", "gru_bwd": "gru_bwd.cu", "xattn": "xattn.cu",
            "xattn_i2t": "xattn_i2t.cu", "sgraf_eval_saf": "sgraf_eval_saf.cu",
            "sgraf_eval_sgr": "sgraf_eval_sgr.cu", "sgraf_align": "sgraf_align.cu",
            "sgraf_align_bwd": "sgraf_align_bwd.cu", "sgr": "sgr.cu", "sgr_bwd": "sgr_bwd.cu",
-           "vsrn_dec": "vsrn_dec.cu", "vsrn_dec_bwd": "vsrn_dec_bwd.cu"}
+           "vsrn_dec": "vsrn_dec.cu", "vsrn_dec_bwd": "vsrn_dec_bwd.cu",
+           "agsa_attn": "agsa_attn.cu"}
 COUNTERS = {"gru": gru_scan_fused, "gru_bwd": gru_bwd_fused, "xattn": xattn_t2i_fused,
             "xattn_i2t": xattn_i2t_fused, "sgraf_eval_saf": sgraf_eval_saf_fused,
             "sgraf_eval_sgr": sgraf_eval_sgr_fused, "sgraf_align": sgraf_align_fused,
             "sgraf_align_bwd": sgraf_align_bwd_fused, "sgr": sgr_reason_fused,
             "sgr_bwd": sgr_reason_bwd_fused, "vsrn_dec": vsrn_dec_fused,
-            "vsrn_dec_bwd": vsrn_dec_bwd_fused}
-GRID_KERNELS = ("xattn", "xattn_i2t", "sgraf_eval_saf", "sgraf_eval_sgr")
+            "vsrn_dec_bwd": vsrn_dec_bwd_fused, "agsa_attn": agsa_attention_fused}
 # PR 6's SAF kernel at 64 x 320 x 36 x 24 x 1024, S 256 (ms, bf16 and fp32;
 # NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
 SAF_PR6_MS = (12.642, 18.232)
@@ -1194,8 +1234,9 @@ def seeded_model(cfg: dict, seed: int):
 
 def grid_of(model, enc: dict, im_div: int, sl: slice = slice(None)) -> torch.Tensor:
     """cal_sims on encoded bf16 embeddings, as evaluate_split forms it."""
-    return engine.cal_sims(model, enc["img"][sl][::im_div], enc["cap"][sl],
-                           enc["cap_mask"][sl], compute_dtype=torch.bfloat16, verbose=False)
+    mask = enc["cap_mask"][sl] if "cap_mask" in enc else None
+    return engine.cal_sims(model, enc["img"][sl][::im_div], enc["cap"][sl], mask,
+                           compute_dtype=torch.bfloat16, verbose=False)
 
 
 def encode(model, dataset, cfg: dict) -> dict:
@@ -1203,40 +1244,182 @@ def encode(model, dataset, cfg: dict) -> dict:
                               compute_dtype=torch.bfloat16, encode_dtype=torch.bfloat16)
 
 
-# the eval slices: (method overlay, kernel of the grid, config overrides)
+def _top1(sims, ref) -> tuple:
+    """(max |sims - ref|, the share of captions whose top-1 image agrees,
+    the distinct top-1 images of `sims`)."""
+    top1 = sims.argmax(dim=0)
+    return (float((sims - ref).abs().max()), float((top1 == ref.argmax(dim=0)).float().mean()),
+            int(torch.unique(top1).numel()))
+
+
+def grid_witness(model, dataset, cfg, enc, sims, launches) -> tuple:
+    """SCAN's and SGRAF's witness: the bf16 kernel grid against the plain
+    fp32 grid on the same (bf16-valued) embeddings, within SLICE_MAX_DIFF,
+    top-1 agreement >= TOP1_MIN and >= 2 distinct top-1 images.  Returns
+    (the fields it measured, the failed checks)."""
+    imgs = enc["img"][:: dataset.im_div]
+    t0 = time.perf_counter()
+    sims32 = plain_grid(model, imgs, enc["cap"], enc["cap_mask"], cfg)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err, agree, distinct = _top1(sims, sims32)
+    res32 = metrics.cal_recall(sims32, cap_ratio=dataset.im_div, verbose=False)
+    if cfg["name"] == "SGRAF" and cfg["module_name"] == "SGR":
+        grid_bound = sgr_bound(imgs, enc["cap"], enc["cap_mask"], cfg["sim_dim"],
+                               cfg["sgr_step"])
+    elif cfg["name"] == "SGRAF":
+        grid_bound = saf_bound(imgs, enc["cap"], enc["cap_mask"], cfg["sim_dim"])
+    else:
+        grid_bound = xattn_bound(imgs, enc["cap"], enc["cap_mask"], cfg["cross_attn"])
+    out = {
+        "grid_bound_ms": grid_bound["bound_ms"],
+        "grid_bound_by": grid_bound["bound_by"],
+        "plain_fp32_sims_seconds": plain_s,
+        "rsum_fp32_plain": res32["rsum"],
+        "top1_agreement_bf16_kernel_vs_fp32_plain": agree,
+        "max_abs_diff_bf16_kernel_vs_fp32_plain": err,
+        "distinct_top1_images": distinct,
+    }
+    problems = []
+    if distinct < 2:
+        problems.append("every caption ranks the same image first: the witness cannot "
+                        "tell a right grid from a degenerate one")
+    if not agree >= TOP1_MIN:
+        problems.append(f"bf16 kernel grid agrees with the fp32 plain grid on only "
+                        f"{agree:.4f} of top-1 images (< {TOP1_MIN})")
+    if not err <= SLICE_MAX_DIFF:
+        problems.append(f"bf16 kernel grid differs from the fp32 plain grid by {err} "
+                        f"(> {SLICE_MAX_DIFF})")
+    return out, problems
+
+
+@contextlib.contextmanager
+def _agsa_plain_route():
+    """CAMERA's gated attention layers with the kernel's wrapper swapped for
+    agsa_attention_plain (plain PyTorch on any device): the same encode's
+    plain chain on the card."""
+    saved = agsa_model.agsa_attention_fused
+    agsa_model.agsa_attention_fused = agsa_attention_plain
+    try:
+        yield
+    finally:
+        agsa_model.agsa_attention_fused = saved
+
+
+def camera_witness(model, dataset, cfg, enc, sims, launches) -> tuple:
+    """CAMERA's witnesses (its kernel runs inside encode, in both towers; the
+    main path must launch it once a tower and batch).  Witness 1: an fp32
+    encode through the kernel against the same encode through
+    agsa_attention_plain on the card (embeddings and grid within
+    CAMERA_FP32_ATOL, top-1 agreement >= TOP1_MIN, >= 2 distinct top-1
+    images).  Witness 2: the bf16 main path's grid against that fp32 grid,
+    held to CAMERA_BF16_GRID_ATOL and CAMERA_BF16_TOP1_MIN.  Returns (the
+    fields it measured, the failed checks)."""
+    want = 2 * -(-len(dataset) // cfg["batch_size"])
+    problems = []
+    if launches["agsa_attn"] != want:
+        problems.append(f"the main path launched agsa_attn {launches['agsa_attn']} times, "
+                        f"expected {want}")
+    if tuple(enc["img"].shape) != (len(dataset), cfg["smry_k"], cfg["embed_size"]):
+        problems.append(f"unexpected image embeddings {tuple(enc['img'].shape)}")
+
+    def grid(e):
+        return engine.cal_sims(model, e["img"][:: dataset.im_div], e["cap"], verbose=False)
+
+    reset_counters()
+    t0 = time.perf_counter()
+    enc32 = engine.encode_data(model, dataset, cfg["batch_size"], device=DEV)
+    torch.cuda.synchronize()
+    fp32_s = time.perf_counter() - t0
+    if read_counters()["agsa_attn"] != want:
+        problems.append("the fp32 encode did not launch the kernel in every batch")
+    with _agsa_plain_route():
+        t0 = time.perf_counter()
+        plain32 = engine.encode_data(model, dataset, cfg["batch_size"], device=DEV)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    emb_err = {k: float((enc32[k] - plain32[k]).abs().max()) for k in ("img", "cap")}
+    sims32 = grid(enc32)
+    w1_err, w1_agree, w1_distinct = _top1(sims32, grid(plain32))
+    w2_err, w2_agree, w2_distinct = _top1(sims, sims32)
+    out = {
+        "fp32_encode_seconds_kernel": fp32_s,
+        "fp32_encode_seconds_plain_route": plain_s,
+        "rsum_fp32": metrics.cal_recall(sims32, cap_ratio=dataset.im_div, verbose=False)["rsum"],
+        "witness1_fp32_embedding_max_abs_diff": emb_err,
+        "witness1_fp32_grid_max_abs_diff": w1_err,
+        "witness1_top1_agreement": w1_agree,
+        "witness1_distinct_top1_images": w1_distinct,
+        "witness2_bf16_vs_fp32_grid_max_abs_diff": w2_err,
+        "witness2_top1_agreement": w2_agree,
+        "witness2_distinct_top1_images": w2_distinct,
+    }
+    if max(emb_err.values()) > CAMERA_FP32_ATOL or not w1_err <= CAMERA_FP32_ATOL:
+        problems.append(f"fp32 kernel encode vs its plain route: embeddings {emb_err}, "
+                        f"grid {w1_err} (> {CAMERA_FP32_ATOL})")
+    if w1_distinct < 2 or not w1_agree >= TOP1_MIN:
+        problems.append(f"fp32 kernel grid vs its plain route: top-1 agreement {w1_agree} "
+                        f"(< {TOP1_MIN}) or {w1_distinct} distinct images")
+    if not w2_err <= CAMERA_BF16_GRID_ATOL or not w2_agree >= CAMERA_BF16_TOP1_MIN:
+        problems.append(f"bf16 main path grid vs the fp32 grid: max diff {w2_err} (limit "
+                        f"{CAMERA_BF16_GRID_ATOL}), top-1 agreement {w2_agree} (limit "
+                        f"{CAMERA_BF16_TOP1_MIN})")
+    return out, problems
+
+
+# the eval slices: (method overlay, the kernels its evaluate_split must
+# launch, config overrides ({data_root} is the split's root), witness)
 SLICES = {
     # bench.py's SCAN t2i LSE: unidirectional GRU, the SCAN() overlay defaults
-    "t2i": ("SCAN", "xattn", ()),
+    "t2i": ("SCAN", ("gru", "xattn"), (), grid_witness),
     # SCAN's published i-t AVG (kuanghuei/SCAN README)
-    "i2t": ("SCAN", "xattn_i2t", ("cross_attn=i2t", "agg_func=Mean",
-                                  f"lambda_softmax={I2T_SOFTMAX}", "bi_gru=True")),
+    "i2t": ("SCAN", ("gru", "xattn_i2t"),
+            ("cross_attn=i2t", "agg_func=Mean", f"lambda_softmax={I2T_SOFTMAX}", "bi_gru=True"),
+            grid_witness),
     # SGRAF's published f30k SAF command (Paranioar/SGRAF README: --module_name
     # SAF --sgr_step 3 --max_violation --embed_size 1024 --sim_dim 256), the
     # SGRAF() overlay's defaults: bi_gru, no_txtnorm False
-    "saf": ("SGRAF", "sgraf_eval_saf", ("max_violation=True",)),
+    "saf": ("SGRAF", ("gru", "sgraf_eval_saf"), ("max_violation=True",), grid_witness),
     # SGRAF's published f30k SGR command (the same README: --module_name SGR
     # --sgr_step 3 --max_violation --embed_size 1024 --sim_dim 256)
-    "sgr": ("SGRAF", "sgraf_eval_sgr", ("module_name=SGR", "max_violation=True")),
+    "sgr": ("SGRAF", ("gru", "sgraf_eval_sgr"), ("module_name=SGR", "max_violation=True"),
+            grid_witness),
+    # the CAMERA() overlay at its widths (embed 2048, 64 heads, smry_k 12,
+    # max_words 32, BERT-base) with the split's tiny BERT vocabulary; no GRU
+    # and no grid kernel: its one kernel runs inside encode
+    "camera": ("CAMERA", ("agsa_attn",), ("bert_path={data_root}",), camera_witness),
 }
 
 
+def slice_detail(cfg: dict, model) -> str:
+    if cfg["name"] == "CAMERA":
+        bert = model.txt_enc.bert.config
+        return (f"max_words {cfg['max_words']}, head {cfg['head']}, smry_k {cfg['smry_k']}, "
+                f"BERT {bert.hidden_size} x {bert.num_hidden_layers} layers x "
+                f"{bert.num_attention_heads} heads")
+    if cfg["name"] == "SGRAF":
+        return (f"bi_gru={cfg['bi_gru']}, {cfg['module_name']}, sgr_step {cfg['sgr_step']}, "
+                f"sim_dim {cfg['sim_dim']}, no_txtnorm {cfg['no_txtnorm']}")
+    return (f"bi_gru={cfg['bi_gru']}, {cfg['cross_attn']} {cfg['agg_func']} "
+            f"lambda_softmax {cfg['lambda_softmax']}")
+
+
 def phase_slice(data_root: str, card: str, direction: str) -> tuple:
-    """(the slice's result, its bf16 kernel grid)."""
-    method, kernel, overrides = SLICES[direction]
-    forbidden = ["gru_bwd"] + [k for k in GRID_KERNELS if k != kernel]
+    """(the slice's result, its bf16 grid): evaluate_split counted, the same
+    path timed phase by phase (it must reproduce the ranks), the profiles of
+    one encode and one grid, then the slice's witness."""
+    method, needs, overrides, witness = SLICES[direction]
+    overrides = [o.format(data_root=data_root) for o in overrides]
+    forbidden = [k for k in COUNTERS if k not in needs]
     log(f"slice: f30k-1K-shaped {method} {direction} evaluation ({' '.join(overrides)})")
     t0 = time.perf_counter()
     cfg = eval_config(data_root, "f30k_precomp", method, *overrides)
     dataset, vocab_size = get_test_loader("test", cfg)
     cfg["vocab_size"] = vocab_size
     model = seeded_model(cfg, cfg["seed"])
-    detail = (f"{cfg['module_name']}, sgr_step {cfg['sgr_step']}, sim_dim {cfg['sim_dim']}, "
-              f"no_txtnorm {cfg['no_txtnorm']}"
-              if method == "SGRAF" else
-              f"{cfg['cross_attn']} {cfg['agg_func']} lambda_softmax {cfg['lambda_softmax']}")
     log(f"  data + model set-up: {time.perf_counter() - t0:.1f} s "
-        f"({len(dataset)} captions, vocab {vocab_size}, bi_gru={cfg['bi_gru']}, "
-        f"embed {cfg['embed_size']}, {detail})")
+        f"({len(dataset)} captions, vocab {vocab_size}, embed {cfg['embed_size']}, "
+        f"{slice_detail(cfg, model)})")
 
     # the main path, counted: the entry point a user calls, which maps
     # encode_bf16 / eval_bf16 to dtypes and runs encode -> sims -> recall
@@ -1250,7 +1433,7 @@ def phase_slice(data_root: str, card: str, direction: str) -> tuple:
     log(f"  main path (evaluate_split) launches: {launches}")
     if any(launches[k] for k in forbidden):
         raise AssertionError(f"{direction} evaluation launched one of {forbidden}")
-    for k in ("gru", kernel):
+    for k in needs:
         if launches[k] <= 0:
             raise AssertionError(f"the main path never launched the {k} kernel")
 
@@ -1273,11 +1456,11 @@ def phase_slice(data_root: str, card: str, direction: str) -> tuple:
 
     imgs = enc["img"][:: dataset.im_div]
     ni, nc = imgs.shape[0], enc["cap"].shape[0]
-    shape = [ni, nc, int(imgs.shape[1]), int(enc["cap"].shape[1]), int(imgs.shape[2])]
     if (ni, nc) != (1000, 5000) or tuple(sims.shape) != (ni, nc):
-        raise AssertionError(f"unexpected grid {tuple(sims.shape)} for shape {shape}")
-    if not torch.isfinite(sims).all():
-        raise AssertionError("non-finite similarity scores")
+        raise AssertionError(f"unexpected grid {tuple(sims.shape)} for {ni} x {nc}")
+    if not (torch.isfinite(sims).all() and torch.isfinite(enc["img"].float()).all()
+            and torch.isfinite(enc["cap"].float()).all()):
+        raise AssertionError("non-finite embeddings or similarity scores")
 
     times = []
     while len(times) < 3 and not (times and times[0] > ONE_TIMING_S):
@@ -1291,56 +1474,28 @@ def phase_slice(data_root: str, card: str, direction: str) -> tuple:
     prof_eval = _profile_steps(lambda _: score(enc), [None])
     prof_encode = _profile_steps(lambda _: encode(model, dataset, cfg), [None])
 
-    # witness: the plain fp32 path on the same (bf16-valued) embeddings
-    t0 = time.perf_counter()
-    sims32 = plain_grid(model, imgs, enc["cap"], enc["cap_mask"], cfg)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    top1 = sims.argmax(dim=0)
-    agree = float((top1 == sims32.argmax(dim=0)).float().mean())
-    distinct = int(torch.unique(top1).numel())
-    err = float((sims - sims32).abs().max())
-    res32 = metrics.cal_recall(sims32, cap_ratio=dataset.im_div, verbose=False)
-    if method == "SGRAF" and cfg["module_name"] == "SGR":
-        grid_bound = sgr_bound(imgs, enc["cap"], enc["cap_mask"], cfg["sim_dim"],
-                               cfg["sgr_step"])
-    elif method == "SGRAF":
-        grid_bound = saf_bound(imgs, enc["cap"], enc["cap_mask"], cfg["sim_dim"])
-    else:
-        grid_bound = xattn_bound(imgs, enc["cap"], enc["cap_mask"], cfg["cross_attn"])
+    seen, problems = witness(model, dataset, cfg, enc, sims, launches)
     out = {
         "card": card,
         "direction": direction,
-        "shape [Ni, Nc, R, L, D]": shape,
+        "img_embedding_shape": list(imgs.shape),
+        "cap_embedding_shape": list(enc["cap"].shape),
         "evaluate_split_seconds_first": ev_first,
         "encode_seconds": enc_warm,
         "eval_seconds": eval_s,
         "eval_seconds_all": times,
         "eval_timed_once": len(times) == 1,
         "pairs_per_sec": ni * nc / eval_s,
-        "grid_bound_ms": grid_bound["bound_ms"],
-        "grid_bound_by": grid_bound["bound_by"],
-        "plain_fp32_sims_seconds": plain_s,
         "rsum_bf16_kernel": res["rsum"],
-        "rsum_fp32_plain": res32["rsum"],
-        "top1_agreement_bf16_kernel_vs_fp32_plain": agree,
-        "max_abs_diff_bf16_kernel_vs_fp32_plain": err,
-        "distinct_top1_images": distinct,
+        **seen,
         "mean_per_caption_std_over_images": float(sims.std(dim=0).mean()),
         "launches": launches,
         "profile_eval": prof_eval,
         "profile_encode": prof_encode,
     }
     log(f"{direction} slice result: " + json.dumps(out))
-    if distinct < 2:
-        raise AssertionError("every caption ranks the same image first: the witness "
-                             "cannot tell a right grid from a degenerate one")
-    if not agree >= TOP1_MIN:
-        raise AssertionError(f"bf16 kernel grid agrees with the fp32 plain grid on only "
-                             f"{agree:.4f} of top-1 images (< {TOP1_MIN})")
-    if not err <= SLICE_MAX_DIFF:
-        raise AssertionError(f"bf16 kernel grid differs from the fp32 plain grid by "
-                             f"{err} (> {SLICE_MAX_DIFF})")
+    if problems:
+        raise AssertionError(f"{direction} slice: " + "; ".join(problems))
     return out, sims
 
 
@@ -1357,7 +1512,7 @@ def ensemble_checkpoints(data_root: str, data_name: str, ck_dir: str) -> tuple:
     own config, from seeds 0 and 1."""
     paths = []
     for seed, direction in enumerate(("t2i", "i2t")):
-        method, _, overrides = SLICES[direction]
+        method, _, overrides, _ = SLICES[direction]
         cfg = eval_config(data_root, data_name, method, *overrides)
         cfg["vocab_size"] = get_test_loader(
             "testall" if data_name == "coco_precomp" else "test", cfg)[1]
@@ -1426,7 +1581,7 @@ def phase_sgraf_ensemble(data_root: str, ck_dir: str, card: str, grids: dict) ->
     log("ensemble: SGRAF-SGR + SGRAF-SAF checkpoints through evalrank_ensemble")
     paths = []
     for direction in ("sgr", "saf"):
-        method, _, overrides = SLICES[direction]
+        method, _, overrides, _ = SLICES[direction]
         cfg = eval_config(data_root, "f30k_precomp", method, *overrides)
         dataset, cfg["vocab_size"] = get_test_loader("test", cfg)
         paths.append(save_random_checkpoint(
@@ -1627,6 +1782,81 @@ def vsrn_bwd_result(res: dict) -> dict:
     return {"max_abs_err": res["bwd_max_abs_err"], "ms": res["bwd_ms"],
             "plain_ms": res["bwd_plain_ms"], "bound_ms": res["bwd_bound_ms"],
             "bound_by": res["bwd_bound_by"], "library_ms": None}
+
+
+def _agsa_inputs(g, b, h, n, dk):
+    """q, k, v (B, N, h d_k) and the gate's weights at torch's init
+    (U(-1/sqrt(d_k), 1/sqrt(d_k)), fc_g's two halves) and biases, fp32."""
+    def u(*shape):
+        return torch.empty(*shape).uniform_(-dk ** -0.5, dk ** -0.5, generator=g)
+
+    qkv = [torch.randn(b, n, h * dk, generator=g) for _ in range(3)]
+    return [t.to(DEV) for t in qkv + [w for _ in range(4) for w in (u(dk, dk), u(dk))]]
+
+
+def agsa_bound(args) -> dict:
+    """The bound of one call: q, k, v, the weights and biases read once and
+    the output written once, against the products (four (N, d_k) x (d_k,
+    d_k) gate products and the two (N, N, d_k) attention products a head) at
+    the peak of the inputs' type."""
+    q = args[0]
+    b, n, d = q.shape
+    dk = args[3].shape[0]
+    heads = b * d // dk
+    ops = heads * (8 * n * dk * dk + 4 * n * n * dk)
+    kind = "bf16" if q.dtype == torch.bfloat16 else "fp32"
+    return bound(nbytes(*args) + nbytes(q), {kind: ops})
+
+
+def phase_agsa(g) -> dict:
+    """CAMERA's gated attention kernel vs agsa_attention_plain on the card,
+    fp32 and bf16: the image and text towers' calls (128 x 64 heads x 36 or
+    32 x d_k 32), a ragged odd shape and the largest the limits allow; then
+    the times and bounds at the towers' shapes."""
+    log("agsa_attn gated attention kernel vs plain (fp32 and bf16)")
+    res = {}
+    for b, h, n, dk in AGSA_SHAPES:
+        x32 = _agsa_inputs(g, b, h, n, dk)
+        for dt, limit in ((torch.float32, AGSA_FP32_REL), (torch.bfloat16, AGSA_BF16_REL)):
+            # every input in the activation dtype, as a bf16 encode casts the
+            # parameters (the wrapper reads the biases in fp32)
+            args = [t.to(dt) for t in x32]
+            tag = f"agsa_attn B {b} x h {h} x N {n} x d_k {dk} {str(dt)[6:]}"
+            with torch.no_grad():
+                got = agsa_attention_fused(*args, h)
+                want = agsa_attention_plain(*args, h)
+                swapped = args[:7] + [args[9], args[10], args[7], args[8]]
+                wrong = rel_err(agsa_attention_plain(*swapped, h).float(), want.float())
+            if got.dtype != dt:
+                raise AssertionError(f"{tag}: output dtype {got.dtype}")
+            err = check_rel(tag, got, want, limit)
+            log(f"  {tag}: the plain output with fc_g's halves swapped: {wrong:.3e}")
+            if not wrong > limit:
+                raise AssertionError(f"the limit {limit} does not separate swapped gate "
+                                     f"halves ({wrong})")
+            if (b, h, n, dk) in AGSA_SHAPES[:2]:
+                key = ("img" if n == AGSA_SHAPES[0][2] else "txt") + "_" + str(dt)[6:]
+                with torch.no_grad():
+                    res[f"{key}_ms"] = cuda_ms(lambda: agsa_attention_fused(*args, h))
+                    res[f"{key}_plain_ms"] = cuda_ms(lambda: agsa_attention_plain(*args, h),
+                                                     reps=5)
+                bd = agsa_bound(args)
+                res[f"{key}_bound_ms"], res[f"{key}_bound_by"] = bd["bound_ms"], bd["bound_by"]
+                res[f"{key}_max_abs_err"] = float((got.float() - want.float()).abs().max())
+                res[f"{key}_rel_err"] = err
+                log(f"  time {tag}: kernel {res[f'{key}_ms']:.4f} ms, plain "
+                    f"{res[f'{key}_plain_ms']:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+                    f"({bd['bound_by']})")
+    # the row of the kernels line: the image tower's call in bf16, the
+    # encode_bf16 main path's
+    key = "img_bfloat16"
+    res.update(max_abs_err=res[f"{key}_max_abs_err"], ms=res[f"{key}_ms"],
+               plain_ms=res[f"{key}_plain_ms"], bound_ms=res[f"{key}_bound_ms"],
+               bound_by=res[f"{key}_bound_by"])
+    # no PyTorch call computes the gated attention (the gates act on q and k
+    # before the scores)
+    res["library_ms"] = None
+    return res
 
 
 def _losses_from_events(save_dir: str) -> tuple[list, list]:
@@ -1972,6 +2202,7 @@ def main():
     results["sgr_bwd"] = sgr_bwd_result(results["sgr"])
     results["vsrn_dec"] = phase_vsrn_dec(g)
     results["vsrn_dec_bwd"] = vsrn_bwd_result(results["vsrn_dec"])
+    results["agsa_attn"] = phase_agsa(g)
     # the GRU kernels at VSRN's text width (H 2048, 61 slots; the region GRU is
     # the same recurrence over 36 steps)
     phase_gru_bwd(g, b=128, l=61, d=300, h=2048, timed=False)
@@ -1979,10 +2210,12 @@ def main():
         # bench.py's split: 4000 // 4 = 1000 test images x 36 x 2048, 5000 captions
         generate(os.path.join(data_root, "f30k_precomp"), n_images=4000, img_dim=2048,
                  splits=("test",), seed=0, n_concepts_range=(2, 10))
+        write_tiny_bert_vocab(os.path.join(data_root, "vocab.txt"))  # CAMERA's BERT
         phase_slice(data_root, card, "t2i")
         i2t, _ = phase_slice(data_root, card, "i2t")
         saf, saf_sims = phase_slice(data_root, card, "saf")
         sgr, sgr_sims = phase_slice(data_root, card, "sgr")
+        cam, _ = phase_slice(data_root, card, "camera")
         phase_ensemble(data_root, data_root, card)
         phase_sgraf_ensemble(data_root, data_root, card, {"sgr": sgr_sims, "saf": saf_sims})
     with tempfile.TemporaryDirectory(prefix="itrx_smoke_fold5_") as root:
@@ -1999,7 +2232,8 @@ def main():
     # training path for the GRU kernels and t2i validation, the i2t slice's
     # evaluate_split for xattn_i2t, the SAF and SGR slices' for their eval
     # kernels, SGRAF-SAF's training path for the alignment kernels,
-    # SGRAF-SGR's for the reasoning kernels, VSRN's for the decoder kernels)
+    # SGRAF-SGR's for the reasoning kernels, VSRN's for the decoder kernels,
+    # the CAMERA slice's evaluate_split for agsa_attn)
     launches = dict(tr["launches"], xattn_i2t=i2t["launches"]["xattn_i2t"],
                     sgraf_eval_saf=saf["launches"]["sgraf_eval_saf"],
                     sgraf_eval_sgr=sgr["launches"]["sgraf_eval_sgr"],
@@ -2007,7 +2241,8 @@ def main():
                     sgraf_align_bwd=tr_saf["launches"]["sgraf_align_bwd"],
                     sgr=tr_sgr["launches"]["sgr"], sgr_bwd=tr_sgr["launches"]["sgr_bwd"],
                     vsrn_dec=tr_vsrn["launches"]["vsrn_dec"],
-                    vsrn_dec_bwd=tr_vsrn["launches"]["vsrn_dec_bwd"])
+                    vsrn_dec_bwd=tr_vsrn["launches"]["vsrn_dec_bwd"],
+                    agsa_attn=cam["launches"]["agsa_attn"])
     log(f"card: {card}")
     print(json.dumps({"kernels": [
         {

@@ -25,6 +25,9 @@ PLAIN_ATTN_BYTES = 1 << 30
 # defaults): bounds order_sim's (cap tile, img tile, D) difference tensor
 IMG_TILE = 256
 CAP_TILE = 1024
+# batch fields a reduced-precision encode keeps fp32 (itrx's _KEEP_F32): box
+# geometry, whose bf16 rounding collapses a thin box to height 0
+KEEP_F32 = ("boxes", "imgs_wh")
 
 
 def _to_device(v: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -42,7 +45,8 @@ def encode_data(model, dataset, batch_size: int, device=None,
     stacked embeddings (+ masks).
 
     `encode_dtype=torch.bfloat16` runs the embed forward in bf16: the
-    parameters and the float batch fields are cast, the masks stay fp32.
+    parameters and the float batch fields are cast; the buffers (BatchNorm
+    statistics), the masks and the box geometry (KEEP_F32) stay fp32.
     `compute_dtype` casts the stacked embeddings (not the masks) for the
     similarity grid.
     """
@@ -56,7 +60,8 @@ def encode_data(model, dataset, batch_size: int, device=None,
         placed = {k: _to_device(v, device) for k, v in batch.items()}
         if encode_dtype is not None:
             placed = {
-                k: v.to(encode_dtype) if v.dtype == torch.float32 and "mask" not in k else v
+                k: v.to(encode_dtype)
+                if v.dtype == torch.float32 and "mask" not in k and k not in KEEP_F32 else v
                 for k, v in placed.items()
             }
         e = functional_call(model, params, (placed,), strict=False)

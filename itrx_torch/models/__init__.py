@@ -2,17 +2,18 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from ..utils.cli import default_device
-from . import methods
+from . import bert, methods
 
 # methods not ported yet -> the ROADMAP item that ports each
 _NOT_PORTED = {
     "VSE_PP": "ROADMAP queue 1 item 3 (VSE_PP)",
     "VSE++": "ROADMAP queue 1 item 3 (VSE_PP)",
     "SAEM": "ROADMAP queue 1 item 10 (SAEM)",
-    "CAMERA": "ROADMAP queue 1 item 11 (CAMERA)",
 }
 
 
@@ -26,6 +27,8 @@ def get_model(config: dict, device=None, generator: torch.Generator | None = Non
     name = config["name"]
     if name in _NOT_PORTED:
         raise NotImplementedError(f"{name} is not ported yet: {_NOT_PORTED[name]}")
+    if name == "CAMERA":
+        return _camera(config, generator).to(device).eval()
     if name == "VSRN":
         model = methods.VSRN(
             vocab_size=config["vocab_size"],
@@ -93,3 +96,24 @@ def get_model(config: dict, device=None, generator: torch.Generator | None = Non
         generator=generator,
     )
     return model.to(device).eval()
+
+
+def _camera(config: dict, generator: torch.Generator | None):
+    """CAMERA with the config's BERT (`bert_config_file` when it exists,
+    else BERT-base with `vocab_size`), its frozen tower loaded from
+    `init_checkpoint` when that file exists (itrx's load_pretrained_weights)."""
+    model = methods.CAMERA(
+        bert.bert_config_from(config),
+        img_dim=config["img_dim"],
+        embed_size=config["embed_size"],
+        head=config["head"],
+        smry_k=config["smry_k"],
+        drop=config.get("drop", 0.0),
+        dropout_seed=config.get("seed", 0),
+        generator=generator,
+    )
+    path = config.get("init_checkpoint")
+    if path and os.path.exists(path):
+        bert.load_torch_bert(path, model.txt_enc.bert)
+        print(f"=> loaded pretrained BERT weights from {path}")
+    return model

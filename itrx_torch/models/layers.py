@@ -1,8 +1,8 @@
 """Initializers of the reference, drawn from a torch.Generator, the
 BatchNorm of `itrx`'s TorchBatchNormCore over the last axis, and the dropout
-of the SGRAF and VSRN modules with its own random stream (counterparts of
-the parts of itrx/models/layers.py and flax's Dropout that SCAN, SGRAF and
-VSRN need)."""
+of the SGRAF, VSRN and CAMERA modules with its own random stream
+(counterparts of the parts of itrx/models/layers.py and flax's Dropout that
+SCAN, SGRAF, VSRN and CAMERA need)."""
 
 from __future__ import annotations
 
@@ -35,6 +35,19 @@ def torch_linear(in_features: int, out_features: int, bias: bool = True,
         if bias:
             fc.bias.uniform_(-k, k, generator=generator)
     return fc
+
+
+def torch_conv1d(in_channels: int, out_channels: int, kernel_size: int, dilation: int = 1,
+                 padding: int = 0, generator: torch.Generator | None = None) -> nn.Conv1d:
+    """Conv1d with torch's default init drawn from `generator`: weight and
+    bias U(-k, k), k = 1 / sqrt(in x kernel_size)."""
+    conv = nn.Conv1d(in_channels, out_channels, kernel_size, dilation=dilation,
+                     padding=padding)
+    k = 1.0 / math.sqrt(in_channels * kernel_size)
+    with torch.no_grad():
+        conv.weight.uniform_(-k, k, generator=generator)
+        conv.bias.uniform_(-k, k, generator=generator)
+    return conv
 
 
 def xavier_normal_linear(in_features: int, out_features: int,

@@ -1,7 +1,8 @@
-"""SCAN, VSRN and SGRAF (counterparts of itrx/models/methods.py::SCAN:
-`embed`, `similarity` and `loss`, t2i and i2t; ::VSRN: `embed`,
-`similarity` and `loss` with the caption decoder; and ::SGRAF with SGR or
-SAF: `embed`, `similarity` and `loss`)."""
+"""SCAN, VSRN, SGRAF and CAMERA (counterparts of
+itrx/models/methods.py::SCAN: `embed`, `similarity` and `loss`, t2i and
+i2t; ::VSRN: `embed`, `similarity` and `loss` with the caption decoder;
+::SGRAF with SGR or SAF: `embed`, `similarity` and `loss`; and
+itrx/models/bert_methods.py::CAMERA: `embed` and `similarity`)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,9 @@ from torch import nn
 from ..ops import attention
 from ..ops.kernels.xattn import xattn_i2t_fused, xattn_t2i_fused
 from ..ops.losses import contrastive_hinge, language_model_loss
-from ..ops.sim import cosine_sim, order_sim
+from ..ops.sim import cosine_sim, multi_view_matching, order_sim
+from .bert import BertConfig
+from .bert_methods import CAMERAImageEncoder, CAMERATextEncoder
 from .img_encoders import EncoderImagePrecomp, EncoderImagePrecompAttn
 from .layers import DropoutRNG
 from .sgraf import EncoderSimilarity
@@ -77,9 +80,9 @@ class SCAN(nn.Module):
         plain = attention.xattn_score_t2i if t2i else attention.xattn_score_i2t
         return plain(img, cap, cap_mask, raw_feature_norm=self.raw_feature_norm, **kw)
 
-    def loss(self, batch: dict, train: bool = True):
+    def loss(self, batch: dict, train: bool = True, epoch: int = 0):
         """The training objective: (hinge loss on the in-batch grid,
-        {"Loss": loss})."""
+        {"Loss": loss}).  `epoch` is unused (only SAEM's loss reads it)."""
         e = self.embed(batch)
         scores = self.similarity(e["img"], e["cap"], e["cap_mask"], train=train)
         loss = contrastive_hinge(scores, self.margin, self.max_violation)
@@ -140,11 +143,11 @@ class VSRN(nn.Module):
             return order_sim(img, cap)
         return cosine_sim(img, cap)
 
-    def loss(self, batch: dict, train: bool = True):
+    def loss(self, batch: dict, train: bool = True, epoch: int = 0):
         """The training objective (itrx/models/methods.py:270-283): (hinge
         loss on the in-batch grid + the caption decoder's NLL, {"Loss",
         "Loss_retrieval", "Loss_caption"}).  `train` must agree with the
-        module's mode (model.train())."""
+        module's mode (model.train()); `epoch` is unused."""
         if train != self.training:
             raise ValueError(
                 f"VSRN.loss(train={train}) with the model in "
@@ -217,10 +220,54 @@ class SGRAF(nn.Module):
         return self.sim_enc(img, cap, cap_mask,
                             kernel=self.fused_eval_active(img.device, train=train))
 
-    def loss(self, batch: dict, train: bool = True):
+    def loss(self, batch: dict, train: bool = True, epoch: int = 0):
         """The training objective (itrx/models/methods.py:366-370): (hinge
-        loss on the in-batch (Ni, Nc) grid, {"Loss": loss})."""
+        loss on the in-batch (Ni, Nc) grid, {"Loss": loss}); `epoch` is
+        unused."""
         e = self.embed(batch)
         scores = self.similarity(e["img"], e["cap"], e["cap_mask"], train=train)
         loss = contrastive_hinge(scores, self.margin, self.max_violation)
         return loss, {"Loss": loss}
+
+
+class CAMERA(nn.Module):
+    """CAMERA (ref Models.py:550-645): smry_k view embeddings of each image
+    (B, smry_k, D) from the position-gated AGSA image tower, one embedding
+    of each caption (B, D) from the frozen BERT and the text AGSA, and the
+    grid of the best view of each image for each caption.  Every dropout (at
+    `drop`) draws its masks from `dropout_rng`, seeded from `dropout_seed`.
+    Training (the triplet loss and the summarization's diversity term) is
+    not ported yet (ROADMAP queue 1 item 11b)."""
+
+    def __init__(self, bert_cfg: BertConfig, img_dim: int = 2048, embed_size: int = 2048,
+                 head: int = 64, smry_k: int = 12, drop: float = 0.0, dropout_seed: int = 0,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.dropout_rng = DropoutRNG(dropout_seed)
+        self.img_enc = CAMERAImageEncoder(img_dim, embed_size, head, smry_k, drop,
+                                          self.dropout_rng, generator)
+        self.txt_enc = CAMERATextEncoder(bert_cfg, embed_size, head, drop, self.dropout_rng,
+                                         generator)
+
+    def embed(self, batch: dict) -> dict:
+        """{"img": (B, smry_k, D), "cap": (B, D)}."""
+        cap = self.txt_enc(batch["cap_ids"], batch["cap_mask"], batch["type_ids"])
+        img, _ = self.img_enc(batch["images"], batch["boxes"], batch["imgs_wh"])
+        return {"img": img, "cap": cap}
+
+    def forward(self, batch: dict) -> dict:
+        return self.embed(batch)
+
+    def fused_eval_active(self, device: torch.device, train: bool = False) -> bool:
+        """Always False: CAMERA's grid is one product (`itrx` computes it
+        outside any kernel too); its kernel runs inside `embed`."""
+        return False
+
+    def similarity(self, img, cap, cap_mask=None, train: bool = False):
+        """The (Ni, Nc) fp32 grid: each image's best view for each caption."""
+        return multi_view_matching(img, cap)
+
+    def loss(self, batch: dict, train: bool = True, epoch: int = 0):
+        raise NotImplementedError(
+            "CAMERA training is not ported yet: ROADMAP queue 1 item 11b (the AGSA "
+            "backward kernel)")

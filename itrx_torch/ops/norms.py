@@ -19,3 +19,10 @@ def l1norm(x: torch.Tensor, dim: int = -1, eps: float = EPS) -> torch.Tensor:
 
 def l2norm(x: torch.Tensor, dim: int = -1, eps: float = EPS) -> torch.Tensor:
     return x / (safe_sqrt(torch.sum(x * x, dim=dim, keepdim=True)) + eps)
+
+
+def f_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    """torch.nn.functional.normalize semantics, x / max(|x|, eps), with the
+    norm's operand floored at eps^2 as `safe_sqrt` floors it."""
+    n = safe_sqrt(torch.sum(x * x, dim=dim, keepdim=True), tiny=eps * eps)
+    return x / torch.clamp(n, min=eps)

@@ -47,26 +47,28 @@ def check_supported(config: dict) -> None:
     if config["name"] not in ("SCAN", "VSRN", "SGRAF"):
         raise NotImplementedError(
             f"training {config['name']} is not ported yet: only SCAN, VSRN and SGRAF are "
-            "(VSE++ is ROADMAP queue 1 item 3, SAEM item 10, CAMERA item 11)")
+            "(VSE++ is ROADMAP queue 1 item 3, SAEM item 10, CAMERA item 11b: the AGSA "
+            "backward kernel; CAMERA evaluation is ported)")
 
 
 def make_train_step(state: TrainState, seed: int = 0):
-    """step(batch, log) -> aux floats when `log`, else None.  One update in
+    """step(batch, log, epoch) -> aux floats when `log`, else None.  One update in
     train mode (BatchNorm on batch statistics, dropout on): reseed the
     model's dropout stream from (seed, update count), so a resumed run draws
     the masks an uninterrupted one draws; zero the grads, loss forward and
-    backward, then clip, rate and Adam (TrainState.apply_gradients).
-    Nothing waits for the device unless `log`."""
+    backward, then clip, rate and Adam (TrainState.apply_gradients).  The
+    epoch reaches the loss, as in `itrx`'s step.  Nothing waits for the
+    device unless `log`."""
     model = state.model
     model.train()
 
-    def step(batch: dict, log: bool = False):
+    def step(batch: dict, log: bool = False, epoch: int = 0):
         if not model.training:
             model.train()
         if hasattr(model, "dropout_rng"):
             model.dropout_rng.manual_seed(seed * 100003 + state.step)
         state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = state.model.loss(batch, train=True)
+        loss, aux = state.model.loss(batch, train=True, epoch=epoch)
         loss.backward()
         state.apply_gradients()
         if log:
@@ -154,7 +156,7 @@ def train_epoch(config: dict, state: TrainState, train_dataset, val_dataset,
     for i, batch in enumerate(it):
         data_time.update(time.time() - end, n=1)
         log = (state.step + 1) % config["log_step"] == 0
-        aux = step_fn(batch, log=log)
+        aux = step_fn(batch, log=log, epoch=epoch)
         eiters = state.step
         if log:
             for k, v in aux.items():

@@ -1,13 +1,14 @@
 """Weights between the JAX package and the port, numpy only (counterpart of
-itrx/utils/ref_convert.py for SCAN, VSRN with its caption model, and SGRAF
-with SGR or SAF).
+itrx/utils/ref_convert.py for SCAN, VSRN with its caption model, SGRAF
+with SGR or SAF, and CAMERA with its BERT tower).
 
 The port keeps the reference PyTorch names and layouts: Linear `weight
-(out, in)`, `torch.nn.GRU`'s `weight_ih_l0` ... (+ `_reverse`),
-`embed.weight` and BatchNorm `weight`, `bias`, `running_mean`,
-`running_var`.  The JAX package keeps flax's: Dense `kernel (in, out)`,
-MaskedGRU `w_ih` ..., `embedding`, and BatchNorm `scale`, `bias` with
-`mean`, `var` in the `batch_stats` collection.
+(out, in)`, Conv1d `weight (out, in, k)`, `torch.nn.GRU`'s `weight_ih_l0`
+... (+ `_reverse`), `embed.weight`, BatchNorm `weight`, `bias`,
+`running_mean`, `running_var`, and BERT's LayerNorm `gamma`, `beta`.  The
+JAX package keeps flax's: Dense `kernel (in, out)`, Conv `kernel (k, in,
+out)`, MaskedGRU `w_ih` ..., `embedding`, and BatchNorm `scale`, `bias`
+with `mean`, `var` in the `batch_stats` collection.
 """
 
 from __future__ import annotations
@@ -113,12 +114,89 @@ def _vsrn_caption(sd: dict, cm) -> None:
         sd[f"caption_model.decoder.rnn.{ours}"] = _np(cm["decoder"][theirs])
 
 
+# one BERT layer: port module -> flax Dense, and port LayerNorm -> flax
+# BertLayerNorm (itrx/utils/ref_convert.py::_bert_layer)
+_BERT_LINEARS = (("attention.self.query", "query"), ("attention.self.key", "key"),
+                 ("attention.self.value", "value"), ("attention.output.dense", "attn_output"),
+                 ("intermediate.dense", "intermediate"), ("output.dense", "output"))
+_BERT_NORMS = (("attention.output.LayerNorm", "attn_ln"), ("output.LayerNorm", "out_ln"))
+_AGSA_LINEARS = (("linears.0", "linear_q"), ("linears.1", "linear_k"),
+                 ("linears.2", "linear_v"), ("fc_q", "fc_q"), ("fc_k", "fc_k"),
+                 ("fc_g", "fc_g"))
+
+
+def _linear(sd: dict, key: str, node) -> None:
+    sd[f"{key}.weight"] = _np(node["kernel"]).T
+    sd[f"{key}.bias"] = _np(node["bias"])
+
+
+def _layer_norm(sd: dict, key: str, node) -> None:
+    sd[f"{key}.gamma"] = _np(node["gamma"])
+    sd[f"{key}.beta"] = _np(node["beta"])
+
+
+def _bert(sd: dict, key: str, bert) -> None:
+    """A flax BertModel -> the port's BertModel keys under `key`."""
+    for name in ("word", "position", "token_type"):
+        sd[f"{key}.embeddings.{name}_embeddings.weight"] = _np(bert[f"{name}_embeddings"])
+    _layer_norm(sd, f"{key}.embeddings.LayerNorm", bert["emb_ln"])
+    i = 0
+    while f"layer_{i}" in bert:
+        layer, base = bert[f"layer_{i}"], f"{key}.encoder.layer.{i}"
+        for ours, theirs in _BERT_LINEARS:
+            _linear(sd, f"{base}.{ours}", layer[theirs])
+        for ours, theirs in _BERT_NORMS:
+            _layer_norm(sd, f"{base}.{ours}", layer[theirs])
+        i += 1
+    _linear(sd, f"{key}.pooler.dense", bert["pooler"])
+
+
+def _agsa(sd: dict, key: str, agsa, stats) -> None:
+    """A flax AGSA (att_{i}, bn_{i}) -> the reference's att_layers.{i},
+    bns.{i} under `key`."""
+    i = 0
+    while f"att_{i}" in agsa:
+        for ours, theirs in _AGSA_LINEARS:
+            _linear(sd, f"{key}.att_layers.{i}.{ours}", agsa[f"att_{i}"][theirs])
+        _bn(sd, f"{key}.bns.{i}", agsa[f"bn_{i}"]["BatchNorm_0"],
+            stats[f"bn_{i}"]["BatchNorm_0"])
+        i += 1
+
+
+def _camera(variables) -> dict:
+    """CAMERA's two towers (itrx/utils/ref_convert.py::convert_camera_img and
+    ::convert_camera_txt, the other way); fc_g's (d_k, 2 d_k) kernel stays
+    whole."""
+    p, stats = variables["params"], variables["batch_stats"]
+    img, txt = p["img_enc"], p["txt_enc"]
+    sd = {}
+    _linear(sd, "img_enc.fc", img["fc"])
+    _linear(sd, "img_enc.position_enc.proj", img["position_enc"]["proj"])
+    _agsa(sd, "img_enc.agsa", img["agsa"], stats["img_enc"]["agsa"])
+    i = 0
+    while f"conv_{i}" in img["mvs"]:
+        conv = img["mvs"][f"conv_{i}"]
+        sd[f"img_enc.mvs.convs_dilate.{i}.weight"] = _np(conv["kernel"]).transpose(2, 1, 0)
+        sd[f"img_enc.mvs.convs_dilate.{i}.bias"] = _np(conv["bias"])
+        i += 1
+    _linear(sd, "img_enc.mvs.convs_fc", img["mvs"]["convs_fc"])
+    _bert(sd, "txt_enc.bert", txt["bert"])
+    _linear(sd, "txt_enc.mapping", txt["mapping"])
+    _agsa(sd, "txt_enc.agsa", txt["agsa"], stats["txt_enc"]["agsa"])
+    _linear(sd, "txt_enc.fc1", txt["fc1"])
+    _linear(sd, "txt_enc.fc2", txt["fc2"])
+    _bn(sd, "txt_enc.bn", txt["bn"]["BatchNorm_0"], stats["txt_enc"]["bn"]["BatchNorm_0"])
+    return sd
+
+
 def from_itrx_variables(variables) -> dict:
-    """A JAX SCAN, VSRN or SGRAF variable tree ({'params': {...}} and, for
-    VSRN and SGRAF, {'batch_stats': {...}}; leaves as arrays) -> the port's
-    state dict (numpy values)."""
+    """A JAX SCAN, VSRN, SGRAF or CAMERA variable tree ({'params': {...}}
+    and, for VSRN, SGRAF and CAMERA, {'batch_stats': {...}}; leaves as
+    arrays) -> the port's state dict (numpy values)."""
     p = variables["params"]
     img, txt = p["img_enc"], p["txt_enc"]
+    if "mvs" in img:
+        return {k: np.ascontiguousarray(v) for k, v in _camera(variables).items()}
     sd = {
         "img_enc.fc.weight": _np(img["fc"]["kernel"]).T,
         "img_enc.fc.bias": _np(img["fc"]["bias"]),
@@ -146,7 +224,7 @@ def from_itrx_variables(variables) -> dict:
 
 def to_itrx_flat(state_dict) -> list:
     """The port's state dict -> the reference checkpoint's state-dict list,
-    [img_enc, txt_enc] for SCAN, [img_enc, txt_enc, sim_enc] for SGRAF and
+    [img_enc, txt_enc] for SCAN and CAMERA, [img_enc, txt_enc, sim_enc] for SGRAF and
     [img_enc, txt_enc, caption_model] for VSRN (numpy values), which
     `itrx.utils.ref_convert.convert_state_list` flattens to the JAX
     package's {path: array} leaves (the BatchNorm running statistics

@@ -21,7 +21,7 @@ from itrx.utils.ref_convert import convert_reference_checkpoint
 from itrx_torch.data import vocab as vocab_mod
 from itrx_torch.eval import engine
 from itrx_torch.eval.engine import evalrank_ensemble, evalrank_single
-from itrx_torch.models import get_model
+from itrx_torch.models import get_model, methods
 from itrx_torch.train.loop import fit, prefetch
 from itrx_torch.train.state import create_train_state
 from itrx_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -104,6 +104,22 @@ def test_resume_restores_state(synth, trained):
     cfg3 = parse_cli(_args(synth, "resumed2", resume=ckpt_path, num_epochs=3))
     state3, _ = fit(cfg3, device="cpu")
     assert state3.step == ck["Eiters"] + 2 * 5
+
+
+def test_fit_passes_the_epoch_to_the_loss(synth, monkeypatch):
+    """make_train_step and fit hand the epoch to model.loss, as itrx's step
+    does (only SAEM's loss reads it): a spy loss sees epoch 0 for the first
+    epoch's 5 updates and 1 for the second's."""
+    seen = []
+    loss = methods.SCAN.loss
+
+    def spy(self, batch, train=True, epoch=0):
+        seen.append(epoch)
+        return loss(self, batch, train=train, epoch=epoch)
+
+    monkeypatch.setattr(methods.SCAN, "loss", spy)
+    state, _ = fit(parse_cli(_args(synth, "epochs", num_epochs=2)), device="cpu")
+    assert state.step == 10 and seen == [0] * 5 + [1] * 5
 
 
 def test_prefetch_propagates_producer_errors():

@@ -14,9 +14,10 @@ import pytest
 import torch
 
 from itrx_torch.eval import engine
-from itrx_torch.models import get_model, methods, sgraf, vsrn_decoder
+from itrx_torch.models import agsa, get_model, methods, sgraf, vsrn_decoder
 from itrx_torch.ops import kernels
-from itrx_torch.ops.kernels import gru, sgr, sgraf_align, sgraf_eval, vsrn_dec, xattn
+from itrx_torch.ops.kernels import (agsa_attn, gru, sgr, sgraf_align, sgraf_eval, vsrn_dec,
+                                    xattn)
 from itrx_torch.train import loop
 
 torch.set_num_threads(1)
@@ -229,7 +230,7 @@ def test_gitignore_lists_kernel_build_dir():
                if ln.strip() and not ln.startswith(("#", "!")))
 
 
-@pytest.mark.parametrize("module", [gru, xattn, sgraf_eval, sgraf_align])
+@pytest.mark.parametrize("module", [gru, xattn, sgraf_eval, sgraf_align, agsa_attn])
 def test_kernel_sources_exist(module):
     src = kernels.CSRC / module.SOURCE
     assert src.exists(), src
@@ -412,14 +413,15 @@ def test_sgraf_saf_training_names_its_roadmap_item():
 
 def test_check_supported_refuses_sgraf_training():
     """check_supported accepts SGRAF with SAF and with SGR and VSRN, and
-    still refuses train_bf16, meshes and the methods not ported (VSE++,
-    SAEM and CAMERA, each naming its item)."""
+    still refuses train_bf16, meshes and the methods whose training is not
+    ported (VSE++, SAEM and CAMERA, each naming its item: CAMERA's is 11b,
+    the AGSA backward)."""
     loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SAF"))
     loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SGR"))
     loop.check_supported(dict(_cfg(), name="VSRN"))
     loop.check_supported(_cfg())
     for name, item in (("VSE_PP", "VSE\\+\\+ is ROADMAP queue 1 item 3"),
-                       ("SAEM", "SAEM item 10"), ("CAMERA", "CAMERA item 11")):
+                       ("SAEM", "SAEM item 10"), ("CAMERA", "CAMERA item 11b")):
         with pytest.raises(NotImplementedError, match=f"only SCAN, VSRN and SGRAF are.*{item}"):
             loop.check_supported(dict(_cfg(), name=name))
     with pytest.raises(NotImplementedError, match="train_bf16"):
@@ -735,3 +737,135 @@ def test_vsrn_dec_sources_are_built_and_hashed(tmp_path, monkeypatch):
         seen.append([kernels.library_path(n) for n in libs])
     for i, _ in enumerate(libs):
         assert len({paths[i] for paths in seen}) == 3
+
+
+class _CudaStandIn:
+    """A stand-in for a CUDA tensor (this machine has no card): the device,
+    shape, dtype and grad flag the AGSA wrapper's guard reads."""
+
+    def __init__(self, *shape, requires_grad=False):
+        self.shape, self.dtype = torch.Size(shape), torch.float32
+        self.device, self.requires_grad = torch.device("cuda", 0), requires_grad
+
+
+def _agsa_args(make, b=2, n=5, h=2, dk=8):
+    return [make(b, n, h * dk) for _ in range(3)] + [
+        make(*s) for s in ((dk, dk), (dk,)) * 4] + [h]
+
+
+def test_agsa_wrapper_raises_off_cpu_and_cuda():
+    """The AGSA wrapper raises for a tensor on neither the CPU nor a CUDA
+    device, with and without grad, without counting a launch."""
+    before = agsa_attn.agsa_attention_fused.launches
+    args = _agsa_args(lambda *s: torch.zeros(*s, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        agsa_attn.agsa_attention_fused(*args)
+    args[3].requires_grad_()
+    with pytest.raises(ValueError, match="no kernel"):
+        agsa_attn.agsa_attention_fused(*args)
+    assert agsa_attn.agsa_attention_fused.launches == before
+
+
+def test_agsa_wrapper_refuses_a_cuda_call_that_needs_a_gradient():
+    """A CUDA call with grad enabled and an input that requires grad raises
+    naming ROADMAP item 11b (the kernel has no backward yet), before any
+    launch; under no_grad a CUDA call outside the kernel's limits raises
+    rather than falling back; a CPU call takes the plain version, with or
+    without grad, and counts nothing."""
+    before = agsa_attn.agsa_attention_fused.launches
+    grad_args = _agsa_args(lambda *s: _CudaStandIn(*s))
+    grad_args[4] = _CudaStandIn(8, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11b"):
+        agsa_attn.agsa_attention_fused(*grad_args)
+    with torch.no_grad(), pytest.raises(ValueError, match="limits"):
+        agsa_attn.agsa_attention_fused(*_agsa_args(lambda *s: _CudaStandIn(*s), n=65))
+    g = torch.Generator().manual_seed(5)
+    cpu = _agsa_args(lambda *s: torch.randn(*s, generator=g))
+    cpu[0].requires_grad_()
+    out = agsa_attn.agsa_attention_fused(*cpu)
+    out.sum().backward()
+    assert cpu[0].grad is not None
+    torch.testing.assert_close(out, agsa_attn.agsa_attention_plain(*cpu), rtol=0, atol=0)
+    assert agsa_attn.agsa_attention_fused.launches == before
+
+
+@pytest.mark.parametrize("drop,training,d_k,n,route", [
+    (0.0, False, 32, 36, True),    # CAMERA's evaluation
+    (0.0, True, 32, 36, True),     # drop 0 in training, as itrx routes it
+    (0.1, False, 32, 32, True),    # dropout is the identity in eval
+    (0.1, True, 32, 36, False),    # the attention dropout in effect
+    (0.0, False, 12, 36, False),   # d_k % 8 != 0
+    (0.0, False, 136, 36, False),  # d_k > 128
+    (0.0, False, 32, 65, True),    # N > 64: itrx routes it; the wrapper raises
+])
+def test_agsa_route_predicate(drop, training, d_k, n, route):
+    """GatedQueryAttLayer sends its attention to the kernel's wrapper exactly
+    where `itrx` sends it to its Pallas kernel (no dropout in effect, d_k % 8
+    == 0 and d_k <= 128), whatever the dtype and N: the route never reads N."""
+    assert agsa.kernel_route(drop, training, d_k) is route
+
+
+class _ToCuda(torch.nn.Module):
+    """Stands in for a projection whose output lies on a CUDA device."""
+
+    def forward(self, x):
+        return _CudaStandIn(*x.shape)
+
+
+def test_agsa_layer_on_cuda_beyond_the_kernels_n_raises():
+    """A CUDA GatedQueryAttLayer call with N 65 (routed as itrx routes it)
+    reaches the wrapper, which raises for the kernel's limits rather than
+    computing the plain chain; nothing is launched."""
+    before = agsa_attn.agsa_attention_fused.launches
+    layer = agsa.GatedQueryAttLayer(16, 2, generator=torch.Generator().manual_seed(0)).eval()
+    layer.linears = torch.nn.ModuleList(_ToCuda() for _ in range(3))
+    with torch.no_grad(), pytest.raises(ValueError, match="limits"):
+        layer(torch.zeros(2, 65, 16))
+    assert agsa_attn.agsa_attention_fused.launches == before
+
+
+def test_camera_evaluation_reaches_the_agsa_wrapper_in_both_towers(monkeypatch, tmp_path):
+    """CAMERA's eval-mode embed reaches agsa_attention_fused once in each
+    tower, without grad, and no grid kernel; fused_eval_active is False on
+    every device; off the kernel route GatedQueryAttLayer takes its plain
+    chain, which agrees with the wrapper's plain version."""
+    calls = []
+
+    def counting(*a):
+        calls.append(torch.is_grad_enabled())
+        return agsa_attn.agsa_attention_fused(*a)
+
+    def refuse(*a, **k):
+        raise AssertionError("an evaluation reached a grid kernel wrapper")
+
+    monkeypatch.setattr(agsa, "agsa_attention_fused", counting)
+    for name in ("xattn_t2i_fused", "xattn_i2t_fused"):
+        monkeypatch.setattr(methods, name, refuse)
+    bert = tmp_path / "bert_config.json"
+    bert.write_text('{"vocab_size": 20, "hidden_size": 16, "num_hidden_layers": 1, '
+                    '"num_attention_heads": 2, "intermediate_size": 32, '
+                    '"max_position_embeddings": 16, "type_vocab_size": 2}')
+    cfg = dict(_cfg(), name="CAMERA", img_dim=12, embed_size=32, head=4, smry_k=3,
+               bert_config_file=str(bert))
+    model = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    for dev in ("cpu", "cuda"):
+        assert not model.fused_eval_active(torch.device(dev), train=False)
+    g = torch.Generator().manual_seed(6)
+    ids = torch.randint(1, 20, (3, 6), generator=g)
+    corner = torch.rand(3, 5, 2, generator=g) * 50
+    batch = {"images": torch.randn(3, 5, 12, generator=g), "cap_ids": ids,
+             "cap_mask": torch.ones(3, 6), "type_ids": torch.zeros_like(ids),
+             "boxes": torch.cat([corner, corner + 10], dim=-1),
+             "imgs_wh": torch.full((3, 2), 100.0)}
+    layer = model.img_enc.agsa.att_layers[0]
+    x = torch.randn(3, 5, 32, generator=g)
+    with torch.no_grad():
+        e = model.embed(batch)
+        assert calls == [False, False] and sorted(e) == ["cap", "img"]
+        assert engine.cal_sims(model, e["img"], e["cap"], verbose=False).shape == (3, 3)
+        want = layer(x)
+        # the same weights, with the shape taken for one outside the limits
+        monkeypatch.setattr(agsa, "kernel_route", lambda drop, training, d_k: False)
+        plain = layer(x)
+    assert calls == [False, False, False]
+    torch.testing.assert_close(plain, want, rtol=1e-5, atol=1e-6)

@@ -125,12 +125,22 @@ def test_sentence_level_text_encoder_matches_jax(rng):
 
 @pytest.mark.parametrize("name", ["VSE_PP", "VSRN", "SAEM", "CAMERA"])
 def test_unported_methods_name_their_roadmap_item(name):
-    """The three methods not ported yet each name their item; VSRN, ported
-    with its training, builds with the reference's parts and keys (SGRAF
-    is ported with SGR and SAF)."""
+    """The two methods not ported yet (VSE++, SAEM) each name their item;
+    VSRN, ported with its training, builds with the reference's parts and
+    keys (SGRAF is ported with SGR and SAF); CAMERA, whose evaluation is
+    ported, builds with its two parts, and its loss names the item that
+    ports its training (11b)."""
     cfg = _cfg(False, name=name, module_name="SGR", sim_dim=16, data_name="f30k_precomp",
                measure="cosine", use_abs=False, max_len=7, dim_hidden=16, dim_vid=128,
                dim_word=8, input_dropout_p=0.2)
+    if name == "CAMERA":
+        with torch.device("meta"):
+            model = get_model(dict(cfg, head=4, smry_k=3, smry_lamda=0.01, drop=0.0),
+                              device="meta")
+        assert [n for n, _ in model.named_children()] == ["img_enc", "txt_enc"]
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11b"):
+            model.loss({})
+        return
     if name != "VSRN":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model(cfg, device="cpu")
