@@ -31,11 +31,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    `vsrn_dec_bwd_plain` (the states and residuals, all nine cotangents, two
    backward calls bit-identical) at the training path's decode, 59 steps x
    128 x 36 regions, H 512, without and with the context dropout, and at a
-   ragged odd shape; CAMERA's AGSA gated attention kernel to
-   `agsa_attention_plain` at both towers' calls on the evaluation path (128
-   x 64 heads x 36 regions or 32 BERT slots x d_k 32), at a ragged odd shape
-   and at the largest shape its limits allow (N 64, d_k 128), bf16 and
-   fp32; and the GRU kernels at VSRN's text width (H 2048, 61 steps) against
+   ragged odd shape; CAMERA's AGSA gated attention kernels to
+   `agsa_attention_plain` and `agsa_attention_bwd_plain` (all eleven
+   cotangents, two backward calls bit-identical) at both towers' calls on
+   the evaluation and training paths (128 x 64 heads x 36 regions or 32
+   BERT slots x d_k 32), at a ragged odd shape and at the largest shape
+   their limits allow (N 64, d_k 128), bf16 and fp32; and the GRU kernels at VSRN's text width (H 2048, 61 steps) against
    autograd through the plain GRU;
 4. the evaluation slices at full width on an f30k-1K-shaped synthetic split
    (1000 images x 36 x 2048 regions, 5000 captions) through get_model ->
@@ -100,7 +101,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    the decoder's encoder) and both decoder kernels, once each a step, and no
    grid kernel; the first step at input_dropout_p 0, with the RsGCN blocks
    moved off the identity, matches a CPU copy (loss, every gradient, every
-   BatchNorm statistic).
+   BatchNorm statistic);
+10. the CAMERA training slice: the README's CAMERA command (the CAMERA()
+   overlay: embed 2048, 64 heads, smry_k 12, smry_lamda 0.01, max_words 32,
+   drop 0, BERT-base frozen over the split's tiny vocabulary, 36 x 2048
+   regions with boxes, batch 128, Adam 1e-4, clip 2.0, fp32), one 25-step
+   epoch through fit with validation at step 15 and the end: the counters
+   show agsa_attn_bwd twice a step and agsa_attn in training and
+   validation, and no other kernel; BERT's parameters leave fit as the seed
+   drew them, with no Adam state; the first step's loss and the AGSA and
+   text BatchNorms' statistics match a CPU copy, every gradient matches a
+   float64 copy of the step on the CPU that takes the card's ReLU
+   decisions, and all of them match the same step on the card with the
+   AGSA kernels swapped for their plain pair.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -109,6 +122,7 @@ The line before the last is a JSON object of the kernels; the last line is
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -134,7 +148,8 @@ from itrx_torch.ops import kernels
 from itrx_torch.ops.kernels import gru as kgru
 from itrx_torch.ops.kernels.gru import gru_bwd_fused, gru_scan_fused
 from itrx_torch.ops.kernels import vsrn_dec as kvsrn
-from itrx_torch.ops.kernels.agsa_attn import agsa_attention_fused, agsa_attention_plain
+from itrx_torch.ops.kernels.agsa_attn import (agsa_attention_bwd_fused, agsa_attention_bwd_plain,
+                                              agsa_attention_fused, agsa_attention_plain)
 from itrx_torch.ops.kernels.sgr import (sgr_reason_bwd_fused, sgr_reason_bwd_plain,
                                         sgr_reason_fused, sgr_reason_plain)
 from itrx_torch.ops.kernels.sgraf_align import (sgraf_align_bwd_fused, sgraf_align_bwd_plain,
@@ -212,7 +227,12 @@ ZERO_GRADS = ("sim_enc.v_global_w.embedding_global.0.bias",
               "sim_enc.SAF_module.attn_sim_w.bias") + tuple(
     f"sim_enc.SGR_module.sgr{i}.graph_key_w.bias" for i in range(3)) + tuple(
     # VSRN: each RsGCN block's W.0 conv feeds a train-mode BatchNorm
-    f"img_enc.Rs_GCN_{i}.W.0.bias" for i in range(1, 5))
+    f"img_enc.Rs_GCN_{i}.W.0.bias" for i in range(1, 5)) + (
+    # CAMERA: the value projection's bias shifts every attention output row
+    # alike (softmax rows sum to 1), as fc2's does, before a train-mode
+    # BatchNorm
+    "img_enc.agsa.att_layers.0.linears.2.bias", "txt_enc.agsa.att_layers.0.linears.2.bias",
+    "txt_enc.fc2.bias")
 ZERO_GRAD_REL = 1e-4
 TRAIN_STEPS = 50  # one epoch of the synthetic train split at batch 128
 TRAIN_VAL_STEP = 30  # one validation + checkpoint mid-epoch, one at the end
@@ -282,9 +302,21 @@ VSRN_DEC_NAMES = ("g_gxw", "g_cmask", "g_enc_out", "g_enc_att", "g_h0", "dWatt",
 # fault) is printed beside each reading and must exceed the limit
 AGSA_FP32_REL = 1e-5
 AGSA_BF16_REL = 2.0 ** -8
-# (B, h, N, d_k): the image and text towers' calls on CAMERA's eval path (the
-# CAMERA() overlay: encode batch 128, 64 heads, 36 regions or 32 BERT slots,
-# embed 2048), a ragged odd shape and the largest shape the limits allow
+# The backward kernels vs agsa_attention_bwd_plain on the same inputs, per
+# cotangent max|kernel - plain| / max|plain|: in fp32 summation order (the
+# weight cotangents sum 294,912 rows at the image tower's call, in tiles,
+# block slots and an ordered reduction against the plain version's
+# products); in bf16 dq, dk and dv are rounded on both sides and an
+# intermediate on a rounding boundary (rnd(g_s), rnd(g_z), rnd(g_gq)) may
+# round apart, one bf16 step (2^-8 of scale).  The plain backward with fc_g's
+# halves swapped is printed beside each reading and must exceed the limit
+AGSA_BWD_REL = 1e-4
+AGSA_BWD_BF16_REL = 2.0 ** -8
+AGSA_BWD_NAMES = ("dq", "dk", "dv", "dWq", "dbq", "dWk", "dbk", "dWg1", "dbg1", "dWg2", "dbg2")
+# (B, h, N, d_k): the image and text towers' calls on CAMERA's eval and
+# training paths (the CAMERA() overlay: batch 128, 64 heads, 36 regions or 32
+# BERT slots, embed 2048), a ragged odd shape and the largest shape the
+# limits allow
 AGSA_SHAPES = ((128, 64, 36, 32), (128, 64, 32, 32), (5, 3, 7, 8), (4, 2, 64, 128))
 # the CAMERA slice's first witness: an fp32 encode through the kernel vs the
 # same encode through agsa_attention_plain on the card (unit-norm
@@ -298,6 +330,26 @@ CAMERA_FP32_ATOL = 1e-5
 # the difference and below the agreement
 CAMERA_BF16_GRID_ATOL = 5e-3
 CAMERA_BF16_TOP1_MIN = 0.9
+# CAMERA training's first-step witness (fp32).  Read on an H100 80GB HBM3 at
+# 700 W, the slice's first run: the card's step with the AGSA kernels
+# against the same step with their plain pair on the card (the kernels'
+# share: summation order in the attention and the weight sums) at most
+# 2.7e-5 of a gradient's scale (the image key projection's bias, a
+# cancellation), held within CAMERA_KERNEL_GRAD_REL; the same plain chain on
+# the card and on the CPU up to 3.6e-3 (the text fc1 weight).  That gap is
+# ReLU decisions: the summarization's banks and text fc1 feed ReLUs, whose
+# gradient turns on the sign of a pre-activation that rounding can flip,
+# and their weight gradients cancel (train-mode BatchNorms after them).
+# Against a float64 copy of the step on the CPU the card flipped 10 of
+# fc1's 8.4 M decisions, 3 after the 5th bank and 1 after the 7th, the fp32
+# CPU 5, 1 and 0, and the flips moved those weights' gradients by up to
+# 3.2e-3 of scale.  So the float64 step takes the card's ReLU decisions (`exact`:
+# the modules that feed a ReLU; `_relu_decision`), the flips are counted on
+# each device, and every trained gradient of the card is held within
+# EXACT_GRAD_REL of its float64 scale: read at most 3.5e-5 and 5.1e-5 in two
+# calls (the image key projection's bias); TF32 rounds each product to 2^-11 = 4.9e-4
+CAMERA_KERNEL_GRAD_REL = 1e-4
+EXACT_GRAD_REL = 2e-4
 REPLACES = {
     "gru": "itrx/ops/pallas/gru.py:37 (_fwd_kernel)",
     "gru_bwd": "itrx/ops/pallas/gru.py:68 (_bwd_kernel)",
@@ -312,19 +364,21 @@ REPLACES = {
     "vsrn_dec": "itrx/ops/pallas/vsrn_dec.py:79 (_fwd_kernel)",
     "vsrn_dec_bwd": "itrx/ops/pallas/vsrn_dec.py:103 (_bwd_kernel)",
     "agsa_attn": "itrx/ops/pallas/agsa_attn.py:64 (_fwd_kernel)",
+    "agsa_attn_bwd": "itrx/ops/pallas/agsa_attn.py:86 (_bwd_kernel)",
 }
 SOURCES = {"gru": "gru.cu", "gru_bwd": "gru_bwd.cu", "xattn": "xattn.cu",
            "xattn_i2t": "xattn_i2t.cu", "sgraf_eval_saf": "sgraf_eval_saf.cu",
            "sgraf_eval_sgr": "sgraf_eval_sgr.cu", "sgraf_align": "sgraf_align.cu",
            "sgraf_align_bwd": "sgraf_align_bwd.cu", "sgr": "sgr.cu", "sgr_bwd": "sgr_bwd.cu",
            "vsrn_dec": "vsrn_dec.cu", "vsrn_dec_bwd": "vsrn_dec_bwd.cu",
-           "agsa_attn": "agsa_attn.cu"}
+           "agsa_attn": "agsa_attn.cu", "agsa_attn_bwd": "agsa_attn_bwd.cu"}
 COUNTERS = {"gru": gru_scan_fused, "gru_bwd": gru_bwd_fused, "xattn": xattn_t2i_fused,
             "xattn_i2t": xattn_i2t_fused, "sgraf_eval_saf": sgraf_eval_saf_fused,
             "sgraf_eval_sgr": sgraf_eval_sgr_fused, "sgraf_align": sgraf_align_fused,
             "sgraf_align_bwd": sgraf_align_bwd_fused, "sgr": sgr_reason_fused,
             "sgr_bwd": sgr_reason_bwd_fused, "vsrn_dec": vsrn_dec_fused,
-            "vsrn_dec_bwd": vsrn_dec_bwd_fused, "agsa_attn": agsa_attention_fused}
+            "vsrn_dec_bwd": vsrn_dec_bwd_fused, "agsa_attn": agsa_attention_fused,
+            "agsa_attn_bwd": agsa_attention_bwd_fused}
 # PR 6's SAF kernel at 64 x 320 x 36 x 24 x 1024, S 256 (ms, bf16 and fp32;
 # NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
 SAF_PR6_MS = (12.642, 18.232)
@@ -1808,19 +1862,71 @@ def agsa_bound(args) -> dict:
     return bound(nbytes(*args) + nbytes(q), {kind: ops})
 
 
+def agsa_bwd_bound(args, g_out) -> dict:
+    """The bound of one backward call: q, k, v, g_out, the weights and
+    biases read once, dq, dk, dv and the eight weight cotangents written
+    once, against the recomputed forward up to the scores (the four gate
+    products and q k^T: 8 N d_k^2 + 2 N^2 d_k a head; the backward needs no
+    p v) and the adjoints (the four (N, N, d_k) attention products, the two
+    gate products g W, the two dq / dk products and the four weight sums:
+    16 N d_k^2 + 8 N^2 d_k a head) at the peak of the inputs' type."""
+    q = args[0]
+    b, n, d = q.shape
+    dk = args[3].shape[0]
+    heads = b * d // dk
+    ops = heads * (24 * n * dk * dk + 10 * n * n * dk)
+    kind = "bf16" if q.dtype == torch.bfloat16 else "fp32"
+    return bound(nbytes(*args, g_out) + 3 * nbytes(q) + 4 * (4 * dk * dk + 4 * dk), {kind: ops})
+
+
+def _agsa_bwd_check(tag, args, g_out, h, limit) -> tuple:
+    """The backward kernels vs agsa_attention_bwd_plain: every cotangent
+    within `limit` of its scale, two calls bit-identical, and the plain
+    backward with fc_g's halves swapped outside the limit.  Returns (the
+    largest relative error, the largest absolute error, the kernels'
+    cotangents)."""
+    dt = args[0].dtype
+    got = agsa_attention_bwd_fused(*args, g_out, h)
+    again = agsa_attention_bwd_fused(*args, g_out, h)
+    want = agsa_attention_bwd_plain(*args, g_out, h)
+    swapped = args[:7] + [args[9], args[10], args[7], args[8]]
+    wrong = max(rel_err(a.float(), b.float()) for a, b in
+                zip(agsa_attention_bwd_plain(*swapped, g_out, h)[:3], want[:3]))
+    torch.cuda.synchronize()
+    rels, abss = [], []
+    for name, a, b in zip(AGSA_BWD_NAMES, got, want):
+        want_dt = dt if name in ("dq", "dk", "dv") else torch.float32
+        if a.dtype != want_dt:
+            raise AssertionError(f"{tag} {name}: dtype {a.dtype}, expected {want_dt}")
+        rels.append(check_rel(f"{tag} {name}", a, b, limit))
+        abss.append(float((a.float() - b.float()).abs().max()))
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{tag}: two backward calls differ")
+    log(f"  {tag}: two backward calls bit-identical; the plain backward with fc_g's "
+        f"halves swapped: {wrong:.3e}")
+    if not wrong > limit:
+        raise AssertionError(f"the limit {limit} does not separate swapped gate halves "
+                             f"({wrong})")
+    return max(rels), max(abss), got
+
+
 def phase_agsa(g) -> dict:
-    """CAMERA's gated attention kernel vs agsa_attention_plain on the card,
-    fp32 and bf16: the image and text towers' calls (128 x 64 heads x 36 or
-    32 x d_k 32), a ragged odd shape and the largest the limits allow; then
-    the times and bounds at the towers' shapes."""
-    log("agsa_attn gated attention kernel vs plain (fp32 and bf16)")
+    """CAMERA's gated attention kernels (forward, and backward) vs
+    agsa_attention_plain and agsa_attention_bwd_plain on the card, fp32 and
+    bf16: the image and text towers' calls (128 x 64 heads x 36 or 32 x
+    d_k 32), a ragged odd shape and the largest the limits allow; then the
+    times and bounds at the towers' shapes."""
+    log("agsa_attn gated attention kernels (forward and backward) vs plain (fp32 and bf16)")
     res = {}
     for b, h, n, dk in AGSA_SHAPES:
         x32 = _agsa_inputs(g, b, h, n, dk)
-        for dt, limit in ((torch.float32, AGSA_FP32_REL), (torch.bfloat16, AGSA_BF16_REL)):
+        g32 = torch.randn(b, n, h * dk, generator=g).to(DEV)
+        for dt, limit, bwd_limit in ((torch.float32, AGSA_FP32_REL, AGSA_BWD_REL),
+                                     (torch.bfloat16, AGSA_BF16_REL, AGSA_BWD_BF16_REL)):
             # every input in the activation dtype, as a bf16 encode casts the
-            # parameters (the wrapper reads the biases in fp32)
+            # parameters (the wrappers read the biases in fp32)
             args = [t.to(dt) for t in x32]
+            g_out = g32.to(dt)
             tag = f"agsa_attn B {b} x h {h} x N {n} x d_k {dk} {str(dt)[6:]}"
             with torch.no_grad():
                 got = agsa_attention_fused(*args, h)
@@ -1834,29 +1940,49 @@ def phase_agsa(g) -> dict:
             if not wrong > limit:
                 raise AssertionError(f"the limit {limit} does not separate swapped gate "
                                      f"halves ({wrong})")
+            bwd_tag = tag.replace("agsa_attn", "agsa_attn_bwd")
+            bwd_rel, bwd_abs, _ = _agsa_bwd_check(bwd_tag, args, g_out, h, bwd_limit)
             if (b, h, n, dk) in AGSA_SHAPES[:2]:
                 key = ("img" if n == AGSA_SHAPES[0][2] else "txt") + "_" + str(dt)[6:]
                 with torch.no_grad():
                     res[f"{key}_ms"] = cuda_ms(lambda: agsa_attention_fused(*args, h))
                     res[f"{key}_plain_ms"] = cuda_ms(lambda: agsa_attention_plain(*args, h),
                                                      reps=5)
-                bd = agsa_bound(args)
-                res[f"{key}_bound_ms"], res[f"{key}_bound_by"] = bd["bound_ms"], bd["bound_by"]
+                    res[f"{key}_bwd_ms"] = cuda_ms(
+                        lambda: agsa_attention_bwd_fused(*args, g_out, h))
+                    res[f"{key}_bwd_plain_ms"] = cuda_ms(
+                        lambda: agsa_attention_bwd_plain(*args, g_out, h), reps=5)
+                for pre, bd in (("", agsa_bound(args)), ("bwd_", agsa_bwd_bound(args, g_out))):
+                    res[f"{key}_{pre}bound_ms"] = bd["bound_ms"]
+                    res[f"{key}_{pre}bound_by"] = bd["bound_by"]
                 res[f"{key}_max_abs_err"] = float((got.float() - want.float()).abs().max())
                 res[f"{key}_rel_err"] = err
+                res[f"{key}_bwd_max_abs_err"], res[f"{key}_bwd_rel_err"] = bwd_abs, bwd_rel
                 log(f"  time {tag}: kernel {res[f'{key}_ms']:.4f} ms, plain "
-                    f"{res[f'{key}_plain_ms']:.4f} ms, bound {bd['bound_ms']:.4f} ms "
-                    f"({bd['bound_by']})")
-    # the row of the kernels line: the image tower's call in bf16, the
-    # encode_bf16 main path's
+                    f"{res[f'{key}_plain_ms']:.4f} ms, bound {res[f'{key}_bound_ms']:.4f} ms "
+                    f"({res[f'{key}_bound_by']})")
+                log(f"  time {bwd_tag}: kernels {res[f'{key}_bwd_ms']:.4f} ms, plain "
+                    f"{res[f'{key}_bwd_plain_ms']:.4f} ms, bound "
+                    f"{res[f'{key}_bwd_bound_ms']:.4f} ms ({res[f'{key}_bwd_bound_by']})")
+    # the forward's row of the kernels line: the image tower's call in bf16,
+    # the encode_bf16 main path's; the backward's: fp32, the training path's
     key = "img_bfloat16"
     res.update(max_abs_err=res[f"{key}_max_abs_err"], ms=res[f"{key}_ms"],
                plain_ms=res[f"{key}_plain_ms"], bound_ms=res[f"{key}_bound_ms"],
                bound_by=res[f"{key}_bound_by"])
-    # no PyTorch call computes the gated attention (the gates act on q and k
-    # before the scores)
+    # no PyTorch call computes the gated attention or its backward (the gates
+    # act on q and k before the scores)
     res["library_ms"] = None
     return res
+
+
+def agsa_bwd_result(res: dict) -> dict:
+    """The backward kernels' row of the kernels line, from the phase's
+    result: the image tower's call in fp32, as CAMERA's training runs it."""
+    key = "img_float32"
+    return {"max_abs_err": res[f"{key}_bwd_max_abs_err"], "ms": res[f"{key}_bwd_ms"],
+            "plain_ms": res[f"{key}_bwd_plain_ms"], "bound_ms": res[f"{key}_bwd_bound_ms"],
+            "bound_by": res[f"{key}_bwd_bound_by"], "library_ms": None}
 
 
 def _losses_from_events(save_dir: str) -> tuple[list, list]:
@@ -1911,6 +2037,22 @@ def _grad_errs(tag, got, want, limit, floor, scale) -> dict:
     return errs
 
 
+def _stat_errs(tag, got, want) -> dict:
+    """Each BatchNorm running statistic after the first step, held to
+    TRAIN_STAT_REL of its scale.  A running mean is a mean of centred values
+    (~0 by cancellation), so it is held in units of its channel's standard
+    deviation."""
+    errs = {}
+    for k in want:
+        var = want[k.replace("running_mean", "running_var")]
+        scale = max(float(want[k].abs().max()), float(var.max()) ** 0.5)
+        errs[k] = float((got[k] - want[k]).abs().max()) / scale
+        log(f"  first step {k} ({tag}): {errs[k]:.3e} of scale (limit {TRAIN_STAT_REL:g})")
+        if not errs[k] <= TRAIN_STAT_REL:
+            raise AssertionError(f"first-step {k} differs {tag} by {errs[k]}")
+    return errs
+
+
 def _vsrn_off_identity(model) -> None:
     """Moves VSRN's BatchNorms off their init, the same values on every
     device (drawn on the CPU from a fixed seed): each RsGCN block's W.1 scale
@@ -1928,25 +2070,81 @@ def _vsrn_off_identity(model) -> None:
                 m.running_var.copy_(torch.empty(c).uniform_(0.5, 2.0, generator=g))
 
 
+def _relu_decision(module, inputs, out, name, seen, pin):
+    """A forward hook on a module whose output feeds a ReLU: records the
+    ReLU's decisions (out > 0) of the module's first call in seen[name];
+    with `pin`, turns each entry whose decision differs from pin[name] to
+    the other side of zero (its magnitude kept, the gradient passed
+    through), so that the step takes those decisions."""
+    pos = out > 0
+    seen.setdefault(name, pos.detach().cpu())
+    if pin is None:
+        return None
+    flip = pos != pin[name].to(out.device)
+    return out - 2 * torch.where(flip, out.detach(), torch.zeros_like(out))
+
+
+def _exact_errs(got, exact, floor, scale) -> dict:
+    """Each trained gradient of the card's step (`got`) against the float64
+    step that took the card's decisions (`exact`), in units of the larger of
+    its float64 largest entry and `floor` x scale, held to EXACT_GRAD_REL;
+    ZERO_GRADS held to noise.  Logs every reading before it fails."""
+    errs, bad = {}, []
+    for k in exact:
+        if k in ZERO_GRADS:
+            errs[k] = float(got[k].abs().max()) / scale
+            log(f"  first step grad {k} (zero in exact arithmetic, card): {errs[k]:.3e} of the "
+                f"largest float64 gradient (limit {ZERO_GRAD_REL:g})")
+            if not errs[k] <= ZERO_GRAD_REL:
+                bad.append(k)
+            continue
+        den = max(float(exact[k].abs().max()), floor * scale)
+        errs[k] = float((got[k] - exact[k]).abs().max()) / den
+        log(f"  first step grad {k} (card vs float64): {errs[k]:.3e} of scale "
+            f"(limit {EXACT_GRAD_REL:g})")
+        if not torch.isfinite(got[k]).all() or not errs[k] <= EXACT_GRAD_REL:
+            bad.append(k)
+    if bad:
+        raise AssertionError(f"first step grads off the float64 step: {bad}")
+    return {k: v for k, v in errs.items() if k not in ZERO_GRADS}
+
+
 def _first_step_witness(cfg, batch, grad_rel: float = TRAIN_GRAD_REL, floor: float = 0.0,
-                        kernel_rel: float | None = None, prepare=None) -> dict:
-    """The first training step's loss, gradients and (SGRAF) BatchNorm
-    running statistics on the card (the kernels) against the same step on a
-    CPU copy (plain path throughout), from one seed's weights and one batch,
-    in train mode.  Each gradient's max abs error is held to `grad_rel` of
-    the larger of its own largest entry and `floor` of the model's largest
-    gradient entry (SGR: see SGR_FLOOR).  With `kernel_rel`, the card's
-    gradients are also held to that limit against the same step on the card
-    with the SGRAF chunk kernels' plain pairs (`_sgraf_plain_chain`), which
-    tells the kernels' share of the card-vs-CPU difference.  `prepare(model)`,
-    when given, sets the weights before the step (VSRN: `_vsrn_off_identity`)."""
-    def step_on(dev, plain=False):
+                        kernel_rel: float | None = None, plain_route=None,
+                        prepare=None, exact: tuple = ()) -> dict:
+    """The first training step's loss, gradients and BatchNorm running
+    statistics on the card (the kernels) against the same step on a CPU
+    copy (plain path throughout), from one seed's weights and one batch, in
+    train mode.  Each trained parameter's gradient's max abs error is held
+    to `grad_rel` of the larger of its own largest entry and `floor` of the
+    model's largest gradient entry (SGR: see SGR_FLOOR); a frozen one (CAMERA's
+    BERT) must get none.  With `kernel_rel`, the card's gradients are also
+    held to that limit against the same step on the card with the kernels'
+    wrappers swapped for their plain pairs by `plain_route` (SGRAF:
+    `_sgraf_plain_chain`, CAMERA: `_agsa_plain_route`), which tells the
+    kernels' share of the card-vs-CPU difference; the loss and the running
+    statistics are held to that step too.  With `exact` (CAMERA: the
+    modules whose outputs feed a ReLU), the gradients are held to a float64
+    copy of the step on the CPU that takes the card's ReLU decisions
+    (`_relu_decision`, `_exact_errs`) instead, the decisions that differ
+    from float64 are counted on both devices, and the fp32 card-vs-CPU
+    difference is only reported.
+    `prepare(model)`, when given, sets the weights before the step (VSRN:
+    `_vsrn_off_identity`)."""
+    def step_on(dev, plain=False, dtype=torch.float32, pin=None):
         model = get_model(cfg, device=dev,
                           generator=torch.Generator().manual_seed(cfg["seed"])).train()
         if prepare is not None:
             prepare(model)
+        seen = {}
+        hooks = [mod.register_forward_hook(functools.partial(_relu_decision, name=name,
+                                                             seen=seen, pin=pin))
+                 for name, mod in model.named_modules() if name and name.startswith(exact)]
         b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        with _sgraf_plain_chain() if plain else contextlib.nullcontext():
+        if dtype != torch.float32:
+            model.to(dtype)
+            b = {k: v.to(dtype) if v.is_floating_point() else v for k, v in b.items()}
+        with plain_route() if plain else contextlib.nullcontext():
             loss, _ = model.loss(b, train=True)
             loss.backward()
         # copies: on the CPU .cpu() would alias the buffers that the next
@@ -1956,13 +2154,22 @@ def _first_step_witness(cfg, batch, grad_rel: float = TRAIN_GRAD_REL, floor: flo
         with torch.no_grad():
             e = model.embed(b)
             scores = model.similarity(e["img"], e["cap"], e.get("cap_mask"), train=True)
+            if exact and e["img"].dim() == 3:  # each pair's best view (CAMERA)
+                seen["views"] = torch.einsum("ikd,cd->ikc", e["img"].double(),
+                                             e["cap"].double()).argmax(1).cpu()
+        for h in hooks:
+            h.remove()
+        frozen = [k for k, p in model.named_parameters()
+                  if not p.requires_grad and p.grad is None]
+        if frozen != [k for k, p in model.named_parameters() if not p.requires_grad]:
+            raise AssertionError("a frozen parameter took a gradient")
         # the plain chain leaves bk out of the graph (the fold drops it)
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
-                 for k, p in model.named_parameters()}
-        return loss.detach().cpu(), grads, scores.cpu(), stats
+                 for k, p in model.named_parameters() if p.requires_grad}
+        return loss.detach().cpu(), grads, scores.cpu(), stats, seen
 
     t0 = time.perf_counter()
-    (lk, gk, sk, tk), (lc, gc, sc, tc) = step_on(DEV), step_on(torch.device("cpu"))
+    (lk, gk, sk, tk, dk), (lc, gc, sc, tc, dc) = step_on(DEV), step_on(torch.device("cpu"))
     log(f"  first-step witness (card, then a CPU copy): {time.perf_counter() - t0:.1f} s")
     loss_err = abs(float(lk) - float(lc)) / abs(float(lc))
     log(f"  first step loss: card {float(lk):.7f}, cpu {float(lc):.7f}, rel_err "
@@ -1972,14 +2179,33 @@ def _first_step_witness(cfg, batch, grad_rel: float = TRAIN_GRAD_REL, floor: flo
     hn_agree = float(((sk - 1e9 * torch.eye(len(sk))).argmax(1)
                       == (sc - 1e9 * torch.eye(len(sc))).argmax(1)).float().mean())
     log(f"  hardest-negative captions agreeing card vs cpu: {hn_agree:.4f}")
+
+    def active(sim):  # the hinge terms above zero, both directions, off the diagonal
+        d, off = sim.diagonal(), ~torch.eye(len(sim), dtype=torch.bool)
+        margin = cfg.get("margin", 0.2)
+        return torch.stack([(margin + sim - d[:, None] > 0) & off,
+                            (margin + sim - d[None, :] > 0) & off])
+
+    hinge_flips = None
+    if not cfg.get("max_violation"):  # the loss sums every active term
+        hinge_flips = int((active(sk) != active(sc)).sum())
+        log(f"  hinge terms active on one device only: {hinge_flips} of "
+            f"{2 * len(sk) * (len(sk) - 1)} ({int(active(sc).sum())} active on the cpu)")
     if not loss_err <= TRAIN_LOSS_REL:
         raise AssertionError(f"first-step loss differs card vs cpu by {loss_err}")
     scale = max(float(g.abs().max()) for g in gc.values())
-    kernel_errs, plain_err = {}, None
+    kernel_errs, kernel_stat_errs, plain_err = {}, {}, None
     if kernel_rel is not None:
-        _, gp, _, _ = step_on(DEV, plain=True)
+        lp, gp, _, tp, _ = step_on(DEV, plain=True)
+        kernel_loss_err = abs(float(lk) - float(lp)) / abs(float(lp))
+        log(f"  first step loss: card kernels {float(lk):.7f}, card plain chain {float(lp):.7f}, "
+            f"rel_err {kernel_loss_err:.3e} (limit {TRAIN_LOSS_REL:g})")
+        if not kernel_loss_err <= TRAIN_LOSS_REL:
+            raise AssertionError(f"first-step loss differs kernels vs plain chain by "
+                                 f"{kernel_loss_err}")
         kernel_errs = _grad_errs("card kernels vs card plain chain", gk, gp, kernel_rel,
                                  floor, scale)
+        kernel_stat_errs = _stat_errs("card kernels vs card plain chain", tk, tp)
         # the devices' own share, no limit: the same plain chain on both
         plain = {k: float((gp[k] - gc[k]).abs().max()) / max(float(gc[k].abs().max()),
                                                               floor * scale)
@@ -1988,22 +2214,38 @@ def _first_step_witness(cfg, batch, grad_rel: float = TRAIN_GRAD_REL, floor: flo
         plain_err = plain[worst]
         log(f"  first step grads, the card's plain chain vs cpu (the devices' share, no "
             f"limit): at most {plain_err:.3e} ({worst})")
-    grad_errs = _grad_errs("card vs cpu", gk, gc, grad_rel, floor, scale)
-    stat_errs = {}
-    for k in tc:
-        # a running mean is a mean of centred values (~0 by cancellation), so
-        # it is held in units of its channel's standard deviation
-        var = tc[k.replace("running_mean", "running_var")]
-        scale = max(float(tc[k].abs().max()), float(var.max()) ** 0.5)
-        stat_errs[k] = float((tk[k] - tc[k]).abs().max()) / scale
-        log(f"  first step {k} (card vs cpu): {stat_errs[k]:.3e} of scale "
-            f"(limit {TRAIN_STAT_REL:g})")
-        if not stat_errs[k] <= TRAIN_STAT_REL:
-            raise AssertionError(f"first-step {k} differs card vs cpu by {stat_errs[k]}")
+    exact_errs, flips = {}, {}
+    if exact:
+        t0 = time.perf_counter()
+        l64, g64, _, _, d64 = step_on(torch.device("cpu"), dtype=torch.float64, pin=dk)
+        log(f"  float64 CPU step with the card's ReLU decisions: "
+            f"{time.perf_counter() - t0:.1f} s; loss {float(l64):.7f}, card "
+            f"{abs(float(lk) - float(l64)) / abs(float(l64)):.3e} from it")
+        for k in d64:
+            flips[k] = (int((dk[k] != d64[k]).sum()), int((dc[k] != d64[k]).sum()))
+            log(f"  {'best views' if k == 'views' else 'ReLU decisions after ' + k} "
+                f"differing from float64: card {flips[k][0]}, fp32 cpu {flips[k][1]} "
+                f"(of {d64[k].numel()})")
+        exact_errs = _exact_errs(gk, g64, floor,
+                                 max(float(g.abs().max()) for g in g64.values()))
+        grad_errs = {k: float((gk[k] - gc[k]).abs().max()) / max(float(gc[k].abs().max()),
+                                                                  floor * scale)
+                     for k in gc if k not in ZERO_GRADS}
+        worst = max(grad_errs, key=grad_errs.get)
+        log(f"  first step grads, card vs fp32 cpu (no limit: both held to float64): at "
+            f"most {grad_errs[worst]:.3e} ({worst})")
+    else:
+        grad_errs = _grad_errs("card vs cpu", gk, gc, grad_rel, floor, scale)
+    stat_errs = _stat_errs("card vs cpu", tk, tc)
     return {"loss_card": float(lk), "loss_cpu": float(lc), "loss_rel_err": loss_err,
             "grad_rel_err_max": max(grad_errs.values()),
+            "exact_grad_rel_err_max": max(exact_errs.values()) if exact_errs else None,
+            "decision_flips_vs_float64": flips or None,
+            "hinge_flips": hinge_flips,
             "stat_rel_err_max": max(stat_errs.values()) if stat_errs else None,
             "kernel_grad_rel_err_max": max(kernel_errs.values()) if kernel_errs else None,
+            "kernel_stat_rel_err_max": (max(kernel_stat_errs.values()) if kernel_stat_errs
+                                        else None),
             "plain_chain_grad_rel_err_max": plain_err,
             "hardest_negative_agreement": hn_agree}
 
@@ -2041,8 +2283,9 @@ def _profile_steps(step_fn, batches) -> dict:
 
 # the training slices: (title, method overlay and overrides, steps of the one
 # epoch, validation step, synthetic data seed, kernels the path must launch,
-# the launches a step that some of them must show, overrides of the
-# first-step witness, the witness's limits and preparation)
+# the launches that some of them must show as (a step, a batch of a
+# validation's encode), overrides of the first-step witness, the witness's
+# limits and preparation)
 TRAIN_SLICES = {
     # SCAN's published f30k t2i command (kuanghuei/SCAN README)
     "scan": ("SCAN f30k t2i training configuration",
@@ -2055,7 +2298,7 @@ TRAIN_SLICES = {
             ("SGRAF", "module_name=SAF", "max_violation=True", "sim_bf16=True"),
             SAF_TRAIN_STEPS, SAF_TRAIN_VAL_STEP, 3,
             ("gru", "gru_bwd", "sgraf_align", "sgraf_align_bwd", "sgraf_eval_saf"),
-            {"sgraf_align": SGRAF_CHUNKS, "sgraf_align_bwd": SGRAF_CHUNKS},
+            {"sgraf_align": (SGRAF_CHUNKS, 0), "sgraf_align_bwd": (SGRAF_CHUNKS, 0)},
             {"sgraf_dropout": 0.0},
             {"grad_rel": TRAIN_GRAD_REL_BF16}),
     # SGRAF's published f30k SGR command (Paranioar/SGRAF README: --module_name
@@ -2067,10 +2310,10 @@ TRAIN_SLICES = {
             SAF_TRAIN_STEPS, SAF_TRAIN_VAL_STEP, 4,
             ("gru", "gru_bwd", "sgraf_align", "sgraf_align_bwd", "sgr", "sgr_bwd",
              "sgraf_eval_sgr"),
-            {k: SGRAF_CHUNKS for k in ("sgraf_align", "sgraf_align_bwd", "sgr", "sgr_bwd")},
+            {k: (SGRAF_CHUNKS, 0) for k in ("sgraf_align", "sgraf_align_bwd", "sgr", "sgr_bwd")},
             {"sgraf_dropout": 0.0},
             {"grad_rel": TRAIN_GRAD_REL_SGR, "floor": SGR_FLOOR,
-             "kernel_rel": SGR_KERNEL_GRAD_REL}),
+             "kernel_rel": SGR_KERNEL_GRAD_REL, "plain_route": _sgraf_plain_chain}),
     # VSRN's published f30k command (KunpengLi1994/VSRN README: --data_name
     # f30k_precomp --max_violation --lr_update 10 --max_len 60), the VSRN()
     # overlay: embed 2048, dim_hidden 512, input_dropout_p 0.2, cosine; fp32.
@@ -2081,9 +2324,46 @@ TRAIN_SLICES = {
              ("VSRN", "max_violation=True", "lr_update=10", "max_len=60"),
              SAF_TRAIN_STEPS, SAF_TRAIN_VAL_STEP, 5,
              ("gru", "gru_bwd", "vsrn_dec", "vsrn_dec_bwd"),
-             {"vsrn_dec": 1, "vsrn_dec_bwd": 1}, {"input_dropout_p": 0.0},
+             {"vsrn_dec": (1, 0), "vsrn_dec_bwd": (1, 0)}, {"input_dropout_p": 0.0},
              {"grad_rel": TRAIN_GRAD_REL, "prepare": _vsrn_off_identity}),
+    # the README's CAMERA command (`python train.py with CAMERA
+    # data_name=f30k_precomp ...`): the CAMERA() overlay (embed 2048, 64 heads,
+    # smry_k 12, smry_lamda 0.01, max_words 32, drop 0, lr 1e-4) with BERT-base
+    # over the split's tiny vocabulary, batch 128, clip 2.0, fp32.  Both
+    # towers' AGSA layers launch the forward and backward kernels once a step
+    # each; validation encodes through the forward kernel, once a tower a
+    # batch.  The witness against a float64 CPU copy and against the card's
+    # plain AGSA pair
+    "camera": ("CAMERA f30k training configuration",
+               ("CAMERA", "bert_path={root}"), SAF_TRAIN_STEPS, SAF_TRAIN_VAL_STEP, 6,
+               ("agsa_attn", "agsa_attn_bwd"), {"agsa_attn": (2, 2), "agsa_attn_bwd": (2, 0)},
+               {}, {"exact": ("txt_enc.fc1", "img_enc.mvs.convs_dilate."),
+                    "kernel_rel": CAMERA_KERNEL_GRAD_REL, "plain_route": _agsa_plain_route}),
 }
+
+
+def _frozen_check(cfg: dict, state) -> dict:
+    """Parameters that take no gradient (CAMERA's BERT) leave fit as the seed
+    drew them, bit for bit, outside the optimizer and with no Adam state.
+    Returns their counts."""
+    model = state.model
+    frozen = {k: p for k, p in model.named_parameters() if not p.requires_grad}
+    trained = [p for p in model.parameters() if p.requires_grad]
+    in_opt = [p for group in state.optimizer.param_groups for p in group["params"]]
+    if any(p in state.optimizer.state for p in frozen.values()) or any(
+            not p.requires_grad for p in in_opt):
+        raise AssertionError("the optimizer holds a frozen parameter")
+    if frozen:
+        seeded = dict(get_model(cfg, device=DEV, generator=torch.Generator().manual_seed(
+            cfg["seed"])).named_parameters())
+        changed = [k for k, p in frozen.items() if not torch.equal(p, seeded[k])]
+        if changed:
+            raise AssertionError(f"fit changed frozen parameters: {changed[:4]}")
+        del seeded
+    log(f"  frozen parameters unchanged, without Adam state: {len(frozen)} tensors "
+        f"({sum(p.numel() for p in frozen.values())} values); Adam state for "
+        f"{len(trained)} trained tensors")
+    return {"frozen_tensors": len(frozen), "trained_tensors": len(trained)}
 
 
 def phase_train(root: str, card: str, name: str) -> dict:
@@ -2092,14 +2372,16 @@ def phase_train(root: str, card: str, name: str) -> dict:
     first-step witness, the counters, finite and falling losses,
     evalrank_single reproducing best_rsum, then the median step time, peak
     memory and a profile of 3 steps."""
-    (title, method, steps, val_step, data_seed, used, per_step, witness_cfg,
+    (title, method, steps, val_step, data_seed, used, counts, witness_cfg,
      limits) = TRAIN_SLICES[name]
     log(f"training slice: {title} at full width")
     t0 = time.perf_counter()
     generate(os.path.join(root, "f30k_precomp"), n_images=steps * 128 // 5, img_dim=2048,
              splits=("train", "dev"), seed=data_seed, n_concepts_range=(2, 10))
+    write_tiny_bert_vocab(os.path.join(root, "vocab.txt"))  # CAMERA's BERT
     cfg = parse_cli(
-        ["with", *method, "data_name=f30k_precomp", f"data_path={root}",
+        ["with", *(m.format(root=root) for m in method), "data_name=f30k_precomp",
+         f"data_path={root}",
          f"vocab_path={os.path.join(REPO, 'itrx', 'vocab')}", "vocab_type=json",
          "num_epochs=1", f"val_step={val_step}", "log_step=1", f"save_path={root}/runs",
          "seed=0"],
@@ -2130,11 +2412,9 @@ def phase_train(root: str, card: str, name: str) -> dict:
             raise AssertionError(f"the training path never launched the {k} kernel")
         if k not in used and launches[k]:
             raise AssertionError(f"the training path launched the {k} kernel")
-    for k, n in per_step.items():
-        if launches[k] != n * steps:
-            raise AssertionError(f"{k}: {launches[k]} launches, expected {n} a step")
     if state.step != steps:
         raise AssertionError(f"fit ran {state.step} steps, expected {steps}")
+    frozen = _frozen_check(cfg, state)
 
     losses, rsums = _losses_from_events(cfg["save_dir"])
     if len(losses) != steps or not all(math.isfinite(v) for v in losses):
@@ -2148,6 +2428,11 @@ def phase_train(root: str, card: str, name: str) -> dict:
     if len(rsums) != 2:
         raise AssertionError(f"expected one validation mid-epoch and one at its end, "
                              f"got {rsums}")
+    val_batches = len(rsums) * -(-len(val_ds) // cfg["batch_size"])
+    for k, (a_step, a_batch) in counts.items():
+        if launches[k] != a_step * steps + a_batch * val_batches:
+            raise AssertionError(f"{k}: {launches[k]} launches, expected {a_step} a step and "
+                                 f"{a_batch} a validation batch ({val_batches})")
 
     best = os.path.join(cfg["save_dir"], "model_best.pth.tar")
     for path in (best, os.path.join(cfg["save_dir"], "epo0_checkpoint.pth.tar")):
@@ -2184,7 +2469,7 @@ def phase_train(root: str, card: str, name: str) -> dict:
         "peak_memory_gb": peak,
         "loss_first": losses[0], f"loss_mean_first{w}": first_w,
         f"loss_mean_last{w}": last_w, "val_rsums": rsums, "best_rsum": best_rsum,
-        "witness": witness, "profile": prof, "launches": launches,
+        "witness": witness, "profile": prof, "launches": launches, "frozen": frozen,
     }
     log(f"{name} training result: " + json.dumps(out))
     return out
@@ -2203,6 +2488,7 @@ def main():
     results["vsrn_dec"] = phase_vsrn_dec(g)
     results["vsrn_dec_bwd"] = vsrn_bwd_result(results["vsrn_dec"])
     results["agsa_attn"] = phase_agsa(g)
+    results["agsa_attn_bwd"] = agsa_bwd_result(results["agsa_attn"])
     # the GRU kernels at VSRN's text width (H 2048, 61 slots; the region GRU is
     # the same recurrence over 36 steps)
     phase_gru_bwd(g, b=128, l=61, d=300, h=2048, timed=False)
@@ -2228,12 +2514,15 @@ def main():
         tr_sgr = phase_train(root, card, "sgr")
     with tempfile.TemporaryDirectory(prefix="itrx_smoke_train_vsrn_") as root:
         tr_vsrn = phase_train(root, card, "vsrn")
+    with tempfile.TemporaryDirectory(prefix="itrx_smoke_train_camera_") as root:
+        tr_cam = phase_train(root, card, "camera")
     # launches: each kernel's count from the main path that runs it (SCAN's
     # training path for the GRU kernels and t2i validation, the i2t slice's
     # evaluate_split for xattn_i2t, the SAF and SGR slices' for their eval
     # kernels, SGRAF-SAF's training path for the alignment kernels,
     # SGRAF-SGR's for the reasoning kernels, VSRN's for the decoder kernels,
-    # the CAMERA slice's evaluate_split for agsa_attn)
+    # the CAMERA slice's evaluate_split for agsa_attn, CAMERA's training path
+    # for agsa_attn_bwd)
     launches = dict(tr["launches"], xattn_i2t=i2t["launches"]["xattn_i2t"],
                     sgraf_eval_saf=saf["launches"]["sgraf_eval_saf"],
                     sgraf_eval_sgr=sgr["launches"]["sgraf_eval_sgr"],
@@ -2242,7 +2531,8 @@ def main():
                     sgr=tr_sgr["launches"]["sgr"], sgr_bwd=tr_sgr["launches"]["sgr_bwd"],
                     vsrn_dec=tr_vsrn["launches"]["vsrn_dec"],
                     vsrn_dec_bwd=tr_vsrn["launches"]["vsrn_dec_bwd"],
-                    agsa_attn=cam["launches"]["agsa_attn"])
+                    agsa_attn=cam["launches"]["agsa_attn"],
+                    agsa_attn_bwd=tr_cam["launches"]["agsa_attn_bwd"])
     log(f"card: {card}")
     print(json.dumps({"kernels": [
         {

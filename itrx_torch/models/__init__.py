@@ -108,7 +108,10 @@ def _camera(config: dict, generator: torch.Generator | None):
         embed_size=config["embed_size"],
         head=config["head"],
         smry_k=config["smry_k"],
+        smry_lamda=config.get("smry_lamda", 0.01),
         drop=config.get("drop", 0.0),
+        margin=config.get("margin", 0.2),
+        max_violation=config.get("max_violation", False),
         dropout_seed=config.get("seed", 0),
         generator=generator,
     )

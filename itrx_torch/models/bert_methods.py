@@ -3,7 +3,10 @@ CAMERAImageEncoder and ::CAMERATextEncoder).
 
 Reference: itr/modalmodule/ImgEncoder.py:355-433 (the image tower) and
 TextEncoder.py:162-197 (the text tower).  The text tower's BERT is frozen
-(ref TextEncoder.py:154-157): its last layer is detached.
+(ref TextEncoder.py:154-157): its parameters take no gradient (so the
+optimizer, which takes only parameters that require one, gives them no Adam
+state and no share of the clip), and it runs under no_grad, so autograd
+keeps none of its activations.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ class CAMERATextEncoder(nn.Module):
     def __init__(self, bert_cfg: BertConfig, embed_size: int, head: int, drop: float = 0.0,
                  rng: DropoutRNG | None = None, generator: torch.Generator | None = None):
         super().__init__()
-        self.bert = BertModel(bert_cfg, generator)
+        self.bert = BertModel(bert_cfg, generator).requires_grad_(False)
         self.mapping = torch_linear(bert_cfg.hidden_size, embed_size, generator=generator)
         self.agsa = AGSA(1, embed_size, h=head, drop=drop, rng=rng, generator=generator)
         self.fc1 = torch_linear(embed_size, embed_size, generator=generator)
@@ -61,8 +64,9 @@ class CAMERATextEncoder(nn.Module):
         self.dropout = SeededDropout(drop, rng)
 
     def forward(self, input_ids, attention_mask, token_type_ids):
-        layers, _ = self.bert(input_ids, token_type_ids, attention_mask)
-        x = self.mapping(layers[-1].detach())
+        with torch.no_grad():
+            layers, _ = self.bert(input_ids, token_type_ids, attention_mask)
+        x = self.mapping(layers[-1])
         b, t, d = x.shape
         agsa_emb = self.agsa(x)
         y = self.fc2(self.dropout(torch.relu(self.fc1(agsa_emb))))

@@ -2,7 +2,7 @@
 itrx/models/methods.py::SCAN: `embed`, `similarity` and `loss`, t2i and
 i2t; ::VSRN: `embed`, `similarity` and `loss` with the caption decoder;
 ::SGRAF with SGR or SAF: `embed`, `similarity` and `loss`; and
-itrx/models/bert_methods.py::CAMERA: `embed` and `similarity`)."""
+itrx/models/bert_methods.py::CAMERA: `embed`, `similarity` and `loss`)."""
 
 from __future__ import annotations
 
@@ -11,7 +11,8 @@ from torch import nn
 
 from ..ops import attention
 from ..ops.kernels.xattn import xattn_i2t_fused, xattn_t2i_fused
-from ..ops.losses import contrastive_hinge, language_model_loss
+from ..ops.losses import (contrastive_hinge, diversity_regularization, language_model_loss,
+                          triplet_loss)
 from ..ops.sim import cosine_sim, multi_view_matching, order_sim
 from .bert import BertConfig
 from .bert_methods import CAMERAImageEncoder, CAMERATextEncoder
@@ -233,16 +234,20 @@ class SGRAF(nn.Module):
 class CAMERA(nn.Module):
     """CAMERA (ref Models.py:550-645): smry_k view embeddings of each image
     (B, smry_k, D) from the position-gated AGSA image tower, one embedding
-    of each caption (B, D) from the frozen BERT and the text AGSA, and the
-    grid of the best view of each image for each caption.  Every dropout (at
-    `drop`) draws its masks from `dropout_rng`, seeded from `dropout_seed`.
-    Training (the triplet loss and the summarization's diversity term) is
-    not ported yet (ROADMAP queue 1 item 11b)."""
+    of each caption (B, D) from the frozen BERT and the text AGSA, the grid
+    of the best view of each image for each caption, and the triplet loss on
+    the in-batch grid plus `smry_lamda` times the summarization's diversity
+    term.  Every dropout (at `drop`) draws its masks from `dropout_rng`,
+    seeded from `dropout_seed`; BERT's parameters take no gradient."""
 
     def __init__(self, bert_cfg: BertConfig, img_dim: int = 2048, embed_size: int = 2048,
-                 head: int = 64, smry_k: int = 12, drop: float = 0.0, dropout_seed: int = 0,
-                 generator: torch.Generator | None = None):
+                 head: int = 64, smry_k: int = 12, smry_lamda: float = 0.01,
+                 drop: float = 0.0, margin: float = 0.2, max_violation: bool = False,
+                 dropout_seed: int = 0, generator: torch.Generator | None = None):
         super().__init__()
+        self.smry_lamda = smry_lamda
+        self.margin = margin
+        self.max_violation = max_violation
         self.dropout_rng = DropoutRNG(dropout_seed)
         self.img_enc = CAMERAImageEncoder(img_dim, embed_size, head, smry_k, drop,
                                           self.dropout_rng, generator)
@@ -250,17 +255,22 @@ class CAMERA(nn.Module):
                                          generator)
 
     def embed(self, batch: dict) -> dict:
-        """{"img": (B, smry_k, D), "cap": (B, D)}."""
+        """{"img": (B, smry_k, D), "cap": (B, D)}, and in train mode
+        "smry_mat" (B, R, smry_k), which feeds only the diversity term (not
+        kept in evaluation)."""
         cap = self.txt_enc(batch["cap_ids"], batch["cap_mask"], batch["type_ids"])
-        img, _ = self.img_enc(batch["images"], batch["boxes"], batch["imgs_wh"])
-        return {"img": img, "cap": cap}
+        img, smry_mat = self.img_enc(batch["images"], batch["boxes"], batch["imgs_wh"])
+        out = {"img": img, "cap": cap}
+        if self.training:
+            out["smry_mat"] = smry_mat
+        return out
 
     def forward(self, batch: dict) -> dict:
         return self.embed(batch)
 
     def fused_eval_active(self, device: torch.device, train: bool = False) -> bool:
         """Always False: CAMERA's grid is one product (`itrx` computes it
-        outside any kernel too); its kernel runs inside `embed`."""
+        outside any kernel too); its kernels run inside `embed`."""
         return False
 
     def similarity(self, img, cap, cap_mask=None, train: bool = False):
@@ -268,6 +278,18 @@ class CAMERA(nn.Module):
         return multi_view_matching(img, cap)
 
     def loss(self, batch: dict, train: bool = True, epoch: int = 0):
-        raise NotImplementedError(
-            "CAMERA training is not ported yet: ROADMAP queue 1 item 11b (the AGSA "
-            "backward kernel)")
+        """The training objective (itrx/models/bert_methods.py:353-360):
+        (ranking + smry_lamda x diversity, {"Loss", "Rank_Loss",
+        "Div_loss"}).  `train` must agree with the module's mode
+        (model.train()); `epoch` is unused."""
+        if train != self.training:
+            raise ValueError(
+                f"CAMERA.loss(train={train}) with the model in "
+                f"{'train' if self.training else 'eval'} mode: call model.train() for "
+                "training")
+        e = self.embed(batch)
+        ranking = triplet_loss(self.similarity(e["img"], e["cap"]), self.margin,
+                               self.max_violation)
+        div = diversity_regularization(e["smry_mat"])
+        loss = ranking + div * self.smry_lamda
+        return loss, {"Loss": loss, "Rank_Loss": ranking, "Div_loss": div}

@@ -1,5 +1,6 @@
 """Training objectives (counterpart of itrx/ops/losses.py: the hinge every
-method trains with, and VSRN's caption-decoder loss)."""
+method trains with, CAMERA's diversity regularizer, and VSRN's
+caption-decoder loss)."""
 
 from __future__ import annotations
 
@@ -25,6 +26,20 @@ def contrastive_hinge(scores, margin: float = 0.2, max_violation: bool = False):
         cost_s = cost_s.amax(dim=1)
         cost_im = cost_im.amax(dim=0)
     return cost_s.sum() + cost_im.sum()
+
+
+# CAMERA's TripletLoss is the same computation on precomputed scores
+triplet_loss = contrastive_hinge
+
+
+def diversity_regularization(smry_mat):
+    """CAMERA's diversity term: || n^T n - I ||_F^2 summed over the batch,
+    where n is smry_mat (B, R, K) normalized along the region axis (each
+    column's norm clamped at 1e-12, so an all-zero view gives zeros)."""
+    n = smry_mat / smry_mat.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    g = torch.einsum("brk,brl->bkl", n, n)
+    d = g - torch.eye(smry_mat.shape[-1], dtype=g.dtype, device=g.device)
+    return (d * d).sum()
 
 
 def language_model_loss(logprobs, targets, mask):

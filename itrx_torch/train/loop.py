@@ -44,11 +44,10 @@ def check_supported(config: dict) -> None:
         raise NotImplementedError(
             "multi-device training (mesh_shape / multihost) is not ported yet: "
             "ROADMAP queue 1 item 13")
-    if config["name"] not in ("SCAN", "VSRN", "SGRAF"):
+    if config["name"] not in ("SCAN", "VSRN", "SGRAF", "CAMERA"):
         raise NotImplementedError(
-            f"training {config['name']} is not ported yet: only SCAN, VSRN and SGRAF are "
-            "(VSE++ is ROADMAP queue 1 item 3, SAEM item 10, CAMERA item 11b: the AGSA "
-            "backward kernel; CAMERA evaluation is ported)")
+            f"training {config['name']} is not ported yet: only SCAN, VSRN, SGRAF and "
+            "CAMERA are (VSE++ is ROADMAP queue 1 item 3, SAEM item 10)")
 
 
 def make_train_step(state: TrainState, seed: int = 0):
@@ -226,7 +225,7 @@ def fit(config: dict, train_dataset=None, val_dataset=None, device=None):
                 config["resume"], start_epoch, best_rsum, best_r1))
             validate_step(config, state, val_dataset, device, writer)
 
-        n_params = sum(p.numel() for p in model.parameters())
+        n_params = sum(p.numel() for p in model.parameters() if p.requires_grad)
         print("Optimizable parameter number of the whole model is ", n_params)
 
         for epoch in range(start_epoch, config["num_epochs"]):

@@ -1,7 +1,7 @@
 """Train state and optimizer (counterpart of itrx/train/state.py).
 
-Reference semantics: one Adam over all parameters after a global-norm clip
-at `grad_clip` (2.0), and the step-decay learning rate
+Reference semantics: one Adam over the trained parameters after a
+global-norm clip at `grad_clip` (2.0), and the step-decay learning rate
 base * 0.1^(epoch // lr_update).  As in the JAX package, the decay is a pure
 function of the update count (steps_per_epoch is known at set-up), and the
 rate is set on the parameter group before each update.
@@ -31,9 +31,12 @@ def step_decay_schedule(base_lr: float, steps_per_epoch: int,
 
 
 def make_optimizer(model: nn.Module, config: dict) -> torch.optim.Adam:
-    """Adam with optax.adam's defaults (b1 0.9, b2 0.999, eps 1e-8)."""
-    return torch.optim.Adam(model.parameters(), lr=config["learning_rate"],
-                            betas=(0.9, 0.999), eps=1e-8)
+    """Adam with optax.adam's defaults (b1 0.9, b2 0.999, eps 1e-8) over the
+    parameters that require a gradient: a frozen tower (CAMERA's BERT) gets
+    no Adam state, as `itrx` masks it with optax.set_to_zero
+    (itrx/train/state.py:46-68)."""
+    return torch.optim.Adam([p for p in model.parameters() if p.requires_grad],
+                            lr=config["learning_rate"], betas=(0.9, 0.999), eps=1e-8)
 
 
 @dataclass

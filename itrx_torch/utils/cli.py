@@ -13,12 +13,19 @@ NO_GPU = ("{}: torch.cuda.is_available() is False; the port runs on an NVIDIA GP
 def default_device(device, prog: str) -> torch.device:
     """`device` as given, or cuda:0 when it is None.  The entry points run on
     the card unless the caller asks for the CPU (`device="cpu"`); with no
-    GPU, None raises rather than falling back to the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(NO_GPU.format(prog))
-    return torch.device("cuda", 0)
+    GPU, None raises rather than falling back to the CPU.  On the card it
+    turns TF32 off, so that fp32 configurations compute in fp32 as on the
+    CPU and in the JAX package (cuDNN rounds fp32 convolutions to TF32
+    unless told not to)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(NO_GPU.format(prog))
+        device = torch.device("cuda", 0)
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return device
 
 
 def require_cuda(prog: str) -> torch.device:

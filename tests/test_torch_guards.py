@@ -19,6 +19,7 @@ from itrx_torch.ops import kernels
 from itrx_torch.ops.kernels import (agsa_attn, gru, sgr, sgraf_align, sgraf_eval, vsrn_dec,
                                     xattn)
 from itrx_torch.train import loop
+from itrx_torch.utils.cli import default_device
 
 torch.set_num_threads(1)
 
@@ -202,6 +203,27 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
         calls[entry]()
 
 
+@pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
+def test_card_entry_turns_tf32_off(device, monkeypatch):
+    """Every entry point resolves its device through default_device (the
+    test above); on the card it leaves fp32 products and convolutions in
+    fp32: cuDNN's TF32, on by default, would round the fp32 configurations'
+    convolutions (CAMERA's summarization) to a 10-bit mantissa."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        assert default_device(device, "test").type == "cuda"
+        assert not torch.backends.cudnn.allow_tf32
+        assert not torch.backends.cuda.matmul.allow_tf32
+        # the CPU leaves them as they are
+        torch.backends.cudnn.allow_tf32 = True
+        assert default_device("cpu", "test") == torch.device("cpu")
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 @pytest.mark.parametrize("bi_gru", [False, True])
 def test_scan_loss_reaches_every_trained_parameter(bi_gru):
     model = _scan(bi_gru)
@@ -241,6 +263,13 @@ def test_gru_bwd_source_exists():
     src = kernels.CSRC / gru.BWD_SOURCE
     assert src.exists(), src
     assert "extern \"C\"" in src.read_text()
+
+
+def test_agsa_attn_bwd_source_exists():
+    """The AGSA backward's source exists with its C interface: one entry,
+    which sizes its own grid within the workspace the wrapper passes."""
+    src = (kernels.CSRC / agsa_attn.BWD_SOURCE).read_text()
+    assert "int itrx_agsa_bwd(" in src
 
 
 def test_xattn_i2t_source_exists():
@@ -412,20 +441,22 @@ def test_sgraf_saf_training_names_its_roadmap_item():
 
 
 def test_check_supported_refuses_sgraf_training():
-    """check_supported accepts SGRAF with SAF and with SGR and VSRN, and
-    still refuses train_bf16, meshes and the methods whose training is not
-    ported (VSE++, SAEM and CAMERA, each naming its item: CAMERA's is 11b,
-    the AGSA backward)."""
+    """check_supported accepts SGRAF with SAF and with SGR, VSRN and CAMERA
+    (its training, with the AGSA backward kernel, is ported), and still
+    refuses train_bf16, meshes and the methods whose training is not ported
+    (VSE++ and SAEM, each naming its item)."""
     loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SAF"))
     loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SGR"))
     loop.check_supported(dict(_cfg(), name="VSRN"))
+    loop.check_supported(dict(_cfg(), name="CAMERA"))
     loop.check_supported(_cfg())
     for name, item in (("VSE_PP", "VSE\\+\\+ is ROADMAP queue 1 item 3"),
-                       ("SAEM", "SAEM item 10"), ("CAMERA", "CAMERA item 11b")):
-        with pytest.raises(NotImplementedError, match=f"only SCAN, VSRN and SGRAF are.*{item}"):
+                       ("SAEM", "SAEM item 10")):
+        with pytest.raises(NotImplementedError,
+                           match=f"only SCAN, VSRN, SGRAF and CAMERA are.*{item}"):
             loop.check_supported(dict(_cfg(), name=name))
     with pytest.raises(NotImplementedError, match="train_bf16"):
-        loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SGR", train_bf16=True))
+        loop.check_supported(dict(_cfg(), name="CAMERA", train_bf16=True))
     with pytest.raises(NotImplementedError, match="mesh_shape"):
         loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SGR", mesh_shape=[2]))
 
@@ -766,27 +797,54 @@ def test_agsa_wrapper_raises_off_cpu_and_cuda():
     assert agsa_attn.agsa_attention_fused.launches == before
 
 
-def test_agsa_wrapper_refuses_a_cuda_call_that_needs_a_gradient():
-    """A CUDA call with grad enabled and an input that requires grad raises
-    naming ROADMAP item 11b (the kernel has no backward yet), before any
-    launch; under no_grad a CUDA call outside the kernel's limits raises
-    rather than falling back; a CPU call takes the plain version, with or
-    without grad, and counts nothing."""
-    before = agsa_attn.agsa_attention_fused.launches
-    grad_args = _agsa_args(lambda *s: _CudaStandIn(*s))
-    grad_args[4] = _CudaStandIn(8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11b"):
-        agsa_attn.agsa_attention_fused(*grad_args)
-    with torch.no_grad(), pytest.raises(ValueError, match="limits"):
-        agsa_attn.agsa_attention_fused(*_agsa_args(lambda *s: _CudaStandIn(*s), n=65))
+def test_agsa_wrapper_refuses_a_cuda_call_that_needs_a_gradient(monkeypatch):
+    """A CUDA call with grad enabled and an input that requires grad goes to
+    the autograd Function (whose bodies launch the two kernels), never to
+    the plain version; such a call with N 65 raises for the kernels' limits
+    before any launch, as does the backward wrapper; a CPU call that needs
+    a gradient takes the Function's plain bodies (equal to autograd through
+    agsa_attention_plain) and counts no launch."""
+    fused, bwd = agsa_attn.agsa_attention_fused, agsa_attn.agsa_attention_bwd_fused
+    before = fused.launches, bwd.launches
+    applied = []
+
+    class Spy:
+        @staticmethod
+        def apply(*a):
+            applied.append(a)
+            return "through the Function"
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA call reached the plain version")
+
+    with monkeypatch.context() as m:
+        m.setattr(agsa_attn, "_AGSAAttention", Spy)
+        m.setattr(agsa_attn, "agsa_attention_plain", refuse)
+        m.setattr(agsa_attn, "agsa_attention_bwd_plain", refuse)
+        grad_args = _agsa_args(lambda *s: _CudaStandIn(*s))
+        grad_args[4] = _CudaStandIn(8, requires_grad=True)
+        assert fused(*grad_args) == "through the Function"
+        assert len(applied) == 1 and applied[0][-1] == 2
+        big = _agsa_args(lambda *s: _CudaStandIn(*s), n=65)
+        big[0] = _CudaStandIn(2, 65, 16, requires_grad=True)
+        with pytest.raises(ValueError, match="limits"):
+            fused(*big)
+        with pytest.raises(ValueError, match="limits"):
+            agsa_attn._guard("agsa_attention_bwd_fused", *big[:3], big[3:11], 2, big[0])
+        with torch.no_grad(), pytest.raises(ValueError, match="limits"):
+            fused(*big)
+        assert len(applied) == 1
     g = torch.Generator().manual_seed(5)
     cpu = _agsa_args(lambda *s: torch.randn(*s, generator=g))
     cpu[0].requires_grad_()
-    out = agsa_attn.agsa_attention_fused(*cpu)
-    out.sum().backward()
-    assert cpu[0].grad is not None
-    torch.testing.assert_close(out, agsa_attn.agsa_attention_plain(*cpu), rtol=0, atol=0)
-    assert agsa_attn.agsa_attention_fused.launches == before
+    cpu[5].requires_grad_()
+    out = fused(*cpu)
+    assert out.grad_fn is not None and "AGSAAttention" in type(out.grad_fn).__name__
+    got = torch.autograd.grad(out.sum(), [cpu[0], cpu[5]])
+    want = torch.autograd.grad(agsa_attn.agsa_attention_plain(*cpu).sum(), [cpu[0], cpu[5]])
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    assert (fused.launches, bwd.launches) == before
 
 
 @pytest.mark.parametrize("drop,training,d_k,n,route", [

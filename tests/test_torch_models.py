@@ -11,8 +11,9 @@ import torch
 from itrx.models import get_model as jget_model
 from itrx.models.txt_encoders import EncoderText as JEncoderText
 from itrx.utils.ref_convert import convert_state_list, merge_into_variables
-from itrx_torch.models import get_model
+from itrx_torch.models import agsa, get_model
 from itrx_torch.models.txt_encoders import EncoderText
+from itrx_torch.ops.kernels.agsa_attn import agsa_attention_plain
 from itrx_torch.utils.convert import from_itrx_variables, to_itrx_flat
 
 torch.set_num_threads(1)
@@ -124,12 +125,14 @@ def test_sentence_level_text_encoder_matches_jax(rng):
 
 
 @pytest.mark.parametrize("name", ["VSE_PP", "VSRN", "SAEM", "CAMERA"])
-def test_unported_methods_name_their_roadmap_item(name):
+def test_unported_methods_name_their_roadmap_item(name, monkeypatch):
     """The two methods not ported yet (VSE++, SAEM) each name their item;
     VSRN, ported with its training, builds with the reference's parts and
-    keys (SGRAF is ported with SGR and SAF); CAMERA, whose evaluation is
-    ported, builds with its two parts, and its loss names the item that
-    ports its training (11b)."""
+    keys (SGRAF is ported with SGR and SAF); CAMERA, ported with its
+    training, builds with its two parts, and its train-mode loss (on the
+    meta device, at BERT-base, the AGSA wrapper swapped for its plain
+    version, which runs on any device) returns the loss with its three aux
+    values."""
     cfg = _cfg(False, name=name, module_name="SGR", sim_dim=16, data_name="f30k_precomp",
                measure="cosine", use_abs=False, max_len=7, dim_hidden=16, dim_vid=128,
                dim_word=8, input_dropout_p=0.2)
@@ -138,8 +141,16 @@ def test_unported_methods_name_their_roadmap_item(name):
             model = get_model(dict(cfg, head=4, smry_k=3, smry_lamda=0.01, drop=0.0),
                               device="meta")
         assert [n for n, _ in model.named_children()] == ["img_enc", "txt_enc"]
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11b"):
-            model.loss({})
+        b, r, l = 3, 5, 4
+        with torch.device("meta"):
+            batch = {"images": torch.empty(b, r, 48), "boxes": torch.empty(b, r, 4),
+                     "imgs_wh": torch.empty(b, 2), "cap_mask": torch.empty(b, l),
+                     "cap_ids": torch.zeros(b, l, dtype=torch.long),
+                     "type_ids": torch.zeros(b, l, dtype=torch.long)}
+        monkeypatch.setattr(agsa, "agsa_attention_fused", agsa_attention_plain)
+        loss, aux = model.train().loss(batch)
+        assert sorted(aux) == ["Div_loss", "Loss", "Rank_Loss"] and aux["Loss"] is loss
+        assert loss.shape == () and all(v.shape == () for v in aux.values())
         return
     if name != "VSRN":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
