@@ -14,8 +14,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    sizes, with stated tolerances, and each one's time beside the plain
    version's, its bound (bytes or operations at the H100's data-sheet
    rates) and, for the GRU kernels, cuDNN's GRU (CUDA events, after
-   warm-up).  The GRU adjoint is held to autograd through the plain GRU
-   (all five gradients, both directions); the SGRAF-SAF and SGRAF-SGR score
+   warm-up).  The GRU forward is held to gru_scan at every shape of
+   GRU_FWD_SHAPES (H 512, 1024, 2048 and a ragged 1036; B 128, 8 and 1),
+   bf16 and fp32, both directions, each printed with its plan (route,
+   blocks, shared memory), its time a step, cuDNN's and its bound; a grid
+   that cannot be co-resident must raise.  The GRU adjoint is held to
+   autograd through the plain GRU (all five gradients, both directions) and
+   to gru_bwd_plain at GRU_BWD_SHAPES, two calls bit-identical; the
+   SGRAF-SAF and SGRAF-SGR score
    kernels to `sgraf_eval_saf_plain` and `sgraf_eval_sgr_plain` at D 1024,
    S 256 (SGR at sgr_step 3, and 1 at the ragged shape), bf16 and fp32,
    and SGR at a 128-word caption and at S 128 in bf16; the SGRAF training
@@ -36,8 +42,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    cotangents, two backward calls bit-identical) at both towers' calls on
    the evaluation and training paths (128 x 64 heads x 36 regions or 32
    BERT slots x d_k 32), at a ragged odd shape and at the largest shape
-   their limits allow (N 64, d_k 128), bf16 and fp32; and the GRU kernels at VSRN's text width (H 2048, 61 steps) against
-   autograd through the plain GRU;
+   their limits allow (N 64, d_k 128), bf16 and fp32; and the GRU kernels
+   at VSRN's text width (H 2048, 61 steps, fp32: the streamed route)
+   against autograd through the plain GRU, timed beside cuDNN;
 4. the evaluation slices at full width on an f30k-1K-shaped synthetic split
    (1000 images x 36 x 2048 regions, 5000 captions) through get_model ->
    evaluate_split (encode_data -> cal_sims -> cal_recall) with encode_bf16
@@ -58,7 +65,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    the kernel against the same encode through agsa_attention_plain on the
    card (embeddings and grid within 1e-5, top-1 agreement >= 0.95) and the
    bf16 main path's grid against that fp32 grid (at limits set from the
-   first reading on the card);
+   first reading on the card).  Then the VSRN slice (the VSRN() overlay:
+   embed 2048, the text and region GRUs at H 2048 in bf16, TorchBatchNorm on
+   bf16, its text GRU made a slow integrator so that random weights do not
+   embed every caption alike: _vsrn_text_memory): the counters show gru and
+   no other kernel; its witness is the grid of the same encode with the GRU
+   swapped for its plain pair on the card (top-1 agreement >= 0.95, >= 2
+   distinct top-1 images, the largest embedding difference reported);
 5. the ensembles: a t2i LSE and an i-t AVG checkpoint with random weights
    through evalrank_ensemble, whose ranks must be cal_recall of the two
    averaged grids; SGRAF's published protocol, the SGR and SAF slices'
@@ -382,6 +395,23 @@ COUNTERS = {"gru": gru_scan_fused, "gru_bwd": gru_bwd_fused, "xattn": xattn_t2i_
 # PR 6's SAF kernel at 64 x 320 x 36 x 24 x 1024, S 256 (ms, bf16 and fp32;
 # NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
 SAF_PR6_MS = (12.642, 18.232)
+# the GRU kernels this design replaced (one launch a timestep) at phase_gru's
+# main shape (forward bf16, fp32; input projection included) and
+# phase_gru_bwd's (adjoint; forward + backward through autograd): ms,
+# NVIDIA H100 80GB HBM3, 700 W; printed beside this run's
+GRU_PER_STEP_FWD_MS = (2.342, 2.381)
+GRU_PER_STEP_BWD_MS = (9.870, 16.295)
+# (B, L, H) the GRU forward is held and timed at, bf16 and fp32, both
+# directions, D 300, ragged lengths: encode's batch (SCAN and SGRAF H 1024),
+# the last batch of encode's 128-row batches over 5000 captions, one row,
+# VSRN's decoder-side GRU (H 512, 36 regions), VSRN's text and region width
+# (H 2048: bf16 resident, fp32 streamed) and an H that is not a multiple of
+# the unit group
+GRU_FWD_SHAPES = ((128, 24, 1024), (8, 24, 1024), (1, 24, 1024), (128, 36, 512),
+                  (128, 36, 2048), (37, 21, 1036))
+# (B, L, H) the adjoint is held at besides phase_gru_bwd's timed shapes, both
+# directions
+GRU_BWD_SHAPES = ((8, 48, 1024), (1, 48, 1024), (128, 36, 512), (37, 21, 1036))
 # a slice grid slower than this is timed once, not best of 3
 ONE_TIMING_S = 5.0
 # SCAN's published i-t settings (kuanghuei/SCAN README): i-t AVG (the eval
@@ -527,9 +557,61 @@ def _gru_inputs(g, b, l, d, h):
     w = [u(3 * h, d), u(3 * h, h), u(3 * h), u(3 * h)]
     x = torch.randn(b, l, d, generator=g) * 0.1
     lengths = torch.randint(1, l + 1, (b,), generator=g)
-    lengths[0], lengths[1] = 1, l
+    if b > 1:
+        lengths[0], lengths[1] = 1, l
+    else:
+        lengths[0] = l
     mask = (torch.arange(l)[None] < lengths[:, None]).float()
     return [t.to(DEV) for t in [x, mask] + w]
+
+
+def gru_route(b: int, h: int, dtype, backward: bool = False) -> str:
+    """The plan the GRU wrapper takes for (B, H, dtype) on this card, as
+    printed beside each shape."""
+    p = kgru.plan(b, h, dtype, backward=backward, sms=kgru._sms(DEV))
+    return (f"route {p.route}, {p.blocks} blocks x {p.units} units, cluster 1, "
+            f"{p.smem} B shared, {len(p.chunks)} launch(es)")
+
+
+def gru_fwd_bound(x, mask, w_ih, w_hh, b_ih, b_hh, out_bytes: int, peak: str) -> dict:
+    """Inputs and weights read once, outputs and the final state written once
+    (out_bytes an element), over the valid steps only: the input projection
+    and the recurrent product (2 n_valid (D + H) 3H) at the peak of their
+    operands' type (bf16 mode: the kernel rounds the carry to bf16)."""
+    b, l, d = x.shape
+    h = w_hh.shape[1]
+    ops = 2 * float(mask.sum()) * (d + h) * 3 * h
+    return bound(nbytes(x, mask, w_ih, w_hh, b_ih, b_hh) + out_bytes * (b * l * h + b * h),
+                 {peak: ops})
+
+
+def gru_bwd_bound(gates_x, mask, hall, ghall, g_out, g_fin, w_hh) -> dict:
+    """The adjoint alone: gates_x, mask, the residuals, both cotangents and
+    W_hh read once, the gate gradients and the initial state's written once;
+    (B, 3H) x (3H, H) by fp32 FMAs per valid step."""
+    b, _, h = hall.shape
+    return bound(nbytes(gates_x, mask, hall, ghall, g_out, g_fin, w_hh) + 4 * (
+        gates_x.numel() + hall.numel() + b * h), {"fp32": 2 * float(mask.sum()) * 3 * h * h})
+
+
+def check_co_resident_refusal(g) -> None:
+    """A cooperative grid that cannot be co-resident (one block an SM more
+    than the card holds) makes the launch fail, and the wrapper raises
+    without counting a launch."""
+    x, mask, w_ih, w_hh, b_ih, b_hh = _gru_inputs(g, 128, 4, 300, 1024)
+    gates_x = (x @ w_ih.t() + b_ih).contiguous()
+    sms = kgru._sms(DEV)
+    too_many = kgru.Plan(units=8, blocks=sms + 1, route="resident", smem=200_000,
+                         chunks=((0, 128),), k_padded=1024)
+    before = gru_scan_fused.launches
+    try:
+        kgru._launch(gates_x, mask, w_hh, b_hh, False, False, too_many)
+    except RuntimeError as e:
+        if gru_scan_fused.launches != before:
+            raise AssertionError("a refused GRU launch was counted") from e
+        log(f"  a grid of {sms + 1} blocks of 200000 B on {sms} SMs raises: {e}")
+        return
+    raise AssertionError("a GRU grid that cannot be co-resident launched")
 
 
 def phase_gru(g) -> dict:
@@ -564,35 +646,72 @@ def phase_gru(g) -> dict:
         res["library_ms"] = cuda_ms(lambda: lib16(xb))
         res["library_ms_fp32"] = cuda_ms(lambda: lib32(x))
     res["library_call"] = "torch.nn.GRU (cuDNN) forward, same padded batch and dtype"
-    b, l, d = x.shape
-    h = w_hh.shape[1]
-    n_valid = float(mask.sum())
-    # inputs and weights read once, outputs and final state written once (in
-    # x's dtype), over the valid steps only: the input projection and the
-    # recurrent product (2 n_valid (D + H) 3H).  In bf16 mode both products
-    # take bf16 operands (the kernel rounds the carry to bf16), so both count
-    # at the bf16 tensor-core peak; in fp32 mode at the fp32 peak.
-    ops = 2 * n_valid * (d + h) * 3 * h
-    res.update(bound(nbytes(xb, mask, wib, whb, bib, bhb) + 2 * (b * l * h + b * h),
-                     {"bf16": ops}))
-    b32 = bound(nbytes(x, mask, w_ih, w_hh, b_ih, b_hh) + 4 * (b * l * h + b * h),
-                {"fp32": ops})
+    # both products take bf16 operands in bf16 mode, fp32 in fp32 mode
+    res.update(gru_fwd_bound(xb, mask, wib, whb, bib, bhb, 2, "bf16"))
+    b32 = gru_fwd_bound(x, mask, w_ih, w_hh, b_ih, b_hh, 4, "fp32")
     res["bound_ms_fp32"], res["bound_by_fp32"] = b32["bound_ms"], b32["bound_by"]
-    log(f"  time bf16 (B=128, L=24, H=1024, one direction): kernel {res['ms']:.3f} ms, "
-        f"plain {res['plain_ms']:.3f} ms, cuDNN {res['library_ms']:.3f} ms, bound "
-        f"{res['bound_ms']:.4f} ms ({res['bound_by']}); fp32: kernel "
-        f"{res['ms_fp32']:.3f} ms, plain {res['plain_ms_fp32']:.3f} ms, cuDNN (TF32 off) "
-        f"{res['library_ms_fp32']:.3f} ms, bound {res['bound_ms_fp32']:.4f} ms "
-        f"({res['bound_by_fp32']})")
+    log(f"  time bf16 (B=128, L=24, H=1024, one direction): kernel {res['ms']:.3f} ms "
+        f"(per-step kernel {GRU_PER_STEP_FWD_MS[0]}), plain {res['plain_ms']:.3f} ms, cuDNN "
+        f"{res['library_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); fp32: "
+        f"kernel {res['ms_fp32']:.3f} ms (per-step kernel {GRU_PER_STEP_FWD_MS[1]}), plain "
+        f"{res['plain_ms_fp32']:.3f} ms, cuDNN (TF32 off) {res['library_ms_fp32']:.3f} ms, "
+        f"bound {res['bound_ms_fp32']:.4f} ms ({res['bound_by_fp32']})")
+    # the shape grid draws from generators of its own, so the later phases'
+    # inputs are those of the script without it
+    res["shapes"] = gru_fwd_shapes(torch.Generator().manual_seed(1))
+    check_co_resident_refusal(torch.Generator().manual_seed(2))
     return res
 
 
-def phase_gru_bwd(g, b=128, l=48, d=300, h=1024, timed: bool = True) -> dict:
+def gru_fwd_shapes(g) -> list:
+    """The forward kernel at every shape of GRU_FWD_SHAPES, bf16 and fp32,
+    both directions, held to gru_scan with the carry rounded as the kernel
+    rounds it; each (shape, mode) printed with its plan and timed (one
+    direction, input projection included, in the mode's dtypes as the main
+    paths call it) beside its recurrence alone a step, cuDNN and its
+    bound."""
+    rows = []
+    for b, l, h in GRU_FWD_SHAPES:
+        x, mask, w_ih, w_hh, b_ih, b_hh = _gru_inputs(g, b, l, 300, h)
+        for mode, dt, atol in (("bf16", torch.bfloat16, GRU_BF16_ATOL),
+                               ("fp32", torch.float32, GRU_FP32_ATOL)):
+            w_k = w_hh.to(dt)
+            errs = []
+            for reverse in (False, True):
+                got = gru_scan_fused(x, mask, w_ih, w_k, b_ih, b_hh, reverse=reverse)
+                want = gru_scan(x, mask, w_ih, w_k, b_ih, b_hh, reverse=reverse, dot_dtype=dt)
+                tag = f"gru B={b} L={l} H={h} {mode} {'reverse' if reverse else 'forward'}"
+                errs += [check(f"{tag} outputs", got[0], want[0], atol),
+                         check(f"{tag} final", got[1], want[1], atol)]
+            xs, wis, whs, bis, bhs = (t.to(dt) for t in (x, w_ih, w_hh, b_ih, b_hh))
+            gates_x = (xs @ wis.t() + bis).float().contiguous()
+            ms = cuda_ms(lambda: gru_scan_fused(xs, mask, wis, whs, bis, bhs))
+            rec_ms = cuda_ms(lambda: kgru._launch(gates_x, mask, whs, bhs.float(), False, False))
+            with torch.no_grad():
+                lib = cudnn_gru(w_ih, w_hh, b_ih, b_hh, dt)
+                lib_ms = cuda_ms(lambda: lib(xs))
+            bd = gru_fwd_bound(xs, mask, wis, whs, bis, bhs, xs.element_size(),
+                               "bf16" if dt == torch.bfloat16 else "fp32")
+            row = {"b": b, "l": l, "h": h, "mode": mode, "route": gru_route(b, h, dt),
+                   "max_abs_err": max(errs), "ms": ms, "recurrence_ms": rec_ms,
+                   "us_a_step": rec_ms / l * 1e3, "library_ms": lib_ms, **bd}
+            log(f"  gru B={b} L={l} H={h} {mode}: {row['route']}; {ms:.3f} ms with the "
+                f"projection, recurrence {rec_ms:.3f} ms = {row['us_a_step']:.2f} us a step; "
+                f"cuDNN {lib_ms:.3f} ms; bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+            rows.append(row)
+    return rows
+
+
+def phase_gru_bwd(g, b=128, l=48, d=300, h=1024, timed: bool = True,
+                  shapes: tuple = ()) -> dict:
     """The GRU adjoint kernel (and the forward's residual mode) against the
     plain versions, at the training path's widths: B=128, L=48 (the caption
     length of scripts/train_bench.py), D=300, H=1024, fp32, ragged lengths
-    1..48, both directions; with `timed`, then the times and the bound."""
-    log(f"GRU adjoint kernel vs plain (B={b}, L={l}, D={d}, H={h}, fp32, ragged 1..{l})")
+    1..48, both directions, two calls bit-identical; then the adjoint alone
+    at each (B, L, H) of `shapes`; with `timed`, then the times, cuDNN's and
+    the bound."""
+    log(f"GRU adjoint kernel vs plain (B={b}, L={l}, D={d}, H={h}, fp32, ragged 1..{l}; "
+        f"{gru_route(b, h, torch.float32, backward=True)})")
     x, mask, w_ih, w_hh, b_ih, b_hh = _gru_inputs(g, b, l, d, h)
     g_out = torch.randn(b, l, h, generator=g).to(DEV)
     g_fin = torch.randn(b, h, generator=g).to(DEV)
@@ -638,10 +757,14 @@ def phase_gru_bwd(g, b=128, l=48, d=300, h=1024, timed: bool = True) -> dict:
             res["rel_err"][f"{tag} {name}"] = err
             if name == "ggx" and not reverse:
                 res["max_abs_err"] = float((a - w).abs().max())
+        check_bit_identical(f"gru_bwd {tag}", kb, gru_bwd_fused(
+            gates_x, mask, hall, ghall, g_out, g_fin, w_hh, reverse))
         # both cotangents absent: zero gradients
         z = gru_bwd_fused(gates_x, mask, hall, ghall, None, None, w_hh, reverse)
         if any(float(t.abs().max()) != 0.0 for t in z):
             raise AssertionError("gru_bwd with no cotangent gave non-zero gradients")
+    g_shapes = torch.Generator().manual_seed(3)
+    res["shapes"] = [gru_bwd_shape(g_shapes, *shape) for shape in shapes]
     if not timed:
         return res
 
@@ -671,22 +794,54 @@ def phase_gru_bwd(g, b=128, l=48, d=300, h=1024, timed: bool = True) -> dict:
     res["library_ms"] = cuda_ms(lib_fwd_bwd, reps=10)
     res["library_call"] = ("torch.nn.GRU (cuDNN) forward + backward under autograd, "
                            "beside the kernels' forward + backward (fwd_bwd_ms)")
-    n_valid = float(mask.sum())
-    # the adjoint alone: gates_x, mask, the residuals, both cotangents and W_hh
-    # read once, the gate gradients and the initial state's written once;
-    # (B, 3H) x (3H, H) by fp32 FMAs per valid step
-    res.update(bound(
-        nbytes(gates_x, mask, hall, ghall, g_out, g_fin, w_hh) + 4 * (
-            gates_x.numel() + hall.numel() + b * h),
-        {"fp32": 2 * n_valid * 3 * h * h}))
+    res.update(gru_bwd_bound(gates_x, mask, hall, ghall, g_out, g_fin, w_hh))
+    res["us_a_step"] = res["ms"] / l * 1e3
+    then = (f" (per-step kernels {GRU_PER_STEP_BWD_MS[0]})",
+            f" (per-step kernels {GRU_PER_STEP_BWD_MS[1]})") if (b, l, h) == (
+        128, 48, 1024) else ("", "")
     log(f"  time (one direction, B={b}, L={l}, H={h}, fp32): adjoint kernel "
-        f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms; forward kernel with "
+        f"{res['ms']:.3f} ms{then[0]} = {res['us_a_step']:.2f} us a step, plain "
+        f"{res['plain_ms']:.3f} ms; forward kernel with "
         f"residuals {res['fwd_residuals_ms']:.3f} ms, without {res['fwd_ms']:.3f} ms, "
         f"plain {res['fwd_plain_ms']:.3f} ms; forward+backward through autograd "
-        f"(input projection included): kernels {res['fwd_bwd_ms']:.3f} ms, plain "
+        f"(input projection included): kernels {res['fwd_bwd_ms']:.3f} ms{then[1]}, plain "
         f"{res['fwd_bwd_plain_ms']:.3f} ms, cuDNN {res['library_ms']:.3f} ms; adjoint "
         f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
     return res
+
+
+def check_bit_identical(tag: str, first, second) -> None:
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{tag}: two calls on the same inputs differ")
+    log(f"  {tag}: two calls bit-identical")
+
+
+def gru_bwd_shape(g, b: int, l: int, h: int) -> dict:
+    """The adjoint alone at (B, L, H), both directions, against
+    gru_bwd_plain on the forward kernel's residuals (GRU_BWD_REL), two calls
+    bit-identical; timed in the reverse direction beside its bound."""
+    x, mask, w_ih, w_hh, b_ih, b_hh = _gru_inputs(g, b, l, 300, h)
+    g_out = torch.randn(b, l, h, generator=g).to(DEV)
+    g_fin = torch.randn(b, h, generator=g).to(DEV)
+    gates_x = (x @ w_ih.t() + b_ih).contiguous()
+    route = gru_route(b, h, torch.float32, backward=True)
+    errs = []
+    for reverse in (False, True):
+        tag = f"gru_bwd B={b} L={l} H={h} {'reverse' if reverse else 'forward'}"
+        _, _, hall, ghall = kgru._launch(gates_x, mask, w_hh, b_hh, reverse, residuals=True)
+        kb = gru_bwd_fused(gates_x, mask, hall, ghall, g_out, g_fin, w_hh, reverse)
+        pb = gru_bwd_plain(gates_x, mask, hall, ghall, g_out, g_fin, w_hh, reverse)
+        errs += [check_rel(f"{tag} {name}", a, w, GRU_BWD_REL)
+                 for name, a, w in zip(("ggx", "ghn", "g_h0"), kb, pb)]
+        check_bit_identical(tag, kb, gru_bwd_fused(gates_x, mask, hall, ghall, g_out, g_fin,
+                                                   w_hh, reverse))
+    ms = cuda_ms(lambda: gru_bwd_fused(gates_x, mask, hall, ghall, g_out, g_fin, w_hh, True))
+    bd = gru_bwd_bound(gates_x, mask, hall, ghall, g_out, g_fin, w_hh)
+    log(f"  gru_bwd B={b} L={l} H={h}: {route}; {ms:.3f} ms = {ms / l * 1e3:.2f} us a step; "
+        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    return {"b": b, "l": l, "h": h, "route": route, "max_rel_err": max(errs), "ms": ms,
+            "us_a_step": ms / l * 1e3, **bd}
 
 
 def _xattn_inputs(g, ni, nc, l, d=1024, single_word=True):
@@ -1421,6 +1576,72 @@ def camera_witness(model, dataset, cfg, enc, sims, launches) -> tuple:
     return out, problems
 
 
+@contextlib.contextmanager
+def _gru_plain_route():
+    """MaskedGRU with the kernel's wrapper swapped for the plain recurrence
+    in the kernel's arithmetic (gru_scan with the carry rounded to bf16
+    before the product, as the bf16 kernel rounds it): the same encode's
+    plain GRU on the card."""
+    saved = kgru.gru_scan_fused
+    kgru.gru_scan_fused = functools.partial(gru_scan, dot_dtype=torch.bfloat16)
+    try:
+        yield
+    finally:
+        kgru.gru_scan_fused = saved
+
+
+def _vsrn_text_memory(model) -> None:
+    """VSRN's text GRU made a slow integrator: the reference pads every
+    caption to max_len + 1 slots and runs its text GRU over the pads
+    (itrx_torch/data/precomp.py's parity quirk), and with random weights
+    the ~45 pad steps after a caption wash its words out, so every caption
+    embeds alike and one image ranks first for all of them.  So the pad
+    token's embedding row and the candidate's two biases are zeroed (a pad
+    step then only scales the carry) and the update gate's input bias is
+    raised by 5 (the carry changes slowly): each caption's words set its
+    embedding, and the witness can tell a right grid from a degenerate one
+    (the slice prints its distinct top-1 images)."""
+    rnn, h = model.txt_enc.rnn, model.txt_enc.rnn.hidden_size
+    with torch.no_grad():
+        model.txt_enc.embed.weight[0] = 0.0
+        rnn.bias_ih_l0[h:2 * h] += 5.0
+        rnn.bias_ih_l0[2 * h:] = 0.0
+        rnn.bias_hh_l0[2 * h:] = 0.0
+
+
+def vsrn_witness(model, dataset, cfg, enc, sims, launches) -> tuple:
+    """VSRN's witness (its GRUs run inside encode, bf16, H 2048): the main
+    path's bf16 grid against the grid of the same bf16 encode with the GRU
+    swapped for its plain pair on the card (_gru_plain_route), top-1
+    agreement >= TOP1_MIN with >= 2 distinct top-1 images; the largest
+    embedding and grid differences are reported.  Returns (the fields it
+    measured, the failed checks)."""
+    problems = []
+    if tuple(enc["img"].shape) != (len(dataset), cfg["embed_size"]):
+        problems.append(f"unexpected image embeddings {tuple(enc['img'].shape)}")
+    with _gru_plain_route():
+        t0 = time.perf_counter()
+        plain = encode(model, dataset, cfg)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    emb_err = {k: float((enc[k].float() - plain[k].float()).abs().max()) for k in ("img", "cap")}
+    err, agree, distinct = _top1(sims, grid_of(model, plain, dataset.im_div))
+    out = {
+        "plain_gru_encode_seconds": plain_s,
+        "embedding_max_abs_diff_kernel_vs_plain_gru": emb_err,
+        "grid_max_abs_diff_kernel_vs_plain_gru": err,
+        "top1_agreement_kernel_vs_plain_gru": agree,
+        "distinct_top1_images": distinct,
+    }
+    if distinct < 2:
+        problems.append("every caption ranks the same image first: the witness cannot tell a "
+                        "right grid from a degenerate one")
+    if not agree >= TOP1_MIN:
+        problems.append(f"the bf16 grid through the GRU kernel agrees with the plain GRU's on "
+                        f"only {agree:.4f} of top-1 images (< {TOP1_MIN})")
+    return out, problems
+
+
 # the eval slices: (method overlay, the kernels its evaluate_split must
 # launch, config overrides ({data_root} is the split's root), witness)
 SLICES = {
@@ -1442,10 +1663,19 @@ SLICES = {
     # max_words 32, BERT-base) with the split's tiny BERT vocabulary; no GRU
     # and no grid kernel: its one kernel runs inside encode
     "camera": ("CAMERA", ("agsa_attn",), ("bert_path={data_root}",), camera_witness),
+    # the VSRN() overlay (embed 2048, RsGCN, text and region GRUs at H 2048,
+    # cosine grid through the engine's 2-D tiles): the GRU kernel in bf16 at
+    # H 2048 and TorchBatchNorm on bf16, no grid kernel
+    "vsrn": ("VSRN", ("gru",), (), vsrn_witness),
 }
+# a slice's random weights prepared before its main path (see each function)
+SLICE_PREPARE = {"vsrn": _vsrn_text_memory}
 
 
 def slice_detail(cfg: dict, model) -> str:
+    if cfg["name"] == "VSRN":
+        return (f"text and region GRUs H {model.txt_enc.rnn.hidden_size}, "
+                f"{cfg['measure']} grid")
     if cfg["name"] == "CAMERA":
         bert = model.txt_enc.bert.config
         return (f"max_words {cfg['max_words']}, head {cfg['head']}, smry_k {cfg['smry_k']}, "
@@ -1471,6 +1701,8 @@ def phase_slice(data_root: str, card: str, direction: str) -> tuple:
     dataset, vocab_size = get_test_loader("test", cfg)
     cfg["vocab_size"] = vocab_size
     model = seeded_model(cfg, cfg["seed"])
+    if direction in SLICE_PREPARE:
+        SLICE_PREPARE[direction](model)
     log(f"  data + model set-up: {time.perf_counter() - t0:.1f} s "
         f"({len(dataset)} captions, vocab {vocab_size}, embed {cfg['embed_size']}, "
         f"{slice_detail(cfg, model)})")
@@ -2479,7 +2711,8 @@ def main():
     card = phase_device()
     phase_build()
     g = torch.Generator().manual_seed(0)
-    results = {"gru": phase_gru(g), "gru_bwd": phase_gru_bwd(g), "xattn": phase_xattn(g),
+    results = {"gru": phase_gru(g), "gru_bwd": phase_gru_bwd(g, shapes=GRU_BWD_SHAPES),
+               "xattn": phase_xattn(g),
                "xattn_i2t": phase_xattn_i2t(g), "sgraf_eval_saf": phase_sgraf_eval_saf(g),
                "sgraf_eval_sgr": phase_sgraf_eval_sgr(g), "sgraf_align": phase_sgraf_align(g)}
     results["sgraf_align_bwd"] = align_bwd_result(results["sgraf_align"])
@@ -2490,8 +2723,9 @@ def main():
     results["agsa_attn"] = phase_agsa(g)
     results["agsa_attn_bwd"] = agsa_bwd_result(results["agsa_attn"])
     # the GRU kernels at VSRN's text width (H 2048, 61 slots; the region GRU is
-    # the same recurrence over 36 steps)
-    phase_gru_bwd(g, b=128, l=61, d=300, h=2048, timed=False)
+    # the same recurrence over 36 steps): fp32, the streamed route, timed
+    # beside cuDNN
+    phase_gru_bwd(g, b=128, l=61, d=300, h=2048)
     with tempfile.TemporaryDirectory(prefix="itrx_smoke_") as data_root:
         # bench.py's split: 4000 // 4 = 1000 test images x 36 x 2048, 5000 captions
         generate(os.path.join(data_root, "f30k_precomp"), n_images=4000, img_dim=2048,
@@ -2502,6 +2736,7 @@ def main():
         saf, saf_sims = phase_slice(data_root, card, "saf")
         sgr, sgr_sims = phase_slice(data_root, card, "sgr")
         cam, _ = phase_slice(data_root, card, "camera")
+        phase_slice(data_root, card, "vsrn")
         phase_ensemble(data_root, data_root, card)
         phase_sgraf_ensemble(data_root, data_root, card, {"sgr": sgr_sims, "saf": saf_sims})
     with tempfile.TemporaryDirectory(prefix="itrx_smoke_fold5_") as root:

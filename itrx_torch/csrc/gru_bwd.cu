@@ -1,151 +1,222 @@
-// Masked GRU adjoint (backward of csrc/gru.cu), for sm_90a.
+// Masked GRU adjoint (backward of csrc/gru.cu), for sm_90a: one persistent
+// cooperative launch per call (per batch chunk of at most 128 rows).
 //
 // Replaces itrx/ops/pallas/gru.py::_bwd_kernel.  The TPU kernel walks the
-// sequence in the opposite order of the forward, one timestep per grid
-// step, with the whole (3H, H) recurrent weight resident in VMEM and the
-// carry gradient in a VMEM scratch.  Per step t it recomputes the gates
-// from the saved h_{t-1} (hall) and gh = h_{t-1} . W_hh^T + b_hh (ghall),
-// emits the gate gradients ggx[t] = [g_prer | g_prez | g_pren] and
-// ghn[t] = g_pren * r, and carries
+// sequence in the opposite order of the forward, one timestep per grid step,
+// with the whole (3H, H) recurrent weight resident in VMEM and the carry
+// gradient in a VMEM scratch.  Per step t it recomputes the gates from the
+// saved h_{t-1} (hall) and gh = h_{t-1} . W_hh^T + b_hh (ghall), emits the
+// gate gradients ggx[t] = [g_prer | g_prez | g_pren] and ghn[t] = g_pren * r,
+// and carries
 //     g_prev = (1 - m) g_carry + g_hnew z + [g_prer | g_prez | ghn] . W_hh.
 // dW_hh, db_hh and the input-side gradients are large matmuls outside the
 // kernel (itrx_torch/ops/kernels/gru.py).
 //
-// What bounds it here: as in the forward, the steps are sequential and each
-// carries a (B, 3H) x (3H, H) product whose weight (12 MB fp32 at H = 1024)
-// cannot sit in one SM's 227 KB of shared memory.  The product needs the
-// gate gradients of all 3H columns, i.e. of every block, so a step cannot
-// finish inside one block.  Design: one launch per step, split so that no
-// gate value has to cross blocks within a launch.  Each block owns 32
-// hidden units k and 32 batch rows.  Launch s
-//   1. reduces g_gh[t_{s-1}][b, :] . W_hh[:, k] over 3H (the gate gradients
-//      the previous launch wrote, read back from ggx / ghn; column reads of
-//      the row-major W_hh, coalesced across k; the weight stays in the
-//      50 MB L2 across launches), adds its local terms (gloc) and so holds
-//      the carry gradient g_carry[b, k] of step t_s;
-//   2. computes the gate gradients of step t_s for its own units k, which
-//      need only g_carry[b, k], hall[b, t_s, k], gh[b, t_s, {k, H+k, 2H+k}],
-//      gx[b, t_s, ...] and m[b, t_s], all local, and writes them and its new
-//      local terms gloc[b, k].
-// Launch 0 starts from g_final (or zero) and skips the product; launch L
-// only reduces and writes the carry gradient of the initial state (g_h0).
-// L + 1 launches in all.  The product is a shared-memory tiled FMA loop
-// with fp32 accumulation; everything is fp32 (bf16 W_hh is rejected by the
-// wrapper: bf16 training is not ported yet).
+// What bounds it here: L sequential steps, each a (B, 3H) x (3H, H) product
+// whose weight (12.6 MB fp32 at H 1024) one SM cannot hold, and whose
+// reduction over 3H needs the gate gradients of every hidden unit.  Design,
+// the forward's persistent shape (csrc/gru_persistent.cuh): one block per SM,
+// each owning `U` hidden units k and holding columns k of W_hh (rows k of
+// W_hh^T, which the wrapper passes: 3H x U fp32, 96 KB at H 1024 over 128
+// blocks) in shared memory for the whole sequence.  A step: the block
+// computes the gate gradients of its units from the residuals and its carry
+// gradient (which never leaves the block: it stays in registers), writes
+// them out, publishes g_gh = [g_prer | g_prez | ghn] (B x 3U) to a
+// double-buffered exchange, meets the other blocks at one grid barrier, then
+// reduces the full g_gh (B x 3H, read at L2: 1.57 MB a block a step at B 128,
+// H 1024) against its columns into its units' carry gradient.  The product
+// is register-tiled fp32 FMAs (no TF32) summed in a fixed order, and nothing
+// is summed with atomics, so two calls are bit-identical.  Column slices too large to stay resident (H > 1152 at 16
+// units: VSRN's H 2048) stream through the 4-stage cp.async ring each step.
+//
+// The weight type is a template parameter; only fp32 is instantiated (the
+// wrapper refuses bf16 W_hh: the bf16 adjoint lands with bf16 training).
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "gru_persistent.cuh"
+
 namespace {
 
-constexpr int kUnits = 32;    // hidden units per block (one per lane)
-constexpr int kRows = 32;     // batch rows per block
-constexpr int kK = 32;        // reduction chunk over the 3H gate columns
-constexpr int kThreads = 256; // 8 warps; warp w owns batch rows 4w .. 4w+3
-constexpr int kRowsPerThread = kRows / (kThreads / kUnits);
+using namespace gru;
 
-__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-// t_prev: the step whose gate gradients feed the product (-1: none, the
-// carry gradient starts from g_final).  t: the step whose gate gradients
-// this launch emits (-1: none, write the initial-state gradient g_h0).
-__global__ void __launch_bounds__(kThreads)
-gru_bwd_step_kernel(const float* __restrict__ gx,      // (B, L, 3H) input gates
-                    const float* __restrict__ mask,    // (B, L)
-                    const float* __restrict__ hall,    // (B, L, H) h_{t-1}
-                    const float* __restrict__ ghall,   // (B, L, 3H) gh
-                    const float* __restrict__ gout,    // (B, L, H) or nullptr (zero)
-                    const float* __restrict__ gfinal,  // (B, H) or nullptr (zero)
-                    const float* __restrict__ whh,     // (3H, H)
-                    float* __restrict__ ggx,           // (B, L, 3H)
-                    float* __restrict__ ghn,           // (B, L, H)
-                    float* __restrict__ gloc,          // (B, H) local carry terms
-                    float* __restrict__ gh0,           // (B, H) initial-state gradient
-                    int B, int L, int H, int t_prev, int t) {
-  __shared__ float gs[kRows][kK + 1];
-  __shared__ float ws[kK][kUnits + 1];
-
-  const int tid = threadIdx.x;
-  const int lane = tid % kUnits;
-  const int wy = tid / kUnits;
-  const int k0 = blockIdx.x * kUnits;
-  const int b0 = blockIdx.y * kRows;
+template <typename W, int U, bool STREAM>
+__global__ void __launch_bounds__(kThreads, 1)
+gru_bwd_kernel(const float* __restrict__ gx,      // (B, L, 3H) input gates
+               const float* __restrict__ mask,    // (B, L)
+               const float* __restrict__ hall,    // (B, L, H) h_{t-1}
+               const float* __restrict__ ghall,   // (B, L, 3H) gh
+               const float* __restrict__ gout,    // (B, L, H) or nullptr (zero)
+               const float* __restrict__ gfinal,  // (B, H) or nullptr (zero)
+               const W* __restrict__ wt,          // W_hh^T (H, ldw)
+               int ldw,
+               float* ebuf,                       // (2, B, round_up(3H, 64)) g_gh exchange
+               unsigned* bar,                     // grid barrier, zeroed
+               float* __restrict__ ggx,           // (B, L, 3H)
+               float* __restrict__ ghn,           // (B, L, H)
+               float* __restrict__ gh0,           // (B, H)
+               int B, int L, int H, int reverse) {
+  static_assert(std::is_same<W, float>::value, "the fp32 adjoint");
+  constexpr int R = 4;      // rows a lane: rowg + 4 i
+  constexpr int S = 2 * R;  // lanes that split K for one row group
+  constexpr int A = U / S;  // units a lane: S a + c
+  constexpr bool kPrefetch = U == 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ws = reinterpret_cast<float*>(smem_raw);
   const int H3 = 3 * H;
+  const int Kp = round_up(H3, kKAlign);
+  const int per_product = Kp / kKAlign;
+  const int ld = STREAM ? kKAlign + kPadF32 : Kp + kPadF32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = lane / S, c = lane % S;
+  const int rowg = 16 * warp + rg;
+  const bool live = 16 * warp < B;
+  const int j0 = blockIdx.x * U;
+  const int total = STREAM ? L * per_product : 0;
+  int chunk = 0;
 
-  float acc[kRowsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) acc[i] = 0.0f;
-
-  if (t_prev >= 0) {
-    for (int j0 = 0; j0 < H3; j0 += kK) {
-      for (int idx = tid; idx < kRows * kK; idx += kThreads) {
-        const int r = idx / kK, c = idx % kK;
-        const int b = b0 + r, j = j0 + c;
-        float v = 0.0f;
-        if (b < B && j < H3) {
-          const size_t bt = (size_t)b * L + t_prev;
-          v = j < 2 * H ? ggx[bt * H3 + j] : ghn[bt * H + (j - 2 * H)];
-        }
-        gs[r][c] = v;
-      }
-      for (int idx = tid; idx < kK * kUnits; idx += kThreads) {
-        const int r = idx / kUnits, c = idx % kUnits;
-        const int j = j0 + r, k = k0 + c;
-        ws[r][c] = (j < H3 && k < H) ? whh[(size_t)j * H + k] : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int c = 0; c < kK; ++c) {
-        const float w = ws[c][lane];
-#pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i) {
-          acc[i] = fmaf(gs[wy * kRowsPerThread + i][c], w, acc[i]);
-        }
-      }
-      __syncthreads();
+  if constexpr (STREAM) {
+    for (int i = 0; i < kStages - 1; ++i) {
+      ring_issue<U, U>(ws, i, total, per_product, wt, ldw, 0, j0, H, H3);
+    }
+  } else {
+    load_resident<float, U, U>(ws, ld, wt, ldw, 0, j0, H, H3, Kp);
+  }
+  if (blockIdx.x == 0 && Kp > H3) {  // the exchange's pad columns stay zero
+    const int pad = Kp - H3;
+    for (int idx = threadIdx.x; idx < 2 * B * pad; idx += kThreads) {
+      const int row = idx / pad;
+      ebuf[(size_t)row * Kp + H3 + (idx - row * pad)] = 0.0f;
     }
   }
 
-  const int k = k0 + lane;
-  if (k >= H) return;
+  // the thread's pairs: rows rowg + 4 r, units S a + c (reduce_lanes' map)
+  int unit[A];
+  float gc[A][R];  // carry gradient
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int b = b0 + wy * kRowsPerThread + i;
-    if (b >= B) continue;
-    const size_t bk = (size_t)b * H + k;
-    float g_carry;
-    if (t_prev >= 0) {
-      g_carry = gloc[bk] + acc[i];
-    } else {
-      g_carry = gfinal != nullptr ? gfinal[bk] : 0.0f;
+  for (int a = 0; a < A; ++a) {
+    unit[a] = S * a + c;
+    const int k = j0 + unit[a];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = rowg + 4 * r;
+      gc[a][r] = (gfinal != nullptr && row < B && k < H) ? gfinal[(size_t)row * H + k] : 0.0f;
     }
-    if (t < 0) {
-      gh0[bk] = g_carry;
-      continue;
-    }
-    const size_t bt = (size_t)b * L + t;
-    const float* g = gx + bt * H3;
-    const float* gh = ghall + bt * H3;
-    const float hr = gh[k], hz = gh[H + k], hn = gh[2 * H + k];
-    const float r = sigmoid(g[k] + hr);
-    const float z = sigmoid(g[H + k] + hz);
-    const float n = tanhf(g[2 * H + k] + r * hn);
-    const float h = hall[bt * H + k];
-    const float m = mask[bt];
-    const float go = gout != nullptr ? gout[bt * H + k] : 0.0f;
-
-    const float g_hnew = m * (g_carry + go);
-    const float g_n = g_hnew * (1.0f - z);
-    const float g_z = g_hnew * (h - n);
-    const float g_pren = g_n * (1.0f - n * n);
-    const float g_hn = g_pren * r;
-    const float g_prer = g_pren * hn * r * (1.0f - r);
-    const float g_prez = g_z * z * (1.0f - z);
-    ggx[bt * H3 + k] = g_prer;
-    ggx[bt * H3 + H + k] = g_prez;
-    ggx[bt * H3 + 2 * H + k] = g_pren;
-    ghn[bt * H + k] = g_hn;
-    gloc[bk] = (1.0f - m) * g_carry + g_hnew * z;
   }
+
+  // a step's residuals for the thread's pairs, loaded a step ahead
+  struct Step {
+    float x[3][U / 8][4], hh[3][U / 8][4], hp[U / 8][4], go[U / 8][4], m[4];
+  };
+  auto load_step = [&](int t, Step& v) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = rowg + 4 * r;
+      const size_t bt = (size_t)row * L + t;
+      v.m[r] = row < B ? mask[bt] : 0.0f;
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        const int k = j0 + unit[a];
+        const bool ok = row < B && k < H;
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          v.x[q][a][r] = ok ? gx[bt * H3 + q * H + k] : 0.0f;
+          v.hh[q][a][r] = ok ? ghall[bt * H3 + q * H + k] : 0.0f;
+        }
+        v.hp[a][r] = ok ? hall[bt * H + k] : 0.0f;
+        v.go[a][r] = (ok && gout != nullptr) ? gout[bt * H + k] : 0.0f;
+      }
+    }
+  };
+
+  Step cur, nxt;
+  load_step(reverse ? 0 : L - 1, cur);
+
+  for (int s = 0; s < L; ++s) {
+    const int t = reverse ? s : L - 1 - s;
+    float* E = ebuf + (size_t)(s & 1) * B * Kp;
+    float loc[A][R];  // (1 - m) g_carry + g_hnew z, the carry gradient's local terms
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      const int k = j0 + unit[a];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int row = rowg + 4 * r;
+        loc[a][r] = 0.0f;
+        if (row >= B || k >= H) continue;
+        const float hr = cur.hh[0][a][r], hz = cur.hh[1][a][r], hn = cur.hh[2][a][r];
+        const float gate_r = sigmoidf_(cur.x[0][a][r] + hr);
+        const float gate_z = sigmoidf_(cur.x[1][a][r] + hz);
+        const float gate_n = tanhf(cur.x[2][a][r] + gate_r * hn);
+        const float m = cur.m[r];
+        const float g_hnew = m * (gc[a][r] + cur.go[a][r]);
+        const float g_n = g_hnew * (1.0f - gate_z);
+        const float g_z = g_hnew * (cur.hp[a][r] - gate_n);
+        const float g_pren = g_n * (1.0f - gate_n * gate_n);
+        const float g_hn = g_pren * gate_r;
+        const float g_prer = g_pren * hn * gate_r * (1.0f - gate_r);
+        const float g_prez = g_z * gate_z * (1.0f - gate_z);
+        const size_t bt = (size_t)row * L + t;
+        ggx[bt * H3 + k] = g_prer;
+        ggx[bt * H3 + H + k] = g_prez;
+        ggx[bt * H3 + 2 * H + k] = g_pren;
+        ghn[bt * H + k] = g_hn;
+        float* e = E + (size_t)row * Kp;
+        e[k] = g_prer;
+        e[H + k] = g_prez;
+        e[2 * H + k] = g_hn;
+        loc[a][r] = (1.0f - m) * gc[a][r] + g_hnew * gate_z;
+      }
+    }
+    // the next step's residuals load during the barrier and the product,
+    // where the registers allow (at 16 units the product's own need them)
+    if (kPrefetch && s + 1 < L) load_step(reverse ? s + 1 : L - 2 - s, nxt);
+    grid_sync(bar);
+
+    // g_gh . W_hh[:, units] for the warp's rows
+    float res[R][1][A];
+    product_f32<R, 1, U, STREAM>(res, E, Kp, rowg, B, live, ws, ld, Kp, c, chunk, total,
+                                         wt, ldw, 0, j0, H, H3);
+#pragma unroll
+    for (int a = 0; a < A; ++a)
+#pragma unroll
+      for (int r = 0; r < R; ++r) gc[a][r] = live ? loc[a][r] + res[r][0][a] : 0.0f;
+    if (s + 1 < L) {
+      if (kPrefetch) {
+        cur = nxt;
+      } else {
+        load_step(reverse ? s + 1 : L - 2 - s, cur);
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    const int k = j0 + unit[a];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = rowg + 4 * r;
+      if (row < B && k < H) gh0[(size_t)row * H + k] = gc[a][r];
+    }
+  }
+}
+
+// dynamic shared memory of a (H, U, route); the wrapper's plan computes the
+// same (itrx_torch/ops/kernels/gru.py::plan)
+int bwd_smem(int H, int U, bool streamed) {
+  if (streamed) return kStages * U * (kKAlign + kPadF32) * 4;
+  return U * (round_up(3 * H, kKAlign) + kPadF32) * 4;
+}
+
+template <int U, bool S>
+cudaError_t launch(void** args, int blocks, int smem, cudaStream_t stream) {
+  auto* kernel = gru_bwd_kernel<float, U, S>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args, (size_t)smem,
+                                     stream);
 }
 
 }  // namespace
@@ -153,32 +224,51 @@ gru_bwd_step_kernel(const float* __restrict__ gx,      // (B, L, 3H) input gates
 extern "C" {
 
 // gx, ghall (B, L, 3H); mask (B, L); hall (B, L, H); gout (B, L, H) or
-// nullptr; gfinal (B, H) or nullptr; whh (3H, H); all fp32.  Writes ggx
-// (B, L, 3H), ghn (B, L, H) and gh0 (B, H); gloc (B, H) is scratch.  The
-// steps run in the opposite order of the forward (`reverse` is the
-// forward's direction).  L + 1 launches on `stream` of CUDA device
-// `device`.  Returns cudaGetLastError().
+// nullptr; gfinal (B, H) or nullptr; wt = W_hh^T (H, ldw), ldw >= 3H, ldw % 4
+// == 0, zero past 3H; all fp32.  ebuf the g_gh exchange, 2 x B x
+// round_up(3H, 64) floats; bar two zeroed-here words.  Writes ggx (B, L, 3H),
+// ghn (B, L, H) and gh0 (B, H).  B <= 128.  The steps run in the opposite
+// order of the forward (`reverse` is the forward's direction).  One
+// cooperative launch of `blocks` blocks of `units` hidden units, `streamed`
+// route, `smem` bytes of dynamic shared memory, on `stream` of CUDA device
+// `device`.  Returns a cudaError_t (cudaErrorInvalidValue for a plan the
+// kernel cannot take, cudaErrorCooperativeLaunchTooLarge for a grid that
+// cannot be co-resident).
 int itrx_gru_bwd(const void* gx, const void* mask, const void* hall, const void* ghall,
-                 const void* gout, const void* gfinal, const void* whh, void* ggx,
-                 void* ghn, void* gloc, void* gh0, int B, int L, int H, int reverse,
-                 int device, void* stream) {
-  const cudaError_t err = cudaSetDevice(device);
+                 const void* gout, const void* gfinal, const void* wt, int ldw, void* ebuf,
+                 void* bar, void* ggx, void* ghn, void* gh0, int B, int L, int H, int units,
+                 int blocks, int streamed, int smem, int reverse, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((H + kUnits - 1) / kUnits, (B + kRows - 1) / kRows);
-  int t_prev = -1;
-  for (int step = 0; step <= L; ++step) {
-    const int t = step == L ? -1 : (reverse ? step : L - 1 - step);
-    gru_bwd_step_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(gx), static_cast<const float*>(mask),
-        static_cast<const float*>(hall), static_cast<const float*>(ghall),
-        static_cast<const float*>(gout), static_cast<const float*>(gfinal),
-        static_cast<const float*>(whh), static_cast<float*>(ggx), static_cast<float*>(ghn),
-        static_cast<float*>(gloc), static_cast<float*>(gh0), B, L, H, t_prev, t);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    t_prev = t;
+  if (B < 1 || B > kRows || L < 1 || H < 1 || blocks < 1 || (long long)blocks * units < H ||
+      (units != 8 && units != 16) || (streamed && units != 16) || ldw < 3 * H || ldw % 4 ||
+      smem < bwd_smem(H, units, streamed)) {
+    return (int)cudaErrorInvalidValue;
   }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned), s);
+  if (err != cudaSuccess) return (int)err;
+  const float* p_gx = static_cast<const float*>(gx);
+  const float* p_mask = static_cast<const float*>(mask);
+  const float* p_hall = static_cast<const float*>(hall);
+  const float* p_ghall = static_cast<const float*>(ghall);
+  const float* p_gout = static_cast<const float*>(gout);
+  const float* p_gfinal = static_cast<const float*>(gfinal);
+  const float* p_wt = static_cast<const float*>(wt);
+  float* p_e = static_cast<float*>(ebuf);
+  unsigned* p_bar = static_cast<unsigned*>(bar);
+  float* p_ggx = static_cast<float*>(ggx);
+  float* p_ghn = static_cast<float*>(ghn);
+  float* p_gh0 = static_cast<float*>(gh0);
+  void* args[] = {&p_gx, &p_mask, &p_hall, &p_ghall, &p_gout, &p_gfinal, &p_wt, &ldw, &p_e,
+                  &p_bar, &p_ggx, &p_ghn, &p_gh0, &B, &L, &H, &reverse};
+  if (streamed) {
+    err = launch<16, true>(args, blocks, smem, s);
+  } else {
+    err = units == 8 ? launch<8, false>(args, blocks, smem, s)
+                     : launch<16, false>(args, blocks, smem, s);
+  }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

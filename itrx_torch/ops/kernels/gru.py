@@ -4,12 +4,19 @@ csrc/gru.cu and csrc/gru_bwd.cu.
 Replaces the TPU kernels itrx/ops/pallas/gru.py::_fwd_kernel and
 ::_bwd_kernel (entry `gru_scan_fused`, custom VJP `_gru_seq`).  What bounds
 them on an H100: L sequential steps, each a (B, H) x (H, 3H) product (the
-backward: (B, 3H) x (3H, H)) whose (3H, H) weight (12 MB fp32 / 6 MB bf16
-at H = 1024) cannot sit in one SM's shared memory as it sat in the TPU's
-VMEM.  Both kernels therefore launch once per step, split the hidden units
-over blocks (so the gate math needs no exchange between blocks inside a
-launch) and leave the weight to the 50 MB L2 between launches.  See the
-headers of the two sources.
+adjoint: (B, 3H) x (3H, H)) whose (3H, H) weight (12.6 MB fp32 / 6.3 MB
+bf16 at H 1024) one SM's shared memory cannot hold, though the TPU kept it
+in VMEM for all L steps.  Design: one persistent cooperative launch per call
+(per `ROWS`-row batch chunk), one block per SM, each block holding its
+hidden units' slice of W_hh in shared memory for the whole sequence (the
+card's 132 SMs hold ~30 MB together) and meeting the others at one grid
+barrier a step; the carry (forward) or the gate gradients (adjoint) cross
+blocks through a double-buffered exchange in global memory, read at L2,
+which with the barrier sets the pace.  `plan` chooses the units a block,
+the blocks, the resident or streamed route (an fp32 slice too large for
+shared memory streams through a cp.async ring each step), the batch chunks
+and the shared-memory bytes; it is pure Python, so the CPU tests hold it.
+See the headers of the two sources and of csrc/gru_persistent.cuh.
 
 `gru_scan_fused` is differentiable: with grad enabled it runs `_GRUSeq`, a
 torch.autograd.Function whose forward also writes the residuals (h_{t-1}
@@ -24,47 +31,144 @@ tensors, inside the same Function.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from ..rnn import gru_bwd_plain, gru_fwd_plain
 from . import check, current_stream, load, ptr
 
 SOURCE = "gru.cu"
 BWD_SOURCE = "gru_bwd.cu"
+# the kernels' constants (csrc/gru_persistent.cuh)
+ROWS = 128  # batch rows a launch: 8 warps of 16
+K_ALIGN = 64  # the product's K is padded to this
+STAGES = 4  # ring depth of the streamed route
+PAD_F32, PAD_BF16 = 4, 32  # shared-memory row pads, elements
+UNITS = (8, 16)  # hidden units a block (compiled variants)
+MAX_SMEM = 232_448  # dynamic shared memory one block may take on an H100
+H100_SMS = 132
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one call runs: `blocks` blocks of `units` hidden units (block i
+    owns units [i units, (i + 1) units) of H), the `route` of the weight
+    slice ("resident" in shared memory for the whole sequence, or
+    "streamed" through a ring each step), `smem` bytes of dynamic shared
+    memory a block, one launch per batch chunk [b0, b1) of `chunks`, and
+    `k_padded`, the row length (elements) of the exchange."""
+
+    units: int
+    blocks: int
+    route: str
+    smem: int
+    chunks: tuple
+    k_padded: int
+
+
+def plan(batch: int, hidden: int, dtype: torch.dtype, *, backward: bool = False,
+         sms: int = H100_SMS) -> Plan:
+    """The launch plan of the forward (W_hh in `dtype`, fp32 or bf16) or the
+    adjoint (fp32 only) over `batch` rows at hidden width `hidden` on a card
+    of `sms` SMs.  Raises ValueError for a request no variant takes."""
+    if batch < 1 or hidden < 1:
+        raise ValueError(f"GRU plan: empty batch {batch} or width {hidden}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"GRU plan: W_hh dtype {dtype} unsupported")
+    if backward and dtype != torch.float32:
+        raise ValueError("GRU plan: the adjoint takes fp32 W_hh only (bf16 training is "
+                         "ROADMAP queue 1 item 7, train_bf16)")
+    units = next((u for u in UNITS if hidden <= u * sms), None)
+    if units is None:
+        raise ValueError(f"GRU plan: H {hidden} needs more than {UNITS[-1]} units on each of "
+                         f"{sms} SMs")
+    kp = _round_up(3 * hidden if backward else hidden, K_ALIGN)
+    rows = units if backward else 3 * units  # weight rows a block holds
+    if dtype == torch.bfloat16:
+        resident = rows * (kp + PAD_BF16) * 2
+    else:
+        resident = rows * (kp + PAD_F32) * 4
+    if resident <= MAX_SMEM:
+        route, smem = "resident", resident
+    elif dtype == torch.float32 and units == UNITS[-1]:
+        route, smem = "streamed", STAGES * rows * (K_ALIGN + PAD_F32) * 4
+    else:  # not reached on an H100; the kernels compile no such variant
+        raise ValueError(f"GRU plan: H {hidden} {dtype} fits no compiled variant")
+    chunks = tuple((b0, min(b0 + ROWS, batch)) for b0 in range(0, batch, ROWS))
+    return Plan(units, -(-hidden // units), route, smem, chunks, kp)
+
+
+@functools.cache
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _aligned_rows(w: torch.Tensor) -> torch.Tensor:
+    """w with its rows padded with zeros to a multiple of 4 elements (16
+    bytes in fp32), the streamed ring's cp.async granule."""
+    pad = -w.shape[1] % 4
+    return F.pad(w, (0, pad)) if pad else w
 
 
 def _opt_ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(None) if t is None else ptr(t)
 
 
-def _launch(gates_x, m, w_hh, b_hh, reverse: bool, residuals: bool):
+@functools.cache
+def _entry(name: str):
+    """The C entry of csrc/<name>.cu with its argument types: itrx_gru_fwd
+    (3 pointers, 2 ints, 7 pointers, 9 ints, the stream) or itrx_gru_bwd (7
+    pointers, an int, 5 pointers, 9 ints, the stream)."""
+    lib = load(name)
+    V, I = ctypes.c_void_p, ctypes.c_int
+    if name == "gru":
+        fn, types = lib.itrx_gru_fwd, [V] * 3 + [I] * 2 + [V] * 7 + [I] * 9 + [V]
+    else:
+        fn, types = lib.itrx_gru_bwd, [V] * 7 + [I] + [V] * 5 + [I] * 9 + [V]
+    fn.argtypes, fn.restype = types, I
+    return lib, fn
+
+
+def _launch(gates_x, m, w_hh, b_hh, reverse: bool, residuals: bool, the_plan: Plan = None):
     """gates_x (B, L, 3H) fp32; m (B, L) fp32; w_hh (3H, H) fp32 or bf16;
     b_hh (3H) fp32, all contiguous on one CUDA device.  Returns
     (outs (B, L, H), final (B, H), hall (B, L, H), ghall (B, L, 3H)), fp32;
-    hall and ghall are None unless `residuals`."""
+    hall and ghall are None unless `residuals`.  One launch per batch chunk
+    of `the_plan` (default: `plan` for this card)."""
     B, L, H3 = gates_x.shape
     H = H3 // 3
-    lib = load("gru")
-    fn = lib.itrx_gru_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 5 \
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     dev = gates_x.device
+    p = the_plan or plan(B, H, w_hh.dtype, sms=_sms(dev))
+    lib, fn = _entry("gru")
     outs = torch.empty(B, L, H, dtype=torch.float32, device=dev)
-    hbuf = torch.empty(2, B, H, dtype=torch.float32, device=dev)
+    final = torch.empty(B, H, dtype=torch.float32, device=dev)
     hall = ghall = None
     if residuals:
         hall = torch.empty(B, L, H, dtype=torch.float32, device=dev)
         ghall = torch.empty(B, L, H3, dtype=torch.float32, device=dev)
-    code = fn(
-        ptr(gates_x), ptr(m), ptr(w_hh), int(w_hh.dtype == torch.bfloat16),
-        ptr(b_hh), ptr(hbuf), ptr(outs), _opt_ptr(hall), _opt_ptr(ghall),
-        B, L, H, int(reverse), dev.index, current_stream(dev),
-    )
-    check(lib, "gru_step_kernel", code)
-    gru_scan_fused.launches += L
-    return outs, hbuf[(L - 1) % 2], hall, ghall
+    w = _aligned_rows(w_hh) if p.route == "streamed" else w_hh
+    xbuf = torch.empty(2, min(B, ROWS), p.k_padded, dtype=w_hh.dtype, device=dev)
+    bar = torch.empty(2, dtype=torch.int32, device=dev)
+    for b0, b1 in p.chunks:
+        code = fn(
+            ptr(gates_x[b0:b1]), ptr(m[b0:b1]), ptr(w), w.shape[1],
+            int(w_hh.dtype == torch.bfloat16), ptr(b_hh), ptr(xbuf), ptr(bar),
+            ptr(outs[b0:b1]), ptr(final[b0:b1]),
+            _opt_ptr(None if hall is None else hall[b0:b1]),
+            _opt_ptr(None if ghall is None else ghall[b0:b1]),
+            b1 - b0, L, H, p.units, p.blocks, int(p.route == "streamed"), p.smem,
+            int(reverse), dev.index, current_stream(dev),
+        )
+        check(lib, "gru_fwd_kernel", code)
+        gru_scan_fused.launches += 1
+    return outs, final, hall, ghall
 
 
 def gru_bwd_fused(gates_x, mask, hall, ghall, g_outs, g_final, w_hh,
@@ -73,7 +177,7 @@ def gru_bwd_fused(gates_x, mask, hall, ghall, g_outs, g_final, w_hh,
     ghn (B, L, H), g_h0 (B, H)), as `itrx_torch.ops.rnn.gru_bwd_plain`
     returns them.  g_outs / g_final may be None (zero).  A CPU tensor takes
     `gru_bwd_plain`; a CUDA tensor launches the kernel (all fp32, contiguous;
-    L + 1 launches); any other device raises."""
+    one launch per batch chunk of `plan`); any other device raises."""
     if gates_x.device.type == "cpu":
         return gru_bwd_plain(gates_x, mask, hall, ghall, g_outs, g_final, w_hh,
                              reverse=reverse)
@@ -100,22 +204,29 @@ def gru_bwd_fused(gates_x, mask, hall, ghall, g_outs, g_final, w_hh,
                              f"{gates_x.device}")
     if gates_x.dtype != torch.float32 or not gates_x.is_contiguous():
         raise ValueError("gru_bwd_fused: gates_x must be contiguous fp32")
-    lib = load("gru_bwd")
-    fn = lib.itrx_gru_bwd
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     dev = gates_x.device
+    p = plan(B, H, torch.float32, backward=True, sms=_sms(dev))
+    lib, fn = _entry("gru_bwd")
+    wt = _aligned_rows(w_hh.t().contiguous())  # columns of W_hh as rows
     ggx = torch.empty(B, L, H3, dtype=torch.float32, device=dev)
     ghn = torch.empty(B, L, H, dtype=torch.float32, device=dev)
-    gloc = torch.empty(B, H, dtype=torch.float32, device=dev)
     g_h0 = torch.empty(B, H, dtype=torch.float32, device=dev)
-    code = fn(
-        ptr(gates_x), ptr(mask), ptr(hall), ptr(ghall), _opt_ptr(g_outs),
-        _opt_ptr(g_final), ptr(w_hh), ptr(ggx), ptr(ghn), ptr(gloc), ptr(g_h0),
-        B, L, H, int(reverse), dev.index, current_stream(dev),
-    )
-    check(lib, "gru_bwd_step_kernel", code)
-    gru_bwd_fused.launches += L + 1
+    ebuf = torch.empty(2, min(B, ROWS), p.k_padded, dtype=torch.float32, device=dev)
+    bar = torch.empty(2, dtype=torch.int32, device=dev)
+
+    def rows(t, b0, b1):
+        return _opt_ptr(None if t is None else t[b0:b1])
+
+    for b0, b1 in p.chunks:
+        code = fn(
+            ptr(gates_x[b0:b1]), ptr(mask[b0:b1]), ptr(hall[b0:b1]), ptr(ghall[b0:b1]),
+            rows(g_outs, b0, b1), rows(g_final, b0, b1), ptr(wt), wt.shape[1], ptr(ebuf),
+            ptr(bar), ptr(ggx[b0:b1]), ptr(ghn[b0:b1]), ptr(g_h0[b0:b1]),
+            b1 - b0, L, H, p.units, p.blocks, int(p.route == "streamed"), p.smem,
+            int(reverse), dev.index, current_stream(dev),
+        )
+        check(lib, "gru_bwd_kernel", code)
+        gru_bwd_fused.launches += 1
     return ggx, ghn, g_h0
 
 
@@ -195,7 +306,8 @@ def gru_scan_fused(x, mask, w_ih, w_hh, b_ih, b_hh, reverse: bool = False):
     return outs.to(x.dtype), final.to(x.dtype)
 
 
-# kernel launches (one per timestep) since the last reset
+# kernel launches since the last reset: one per call and batch chunk of
+# `plan` (one persistent launch runs all L steps)
 gru_scan_fused.launches = 0
-# adjoint kernel launches (L + 1 per call) since the last reset
+# adjoint kernel launches, counted the same way
 gru_bwd_fused.launches = 0
