@@ -24,7 +24,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    SGRAF-SAF and SGRAF-SGR score
    kernels to `sgraf_eval_saf_plain` and `sgraf_eval_sgr_plain` at D 1024,
    S 256 (SGR at sgr_step 3, and 1 at the ragged shape), bf16 and fp32,
-   and SGR at a 128-word caption and at S 128 in bf16; the SGRAF training
+   SAF also at L 4, at a 128-word caption and at S 128, SGR at the last two
+   in bf16, and repeat launches bit-identical; the SGRAF training
    alignment kernels (forward and backward) to `sgraf_align_plain` and
    `sgraf_align_bwd_plain` (all four gradients, and two backward calls
    bit-identical) at one training chunk, 32 captions x 128 images x 24
@@ -160,6 +161,7 @@ from itrx_torch.models.layers import TorchBatchNorm
 from itrx_torch.ops import kernels
 from itrx_torch.ops.kernels import gru as kgru
 from itrx_torch.ops.kernels.gru import gru_bwd_fused, gru_scan_fused
+from itrx_torch.ops.kernels import sgraf_eval as ksgraf_eval
 from itrx_torch.ops.kernels import vsrn_dec as kvsrn
 from itrx_torch.ops.kernels.agsa_attn import (agsa_attention_bwd_fused, agsa_attention_bwd_plain,
                                               agsa_attention_fused, agsa_attention_plain)
@@ -392,9 +394,16 @@ COUNTERS = {"gru": gru_scan_fused, "gru_bwd": gru_bwd_fused, "xattn": xattn_t2i_
             "sgr_bwd": sgr_reason_bwd_fused, "vsrn_dec": vsrn_dec_fused,
             "vsrn_dec_bwd": vsrn_dec_bwd_fused, "agsa_attn": agsa_attention_fused,
             "agsa_attn_bwd": agsa_attention_bwd_fused}
-# PR 6's SAF kernel at 64 x 320 x 36 x 24 x 1024, S 256 (ms, bf16 and fp32;
-# NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
-SAF_PR6_MS = (12.642, 18.232)
+# the SAF and SGR kernels' earlier design (their products on fp32 FMAs) at
+# 64 x 320 x 36 x 24 x 1024, S 256, sgr_step 3 (ms, bf16 and fp32; NVIDIA
+# H100 80GB HBM3, 700 W), printed beside this run's
+SGRAF_EVAL_FMA_MS = {"saf": (12.642, 18.232), "sgr": (24.046, 29.145)}
+# builds of the SAF kernel for measurements only (kernels.load(name,
+# defines)): its tile epilogues cut, and the projection cut too (the phases
+# of its time)
+SAF_NO_POOL = ("ITRX_SAF_NO_POOL",)
+SAF_NO_PROJECT = ("ITRX_SAF_NO_PROJECT",)
+SAF_VARIANTS = (SAF_NO_POOL, SAF_NO_PROJECT)
 # the GRU kernels this design replaced (one launch a timestep) at phase_gru's
 # main shape (forward bf16, fp32; input projection included) and
 # phase_gru_bwd's (adjoint; forward + backward through autograd): ms,
@@ -422,7 +431,7 @@ I2T_LSE = 5.0
 # at the 700 W limit): bytes over the HBM rate, operations over the peak of
 # their type; the larger of the two
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
 # fold5: coco testall, 5 folds of 1000 images x 5000 captions
 FOLD5_MEAN_ATOL = 1e-9  # the mean of the parts, summed in another order
 
@@ -538,8 +547,11 @@ def phase_build():
         return time.perf_counter() - t0
 
     names = [os.path.splitext(src)[0] for src in SOURCES.values()]
-    with ThreadPoolExecutor(len(names)) as ex:
+    with ThreadPoolExecutor(len(names) + len(SAF_VARIANTS)) as ex:
+        variants = [ex.submit(kernels.build, "sgraf_eval_saf", d) for d in SAF_VARIANTS]
         seconds = dict(zip(names, ex.map(timed_build, names)))
+        for v in variants:
+            v.result()
     for name in names:
         kernels.load(name)
         info = kernels.library_path(name).with_suffix(".log")
@@ -974,36 +986,72 @@ def saf_bound(img, cap, mask, s: int = 256) -> dict:
     their dtype too), the mask and the fp32 weights read once, the fp32 grid
     written once; the A, context and projection products over the valid
     words and the global node per pair (at the bf16 tensor-core peak for bf16
-    embeddings, else at the fp32 peak), and the rest of the chain by fp32
-    operations: per valid word the 36 x 36 Gram form, the region softmax,
-    the squared difference (3 D) and the node's norm, gate and pooling (6 S);
-    per pair the global difference (3 D) and the same node work."""
+    embeddings, else at the TF32 tensor-core peak: the least time the card
+    could take for them), and the rest of the chain by fp32 operations: per
+    valid word the 36 x 36 Gram form, the region softmax, the squared
+    difference (3 D) and the node's norm, gate and pooling (6 S); per pair
+    the global difference (3 D) and the same node work.  Also
+    "product_flop", the products' operations."""
     ni, r, d = img.shape
     nc = cap.shape[0]
     n_words = float(mask.sum())
     products = 2.0 * ni * n_words * (2 * r * d + d * s) + 2.0 * ni * nc * d * s
     rest = ni * n_words * (2 * r * r + 10 * r + 3 * d + 6 * s) + ni * nc * (3 * d + 6 * s)
-    if img.dtype == torch.bfloat16:
-        ops = {"bf16": products, "fp32": rest}
-    else:
-        ops = {"fp32": products + rest}
+    peak = "bf16" if img.dtype == torch.bfloat16 else "tf32"
     n_bytes = nbytes(img, cap, mask) + (ni + nc) * d * img.element_size() \
         + 4 * (2 * s * d + 4 * s + 2) + 4 * ni * nc
-    return bound(n_bytes, ops)
+    return {**bound(n_bytes, {peak: products, "fp32": rest}), "product_flop": products}
+
+
+def _sgraf_eval_times(name: str, fused, plain, x: dict, x16: dict, bound_fn) -> dict:
+    """Kernel and plain ms at one shape, bf16 and fp32 embeddings, beside the
+    bound of each; the effective rate of the products (their operations over
+    the kernel's time) and the share of the bound; two more launches of each
+    mode bit-identical to the first."""
+    res = {}
+    for tag, inp in (("", x16), ("_fp32", x)):
+        first = fused(**inp)
+        for _ in range(2):
+            check_bit_identical(f"{name}{tag or '_bf16'} repeat", (first,), (fused(**inp),))
+        res["ms" + tag] = cuda_ms(lambda: fused(**inp), reps=10)
+        res["plain_ms" + tag] = cuda_ms(lambda: plain(**inp), reps=10)
+        b = bound_fn(inp["img"], inp["cap"], inp["mask"])
+        res["bound_ms" + tag], res["bound_by" + tag] = b["bound_ms"], b["bound_by"]
+        res["tflops" + tag] = b["product_flop"] / (res["ms" + tag] * 1e9)
+        res["share_of_bound" + tag] = b["bound_ms"] / res["ms" + tag]
+    before = SGRAF_EVAL_FMA_MS[name]
+    log(f"  time 64x320x36x24x1024, S 256: bf16 kernel {res['ms']:.3f} ms (the FMA design: "
+        f"{before[0]:.3f}), plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}), products {res['tflops']:.2f} TFLOP/s, "
+        f"{100 * res['share_of_bound']:.2f}% of the bound; fp32 kernel {res['ms_fp32']:.3f} ms "
+        f"({before[1]:.3f}), plain {res['plain_ms_fp32']:.3f} ms, bound "
+        f"{res['bound_ms_fp32']:.4f} ms ({res['bound_by_fp32']}), products "
+        f"{res['tflops_fp32']:.2f} TFLOP/s, {100 * res['share_of_bound_fp32']:.2f}% of the bound")
+    return res
+
+
+def _saf_variant_ms(defines: tuple, inp: dict) -> float:
+    """ms of a measurement build of the SAF kernel (built in phase_build) on
+    the wrapper's inputs."""
+    lib = kernels.load("sgraf_eval_saf", defines)
+    return cuda_ms(lambda: ksgraf_eval.launch_saf(lib, **inp), reps=10)
 
 
 def phase_sgraf_eval_saf(g) -> dict:
     log("sgraf_eval_saf kernel vs plain (R=36, D=1024, S=256, lambda 9)")
     res = {}
-    # the main width, then a ragged shape: a single-word caption, L not a
-    # multiple of 8, an odd caption count and an odd image count
-    for ni, nc, l in ((64, 320, 24), (37, 211, 21)):
-        x = _saf_inputs(g, ni, nc, l)
+    # the main width, then ragged shapes: a single-word caption, L not a
+    # multiple of 8, odd caption and image counts; L 4 (the block's cap of
+    # 16 captions applies); a caption as long as the kernel takes; sim_dim
+    # 128 (one warpgroup's columns)
+    for ni, nc, l, s in ((64, 320, 24, 256), (37, 211, 21, 256), (9, 70, 4, 256),
+                         (5, 7, 128, 256), (9, 13, 16, 128)):
+        x = _saf_inputs(g, ni, nc, l, s=s)
         x16 = _saf_cast(x, torch.bfloat16)
         got = sgraf_eval_saf_fused(**x16)
         want = sgraf_eval_saf_plain(**_saf_cast(x16, torch.float32))
-        e16 = check(f"sgraf_eval_saf {ni}x{nc}x36x{l} bf16", got, want, SAF_BF16_ATOL)
-        check(f"sgraf_eval_saf {ni}x{nc}x36x{l} fp32", sgraf_eval_saf_fused(**x),
+        e16 = check(f"sgraf_eval_saf {ni}x{nc}x36x{l} S {s} bf16", got, want, SAF_BF16_ATOL)
+        check(f"sgraf_eval_saf {ni}x{nc}x36x{l} S {s} fp32", sgraf_eval_saf_fused(**x),
               sgraf_eval_saf_plain(**x), SAF_FP32_ATOL)
         if ni == 64:
             res["max_abs_err"] = e16
@@ -1011,20 +1059,18 @@ def phase_sgraf_eval_saf(g) -> dict:
             log(f"  mean per-caption std of the scores over images: {spread:.3e}")
     x = _saf_inputs(g, 64, 320, 24)
     x16 = _saf_cast(x, torch.bfloat16)
-    res["ms"] = cuda_ms(lambda: sgraf_eval_saf_fused(**x16), reps=10)
-    res["plain_ms"] = cuda_ms(lambda: sgraf_eval_saf_plain(**x16), reps=10)
-    res["ms_fp32"] = cuda_ms(lambda: sgraf_eval_saf_fused(**x), reps=10)
-    res["plain_ms_fp32"] = cuda_ms(lambda: sgraf_eval_saf_plain(**x), reps=10)
-    res.update(saf_bound(x16["img"], x16["cap"], x16["mask"]))
-    b32 = saf_bound(x["img"], x["cap"], x["mask"])
-    res["bound_ms_fp32"], res["bound_by_fp32"] = b32["bound_ms"], b32["bound_by"]
+    res.update(_sgraf_eval_times("saf", sgraf_eval_saf_fused, sgraf_eval_saf_plain, x, x16,
+                                 saf_bound))
+    # where the time goes: the same inputs with the tile epilogues (norms,
+    # gates, pooling) cut, then with the projection cut too (the assembly)
+    no_pool = _saf_variant_ms(SAF_NO_POOL, x16)
+    assembly = _saf_variant_ms(SAF_NO_PROJECT, x16)
+    res["ms_phases"] = {"assembly": assembly, "projection": no_pool - assembly,
+                        "pooling_and_epilogue": res["ms"] - no_pool}
     # no single PyTorch call computes the SGRAF-SAF score grid
     res["library_ms"] = None
-    log(f"  time 64x320x36x24x1024, S 256, bf16: kernel {res['ms']:.3f} ms (PR 6: "
-        f"{SAF_PR6_MS[0]:.3f}), plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms "
-        f"({res['bound_by']}); fp32: kernel {res['ms_fp32']:.3f} ms (PR 6: {SAF_PR6_MS[1]:.3f}), "
-        f"plain {res['plain_ms_fp32']:.3f} ms, bound {res['bound_ms_fp32']:.4f} ms "
-        f"({res['bound_by_fp32']})")
+    log("  kernel bf16 by phase: " + ", ".join(f"{k} {v:.3f} ms"
+                                               for k, v in res["ms_phases"].items()))
     return res
 
 
@@ -1055,10 +1101,11 @@ def sgr_bound(img, cap, mask, s: int = 256, steps: int = 3) -> dict:
     reasoning, (steps - 1) (4 n S^2 + 4 n^2 S) + 4 S^2 + 4 n S (the q/k
     fold's S M and ctx W_g per node and full step, the edges and contexts,
     then the node-0 step), all at the bf16 tensor-core peak for bf16
-    embeddings, else at the fp32 peak; the rest of the chain by fp32
-    operations: per valid word the 36 x 36 Gram form, the region softmax,
-    the squared difference (3 D) and the node's bias and norm (3 S), per pair
-    the global difference (3 D) and its node's (3 S)."""
+    embeddings, else at the TF32 tensor-core peak; the rest of the chain by
+    fp32 operations: per valid word the 36 x 36 Gram form, the region
+    softmax, the squared difference (3 D) and the node's bias and norm (3 S),
+    per pair the global difference (3 D) and its node's (3 S).  Also
+    "product_flop", the products' operations."""
     ni, r, d = img.shape
     nc = cap.shape[0]
     words = mask.sum(dim=1).double()
@@ -1068,13 +1115,11 @@ def sgr_bound(img, cap, mask, s: int = 256, steps: int = 3) -> dict:
     reason = ni * float(((steps - 1) * (4 * n * s * s + 4 * n * n * s)
                          + 4 * s * s + 4 * n * s).sum())
     rest = ni * n_words * (2 * r * r + 10 * r + 3 * d + 3 * s) + ni * nc * (3 * d + 3 * s)
-    if img.dtype == torch.bfloat16:
-        ops = {"bf16": align + reason, "fp32": rest}
-    else:
-        ops = {"fp32": align + reason + rest}
+    peak = "bf16" if img.dtype == torch.bfloat16 else "tf32"
     n_bytes = nbytes(img, cap, mask) + (ni + nc) * d * img.element_size() \
         + 4 * (2 * s * d + 2 * s + steps * (3 * s * s + 3 * s) + s + 1) + 4 * ni * nc
-    return bound(n_bytes, ops)
+    return {**bound(n_bytes, {peak: align + reason, "fp32": rest}),
+            "product_flop": align + reason}
 
 
 def phase_sgraf_eval_sgr(g) -> dict:
@@ -1105,10 +1150,8 @@ def phase_sgraf_eval_sgr(g) -> dict:
               SGR_BF16_ATOL)
     x = _sgr_inputs(g, 64, 320, 24, 3)
     x16 = _saf_cast(x, torch.bfloat16)
-    res["ms"] = cuda_ms(lambda: sgraf_eval_sgr_fused(**x16), reps=10)
-    res["plain_ms"] = cuda_ms(lambda: sgraf_eval_sgr_plain(**x16), reps=10)
-    res["ms_fp32"] = cuda_ms(lambda: sgraf_eval_sgr_fused(**x), reps=10)
-    res["plain_ms_fp32"] = cuda_ms(lambda: sgraf_eval_sgr_plain(**x), reps=10)
+    res.update(_sgraf_eval_times("sgr", sgraf_eval_sgr_fused, sgraf_eval_sgr_plain, x, x16,
+                                 sgr_bound))
     # where the kernel's time goes: the same inputs at 1 and 2 steps (the
     # node-0 step alone, then one full step more)
     res["ms_by_steps"] = {
@@ -1117,15 +1160,8 @@ def phase_sgraf_eval_sgr(g) -> dict:
             reps=10)
         for k in (1, 2)}
     res["ms_by_steps"][3] = res["ms"]
-    res.update(sgr_bound(x16["img"], x16["cap"], x16["mask"]))
-    b32 = sgr_bound(x["img"], x["cap"], x["mask"])
-    res["bound_ms_fp32"], res["bound_by_fp32"] = b32["bound_ms"], b32["bound_by"]
     # no single PyTorch call computes the SGRAF-SGR score grid
     res["library_ms"] = None
-    log(f"  time 64x320x36x24x1024, S 256, sgr_step 3, bf16: kernel {res['ms']:.3f} ms, plain "
-        f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); fp32: "
-        f"kernel {res['ms_fp32']:.3f} ms, plain {res['plain_ms_fp32']:.3f} ms, bound "
-        f"{res['bound_ms_fp32']:.4f} ms ({res['bound_by_fp32']})")
     log("  kernel bf16 by sgr_step (1: the node-0 step alone): " + ", ".join(
         f"{k}: {v:.3f} ms" for k, v in res["ms_by_steps"].items()))
     return res

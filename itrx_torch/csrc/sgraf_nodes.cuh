@@ -1,7 +1,8 @@
-// Shared by the two SGRAF evaluation kernels, sgraf_eval_saf.cu (SAF) and
-// sgraf_eval_sgr.cu (SGR): the alignment nodes of a block's (image, caption)
-// pairs and the 64-row tile product that forms them.  For caption c (L words,
-// mask m) and image i (36 regions):
+// The alignment nodes of SGRAF's kernels: their assembly, shared by the
+// evaluation kernels (sgraf_eval_saf.cu, sgraf_eval_sgr.cu) and the training
+// alignment kernels (sgraf_align.cu, sgraf_align_bwd.cu), and the fp32
+// 64-row tile product that the alignment forward (and sgr_rows.cuh) forms
+// them with.  For caption c (L words, mask m) and image i (36 regions):
 //   A[r, l]  = img_ir . cap_cl                              (fp32 accumulation)
 //   h        = leaky_relu(A, 0.1) * m_l
 //   s[l, :]  = softmax_r(9 h[l, :] / (sqrt(max(sum_l h^2, 1e-16)) + 1e-8))
@@ -15,16 +16,18 @@
 // xattn_product.cuh (tensor cores for bf16 inputs, fp32 FMAs for fp32).
 // `assemble` runs the region softmax with one thread per (image, word), writes
 // the softmax weights over the A tile with the context norm from the Gram, and
-// lists the valid (image, word) rows, then the pairs' global rows.  `project`
-// forms the rows' y = diff . W 64 at a time with `tile_product`: over slabs of
-// 32 of the depth, the block stages the slab of the (depth, S) fp32 weight by
-// cp.async (the next slab's copy running during this slab's product) and the
-// transposed slab of the rows' operand in shared memory (for a word row, its
-// squared difference formed from the softmax weights and the image slab, so
-// the context is never stored), and accumulates in registers, a 32 x 2 corner
-// of the 64 x S tile per thread.  The kernel's own epilogue takes each tile
-// from there.  Every step after reading the inputs is fp32.  Padded words,
-// ragged captions and a group past Nc are masked, not padded.
+// lists the valid (image, word) rows, then the pairs' global rows.  The
+// evaluation kernels project those rows with the split-bf16 tensor-core
+// product of sgraf_nodes_mma.cuh.  `project` forms them here on fp32 FMAs,
+// 64 at a time with `tile_product`: over slabs of 32 of the depth, the block
+// stages the slab of the (depth, S) fp32 weight by cp.async (the next slab's
+// copy running during this slab's product) and the transposed slab of the
+// rows' operand in shared memory (for a word row, its squared difference
+// formed from the softmax weights and the image slab, so the context is never
+// stored), and accumulates in registers, a 32 x 2 corner of the 64 x S tile
+// per thread.  That product is bound by its scalar FMAs (~15 TFLOP/s); every
+// step after reading the inputs is fp32.  Padded words, ragged captions and a
+// group past Nc are masked, not padded.
 
 #pragma once
 

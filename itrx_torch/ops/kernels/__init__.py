@@ -36,25 +36,31 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: tuple) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines: tuple = ()) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(_flags(defines)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
+def build(name: str, defines: tuple = ()) -> Path:
     """Compile csrc/<name>.cu unless its library is already built.  The
     compiler's output (ptxas register and shared-memory use) is kept beside
-    the library as <library>.log."""
-    out = library_path(name)
+    the library as <library>.log.  `defines` (macro names, e.g.
+    "ITRX_SAF_NO_POOL") build a variant of the kernel under its own name,
+    for measurements."""
+    out = library_path(name, defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        [_nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")],
         capture_output=True, text=True,
     )
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
@@ -65,9 +71,9 @@ def build(name: str) -> Path:
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """Build (if needed) and load the kernel library csrc/<name>.cu."""
-    lib = ctypes.CDLL(str(build(name)))
+    lib = ctypes.CDLL(str(build(name, defines)))
     lib.itrx_cuda_error_string.argtypes = [ctypes.c_int]
     lib.itrx_cuda_error_string.restype = ctypes.c_char_p
     return lib

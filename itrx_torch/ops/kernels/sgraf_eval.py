@@ -16,9 +16,16 @@ per valid word (about 78% of SAF's operations at D 1024, S 256), then the A
 and context products (36 x D each per word) and the global node (D x S per
 pair); SGR adds two S x S products per node and full step (about as many
 operations again at three steps).  The kernels read their inputs as they
-are (bf16 or fp32) and keep the chain in fp32; the TPU kernels round the
+are (bf16 or fp32) and run the projection, the context, the global node and
+SGR's two reasoning products on the tensor cores as split-bf16 products
+(csrc/sgraf_nodes_mma.cuh: three bf16 passes, a_hi b_lo + a_lo b_hi + a_hi
+b_hi, about 16 bits kept, fp32 accumulation; `wgmma` for the projections
+and the reasoning products, `mma.sync` for the context), so the scores stay
+within 1e-5 of the fp32 chain; the rest of the chain is fp32.  The weights
+are split once per call here (`split_weight`, hi and lo of `bf16_split` in
+the layout of the kernels' shared-memory slabs).  The TPU kernels round the
 softmax weights, the squared differences, the nodes and S M to bf16 as MXU
-operands, the port does not.
+operands in one pass; the port does not.
 
 Arguments mirror `sgraf_eval_saf_score` and `sgraf_eval_score` in the
 port's layouts: Linear weights as torch stores them, (out, in).  The plain
@@ -49,6 +56,39 @@ LAMBDA_SOFTMAX = 9.0
 NEG_INF = -1e18
 # plain version: budget of one caption chunk's (C, Ni, L, D) fp32 context
 PLAIN_CHUNK_BYTES = 1 << 30
+# the split weights' padding: rows (output columns) to 8, depth to one slab
+# of the kernels (csrc/sgraf_nodes_mma.cuh::kSlab)
+SPLIT_ROWS = 8
+SPLIT_DEPTH = 32
+
+
+def bf16_split(x: torch.Tensor) -> tuple:
+    """(hi, lo), both bf16 rounded to nearest even: hi = bf16(x), lo =
+    bf16(x - hi); hi + lo keeps about 16 bits of x."""
+    x = x.float()
+    hi = x.bfloat16()
+    return hi, (x - hi.float()).bfloat16()
+
+
+def split_weight(w: torch.Tensor) -> torch.Tensor:
+    """The kernels' form of a weight w (..., N, K) laid out [n][k] (output
+    column n, depth k), N padded with zero rows to SPLIT_ROWS and K to
+    SPLIT_DEPTH: (..., K32 // 32, 2, 2, N8 // 8, 2, 8, 8) bf16.  Per slab
+    of 32 k, k16 step st and part (the hi, then the lo of `bf16_split`),
+    a K-major matrix of 8-row x 8-k core matrices, [n // 8][k // 8][n %
+    8][k % 8]: the shared-memory layout the kernels' tensor-core
+    descriptors read, so a slab is one contiguous copy."""
+    *lead, n, k = w.shape
+    n8, k32 = -(-n // SPLIT_ROWS) * SPLIT_ROWS, -(-k // SPLIT_DEPTH) * SPLIT_DEPTH
+    parts = []
+    for part in bf16_split(w.detach()):
+        part = F.pad(part.float(), (0, k32 - k, 0, n8 - n)).bfloat16()
+        # [nb][r][slab][st][kg][e] -> [slab][st][nb][kg][r][e]
+        part = part.reshape(*lead, n8 // 8, 8, k32 // 32, 2, 2, 8)
+        nd = part.dim()
+        order = list(range(nd - 6)) + [nd - 4, nd - 3, nd - 6, nd - 2, nd - 5, nd - 1]
+        parts.append(part.permute(order))
+    return torch.stack(parts, dim=-5).contiguous()
 
 
 def fold_saf_bn(attn_w, attn_b, bn_weight, bn_bias, running_mean, running_var):
@@ -193,15 +233,36 @@ def _f32(t):
 def _node_inputs(name, cap, mask, img, w, b, gloc, imgglo, gw, gb) -> list:
     """The node assembly's kernel arguments, in the order of the C
     interfaces: cap, mask, img, the region Gram, gloc, imgglo (embeddings
-    contiguous in their dtype), W and Wg transposed to (D, S) and the
-    biases, fp32."""
+    contiguous in their dtype), W and Wg (S, D) split (`split_weight`) and
+    the biases, fp32."""
     img, cap, gloc, imgglo = (t.contiguous() for t in (img, cap, gloc, imgglo))
     if img.data_ptr() % 16 or cap.data_ptr() % 16:
         raise ValueError(f"{name}: inputs must be 16-byte aligned")
     im32 = img.float()
     gram = torch.matmul(im32, im32.transpose(1, 2)).contiguous()  # (Ni, 36, 36) fp32
     return [cap, _f32(mask), img, gram, gloc, imgglo,
-            _f32(w).t().contiguous(), _f32(b), _f32(gw).t().contiguous(), _f32(gb)]
+            split_weight(w), _f32(b), split_weight(gw), _f32(gb)]
+
+
+def launch_saf(lib, cap, mask, img, w, b, gloc, imgglo, gw, gb, awf, abf, ew, eb):
+    """One launch of `lib`'s SAF kernel on CUDA tensors (the arguments of
+    `sgraf_eval_saf_fused`), without a guard and without counting it; the
+    wrapper's launch, and a measurement build of the same source
+    (`load("sgraf_eval_saf", defines)`) launched on the same inputs."""
+    ni, _, d = img.shape
+    nc, l, _ = cap.shape
+    s = w.shape[0]
+    out = torch.empty(nc, ni, dtype=torch.float32, device=img.device)
+    fn = lib.itrx_sgraf_eval_saf
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    # every temporary is held by a name until the launch has been queued
+    inputs = _node_inputs("sgraf_eval_saf_fused", cap, mask, img, w, b, gloc, imgglo, gw, gb)
+    inputs += [_f32(awf), _f32(abf), _f32(ew), _f32(eb)]
+    code = fn(*(ptr(t) for t in inputs), ptr(out), ni, nc, l, d, s,
+              int(img.dtype == torch.bfloat16), img.device.index, current_stream(img.device))
+    check(lib, "sgraf_eval_saf_kernel", code)
+    return out
 
 
 def sgraf_eval_saf_fused(cap, mask, img, w, b, gloc, imgglo, gw, gb, awf, abf, ew, eb):
@@ -212,27 +273,13 @@ def sgraf_eval_saf_fused(cap, mask, img, w, b, gloc, imgglo, gw, gb, awf, abf, e
     gw (S, D) / gb (S,) -- sim_tranglo_w; awf (S,) / abf (1,) -- SAF's gate
     with the BatchNorm folded in (`fold_saf_bn`); ew (1, S) / eb (1,) --
     sim_eval_w.  A CPU tensor takes `sgraf_eval_saf_plain`; a CUDA tensor
-    launches the kernel (embeddings fp32 or bf16, fp32 arithmetic); any
-    other device raises.  Forward-only: with grad enabled and an input that
-    requires grad it raises on every device."""
-    name = "sgraf_eval_saf_fused"
+    launches the kernel (embeddings fp32 or bf16, products as split bf16,
+    fp32 accuracy); any other device raises.  Forward-only: with grad
+    enabled and an input that requires grad it raises on every device."""
     args = (cap, mask, img, w, b, gloc, imgglo, gw, gb, awf, abf, ew, eb)
-    if _guard(name, cap, mask, img, w, gloc, imgglo, gw) == "cpu":
+    if _guard("sgraf_eval_saf_fused", cap, mask, img, w, gloc, imgglo, gw) == "cpu":
         return sgraf_eval_saf_plain(*args)
-    ni, _, d = img.shape
-    nc, l, _ = cap.shape
-    s = w.shape[0]
-    out = torch.empty(nc, ni, dtype=torch.float32, device=img.device)
-    lib = load("sgraf_eval_saf")
-    fn = lib.itrx_sgraf_eval_saf
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    # every temporary is held by a name until the launch has been queued
-    inputs = _node_inputs(name, cap, mask, img, w, b, gloc, imgglo, gw, gb)
-    inputs += [_f32(awf), _f32(abf), _f32(ew), _f32(eb)]
-    code = fn(*(ptr(t) for t in inputs), ptr(out), ni, nc, l, d, s,
-              int(img.dtype == torch.bfloat16), img.device.index, current_stream(img.device))
-    check(lib, "sgraf_eval_saf_kernel", code)
+    out = launch_saf(load("sgraf_eval_saf"), *args)
     sgraf_eval_saf_fused.launches += 1
     return out
 
@@ -245,10 +292,11 @@ def sgraf_eval_sgr_fused(cap, mask, img, w, b, gloc, imgglo, gw, gb,
     wg / bg (steps, S, S) / (steps, S) -- the `sgr_step` GraphReasoning
     steps' graph_query_w, graph_key_w and sim_graph_w, stacked; ew (1, S) /
     eb (1,) -- sim_eval_w.  q and k are folded once per call in fp32
-    (`fold_sgr_qk`).  A CPU tensor takes `sgraf_eval_sgr_plain`; a CUDA
-    tensor launches the kernel (embeddings fp32 or bf16, fp32 arithmetic);
-    any other device raises.  Forward-only: with grad enabled and an input
-    that requires grad it raises on every device."""
+    (`fold_sgr_qk`), and the folded M and sim_graph_w split with the node
+    weights.  A CPU tensor takes `sgraf_eval_sgr_plain`; a CUDA tensor
+    launches the kernel (embeddings fp32 or bf16, products as split bf16,
+    fp32 accuracy); any other device raises.  Forward-only: with grad
+    enabled and an input that requires grad it raises on every device."""
     name = "sgraf_eval_sgr_fused"
     args = (cap, mask, img, w, b, gloc, imgglo, gw, gb, wq, bq, wk, bk, wg, bg, ew, eb)
     if _guard(name, cap, mask, img, w, gloc, imgglo, gw, extra=(wq, wk, wg)) == "cpu":
@@ -273,7 +321,7 @@ def sgraf_eval_sgr_fused(cap, mask, img, w, b, gloc, imgglo, gw, gb,
     # every temporary is held by a name until the launch has been queued
     mm, vv = fold_sgr_qk(wq, bq, wk)
     inputs = _node_inputs(name, cap, mask, img, w, b, gloc, imgglo, gw, gb)
-    inputs += [mm.contiguous(), vv.contiguous(), _f32(wg).transpose(1, 2).contiguous(),
+    inputs += [split_weight(mm.transpose(1, 2)), vv.contiguous(), split_weight(wg),
                _f32(bg), _f32(ew), _f32(eb)]
     code = fn(*(ptr(t) for t in inputs), ptr(out), ptr(ws), ni, nc, l, d, s, steps,
               int(img.dtype == torch.bfloat16), n_ctas, img.device.index,

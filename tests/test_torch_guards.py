@@ -650,23 +650,29 @@ def test_sgraf_eval_saf_source_is_built_and_hashed(tmp_path, monkeypatch):
 
 
 def test_sgraf_eval_sgr_source_is_built_and_hashed(tmp_path, monkeypatch):
-    """The SGR kernel exists, shares the node assembly header with the SAF
-    kernel, and its library name (and the SAF kernel's) changes when either
-    shared header changes."""
+    """The SGR kernel exists, shares the node assembly and split-product
+    headers with the SAF kernel, and its library name (and the SAF kernel's)
+    changes when any shared header changes."""
     src = kernels.CSRC / sgraf_eval.SGR_SOURCE
     assert "int itrx_sgraf_eval_sgr(" in src.read_text()
     assert '#include "sgraf_nodes.cuh"' in src.read_text()
-    names = (sgraf_eval.SOURCE, sgraf_eval.SGR_SOURCE, "sgraf_nodes.cuh", "xattn_product.cuh")
+    headers = ("sgraf_nodes_mma.cuh", "sgraf_nodes.cuh", "xattn_product.cuh")
+    for source in (sgraf_eval.SOURCE, sgraf_eval.SGR_SOURCE):
+        assert '#include "sgraf_nodes_mma.cuh"' in (kernels.CSRC / source).read_text()
+    names = (sgraf_eval.SOURCE, sgraf_eval.SGR_SOURCE) + headers
     for name in names:
         (tmp_path / name).write_text((kernels.CSRC / name).read_text())
     monkeypatch.setattr(kernels, "CSRC", tmp_path)
     libs = ("sgraf_eval_saf", "sgraf_eval_sgr")
     seen = [[kernels.library_path(n) for n in libs]]
-    for header in ("sgraf_nodes.cuh", "xattn_product.cuh"):
+    for header in headers:
         (tmp_path / header).write_text("// edited\n")
         seen.append([kernels.library_path(n) for n in libs])
     for i, _ in enumerate(libs):
-        assert len({paths[i] for paths in seen}) == 3
+        assert len({paths[i] for paths in seen}) == 1 + len(headers)
+    # a variant built with a define for a measurement has a name of its own
+    assert kernels.library_path("sgraf_eval_saf", ("ITRX_SAF_NO_POOL",)) \
+        != kernels.library_path("sgraf_eval_saf")
 
 
 def _dec_args(dev="cpu", t=3, b=2, r=4, h=8):
