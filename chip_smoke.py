@@ -29,7 +29,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    alignment kernels (forward and backward) to `sgraf_align_plain` and
    `sgraf_align_bwd_plain` (all four gradients, and two backward calls
    bit-identical) at one training chunk, 32 captions x 128 images x 24
-   words, and at a ragged odd shape, bf16 and fp32; the SGR training
+   words, and at a ragged odd shape, bf16 and fp32, with the backward's
+   device time by launch (torch.profiler over the timed calls), its
+   products' TFLOP/s and share of the bound, and one backward call under
+   torch.cuda.set_sync_debug_mode("error") (no device-to-host sync); the SGR training
    reasoning kernels to `sgr_reason_plain` and `sgr_reason_bwd_plain`
    (the final nodes, all seven cotangents, dbk identically 0, two backward
    calls bit-identical) at one training chunk, 4096 pairs x 25 nodes,
@@ -398,6 +401,10 @@ COUNTERS = {"gru": gru_scan_fused, "gru_bwd": gru_bwd_fused, "xattn": xattn_t2i_
 # 64 x 320 x 36 x 24 x 1024, S 256, sgr_step 3 (ms, bf16 and fp32; NVIDIA
 # H100 80GB HBM3, 700 W), printed beside this run's
 SGRAF_EVAL_FMA_MS = {"saf": (12.642, 18.232), "sgr": (24.046, 29.145)}
+# the alignment backward's earlier design (five passes of fp32-FMA
+# products) at one training chunk (ms, bf16 and fp32; NVIDIA H100 80GB HBM3,
+# 700.00 W), printed beside this run's
+ALIGN_BWD_FMA_MS = (12.659, 15.660)
 # builds of the SAF kernel for measurements only (kernels.load(name,
 # defines)): its tile epilogues cut, and the projection cut too (the phases
 # of its time)
@@ -1188,23 +1195,27 @@ def align_bound(img, cap, mask, s: int = 256, backward: bool = False) -> dict:
     Backward: the same inputs and the cotangent read once, gcap and gimg (in
     cap's dtype) and the fp32 dW, db written once; the recomputed products,
     W gy and dW (D x S each) and four more 36 x D products, and about twice
-    the forward's chain."""
+    the forward's chain.  The backward runs its products on the tensor cores
+    in both modes, so with fp32 embeddings they count at the TF32
+    tensor-core peak, as the eval kernels' do.  Also "product_flop",
+    the products' operations."""
     ni, r, d = img.shape
     nc, l, _ = cap.shape
     pairs = ni * float(mask.sum())
     es = img.element_size()
+    bf16 = img.dtype == torch.bfloat16
     if backward:
         products = 2.0 * pairs * (6 * r * d + 3 * d * s)
         rest = 2.0 * pairs * (4 * d + 50 * r + 4 * s)
         n_bytes = nbytes(img, cap, mask) + 4 * (s * d + s) + nc * ni * l * s * es \
             + (cap.numel() + img.numel()) * es + 4 * (s * d + s)
+        ops = {"bf16" if bf16 else "tf32": products, "fp32": rest}
     else:
         products = 2.0 * pairs * (2 * r * d + d * s)
         rest = pairs * (4 * d + 50 * r + 4 * s)
         n_bytes = nbytes(img, cap, mask) + 4 * (s * d + s) + nc * ni * l * s * es
-    ops = {"bf16": products, "fp32": rest} if img.dtype == torch.bfloat16 \
-        else {"fp32": products + rest}
-    return bound(n_bytes, ops)
+        ops = {"bf16": products, "fp32": rest} if bf16 else {"fp32": products + rest}
+    return {**bound(n_bytes, ops), "product_flop": products}
 
 
 def phase_sgraf_align(g) -> dict:
@@ -1260,21 +1271,63 @@ def phase_sgraf_align(g) -> dict:
             res["ms" + suf] = cuda_ms(lambda: sgraf_align_fused(**xd), reps=10)
             res["plain_ms" + suf] = cuda_ms(lambda: sgraf_align_plain(**xd), reps=5)
         res["bwd_ms" + suf] = cuda_ms(lambda: sgraf_align_bwd_fused(**xd, g=c_), reps=10)
+        res["bwd_launch_ms" + suf] = _launch_ms(lambda: sgraf_align_bwd_fused(**xd, g=c_))
         res["bwd_plain_ms" + suf] = cuda_ms(lambda: sgraf_align_bwd_plain(**xd, g=c_), reps=5)
         fb = align_bound(xd["img"], xd["cap"], xd["mask"])
         bb = align_bound(xd["img"], xd["cap"], xd["mask"], backward=True)
         res["bound_ms" + suf], res["bound_by" + suf] = fb["bound_ms"], fb["bound_by"]
         res["bwd_bound_ms" + suf], res["bwd_bound_by" + suf] = bb["bound_ms"], bb["bound_by"]
+        res["bwd_tflops" + suf] = bb["product_flop"] / (res["bwd_ms" + suf] * 1e9)
+        res["bwd_share_of_bound" + suf] = bb["bound_ms"] / res["bwd_ms" + suf]
+    # the backward reads nothing back to the host: a synchronizing call
+    # under the sync debug mode raises
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sgraf_align_bwd_fused(**xd, g=c_)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    res["bwd_no_sync"] = True
     # no single PyTorch call computes the alignment chain or its backward
     res["library_ms"] = None
     log(f"  time 32x128x36x24x1024, S 256, bf16: forward kernel {res['ms']:.3f} ms, plain "
         f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
-        f"backward kernels {res['bwd_ms']:.3f} ms, plain {res['bwd_plain_ms']:.3f} ms, bound "
-        f"{res['bwd_bound_ms']:.4f} ms ({res['bwd_bound_by']}); fp32: forward "
+        f"backward kernels {res['bwd_ms']:.3f} ms (the FMA design: {ALIGN_BWD_FMA_MS[0]:.3f}), "
+        f"plain {res['bwd_plain_ms']:.3f} ms, bound {res['bwd_bound_ms']:.4f} ms "
+        f"({res['bwd_bound_by']}), products {res['bwd_tflops']:.2f} TFLOP/s, "
+        f"{100 * res['bwd_share_of_bound']:.2f}% of the bound; fp32: forward "
         f"{res['ms_fp32']:.3f} ms (plain {res['plain_ms_fp32']:.3f}, bound "
-        f"{res['bound_ms_fp32']:.4f}), backward {res['bwd_ms_fp32']:.3f} ms (plain "
-        f"{res['bwd_plain_ms_fp32']:.3f}, bound {res['bwd_bound_ms_fp32']:.4f})")
+        f"{res['bound_ms_fp32']:.4f}), backward {res['bwd_ms_fp32']:.3f} ms "
+        f"({ALIGN_BWD_FMA_MS[1]:.3f}; plain {res['bwd_plain_ms_fp32']:.3f}, bound "
+        f"{res['bwd_bound_ms_fp32']:.4f} at the TF32 peak, products "
+        f"{res['bwd_tflops_fp32']:.2f} TFLOP/s, {100 * res['bwd_share_of_bound_fp32']:.2f}%)")
+    for suf, tag in (("", "bf16"), ("_fp32", "fp32")):
+        log(f"  backward {tag}, device ms a call by launch (profiler): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in res["bwd_launch_ms" + suf].items()))
+    log("  one backward call under torch.cuda.set_sync_debug_mode('error'): no sync")
     return res
+
+
+def _launch_ms(fn, calls: int = 5) -> dict:
+    """Device milliseconds a call of each kernel that `fn` launches, from
+    torch.profiler over `calls` calls after a warm-up (the kernel's name up
+    to its argument list)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0)
+        if us > 0:
+            key = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
+            name = key.split("(")[0].split("<")[0].split("::")[-1].strip() or key[:40]
+            out[name] = out.get(name, 0.0) + us / calls / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 def align_bwd_result(res: dict) -> dict:

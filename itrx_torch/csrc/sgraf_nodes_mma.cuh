@@ -1,5 +1,7 @@
 // The split-bf16 tensor-core products of the two SGRAF evaluation kernels,
-// sgraf_eval_saf.cu (SAF) and sgraf_eval_sgr.cu (SGR), over the node
+// sgraf_eval_saf.cu (SAF) and sgraf_eval_sgr.cu (SGR), and of the training
+// alignment backward (sgraf_align_bwd.cu: the word nodes' projection, with e
+// kept through WordRows' sink, and mma_tile for ge), over the node
 // assembly of sgraf_nodes.cuh (`assemble`: the A tiles, the region softmax,
 // the inverse context norms and the row list):
 //   the word nodes   y = (ctx_l / |ctx_l| - cap_l)^2 . W + b,  ctx_l = sum_r s[l, r] img_r
@@ -465,10 +467,17 @@ struct Part {
   __device__ __forceinline__ int k(int i) const { return k0 + (i & 1) + 8 * (i >> 1); }
 };
 
+// What becomes of e = ctx / |ctx| - cap as the word rows' operand is formed:
+// nothing in the evaluation kernels; the training backward keeps it
+// (sgraf_align_bwd.cu).  sink(tile row, k, in range, e).
+struct NoSink {
+  __device__ __forceinline__ void operator()(int, int, bool, float) const {}
+};
+
 // Word rows t0 .. t0 + nrows - 1 of the list: the context slab from the
 // softmax weights (nd.tile) and the image slab on the tensor cores, then
 // (ctx / |ctx| - cap)^2.
-template <typename T>
+template <typename T, typename Sink = NoSink>
 struct WordRows {
   const Nodes& nd;
   const Ring& rg;
@@ -476,6 +485,7 @@ struct WordRows {
   const T* __restrict__ img;
   int t0, nrows, i0, c0, Ni, L, D;
   T pre[8];  // cap at the next slab's k of this lane, rows r0 and r0 + 8
+  Sink sink;
 
   __device__ __forceinline__ void prepare() {
     RowTable& tb = row_table();
@@ -604,6 +614,7 @@ struct WordRows {
         const int nb = i >> 1, q = 2 * h + (i & 1);
         const float e = (clo[nb][q] + chi[nb][q]) * (h ? ci1 : ci0) - to_f(pre[4 * h + i]);
         v[4 * h + i] = ok ? e * e : 0.0f;
+        sink(h ? r1 : r0, pt.k(i), ok, e);
       }
   }
 };

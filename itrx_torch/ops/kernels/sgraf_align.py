@@ -22,11 +22,18 @@ The backward is the exact derivative of the plain forward: the l2norms'
 backward keeps the term of the normalizer's derivative that `itrx`'s
 kernel drops (its O(eps / |y|) correction, sgraf_align.py:136-138).
 
-What bounds them on an H100: fp32 operations.  Per valid word and image the
+What bounds them on an H100: their products.  Per valid word and image the
 forward does the A and context products (36 x D each) and the projection
 (D x S); the backward recomputes them and adds W^T gy and the dW product
-(D x S each) and four more 36 x D products (gs, dimg twice, dcap).  Both
-keep the chain in fp32 whatever the embeddings' dtype.
+(D x S each) and four more 36 x D products (GS, dcap, both dimg terms).  The
+forward runs them on fp32 FMAs (the A product on the tensor cores for bf16
+embeddings).  The backward runs every one on the tensor cores as a split-bf16
+product (three bf16 passes, a_hi b_lo + a_lo b_hi + a_hi b_hi, fp32
+accumulation; csrc/sgraf_nodes_mma.cuh), with the weight split once a call
+in both orientations (`split_weight`, `split_weight_t`); both keep the chain
+in fp32 whatever the embeddings' dtype.  The backward reads nothing back to
+the host: its rows are ranked on the card (`row_layout`) and its workspaces
+sized from the shapes.
 
 Arguments are the port's layouts: W (S, D) as torch stores it, b (S,).  A
 CPU tensor takes the plain pair; a CUDA tensor launches the kernels or
@@ -42,6 +49,7 @@ import torch.nn.functional as F
 
 from ..norms import l2norm, safe_sqrt
 from . import check, current_stream, load, ptr
+from .sgraf_eval import SPLIT_DEPTH, split_weight
 
 SOURCE = "sgraf_align.cu"
 BWD_SOURCE = "sgraf_align_bwd.cu"
@@ -57,12 +65,27 @@ MAX_CAPS = 32
 # the backward's dW reduction over rows: split into this many fixed parts,
 # summed in order (no atomics, so two calls give identical gradients)
 GW_SPLITS = 16
+# rows of D in one chunk of the backward's second weight orientation: the
+# output columns of one ge product (two warpgroups of 128)
+WT_CHUNK = 256
 
 
 def _work(t: torch.Tensor) -> torch.dtype:
     """The plain pair's arithmetic type: fp32, or float64 for float64 inputs
     (gradcheck)."""
     return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def split_weight_t(w: torch.Tensor) -> torch.Tensor:
+    """W (S, D) in its second orientation, for the backward's ge = 2 e (gy W):
+    W^T (D, S) padded with zero rows to whole chunks of WT_CHUNK rows of D,
+    each chunk split as `split_weight` splits a weight (depth S), so that
+    chunk j is contiguous: (D // WT_CHUNK, S32 // 32, 2, 2, WT_CHUNK // 8, 2,
+    8, 8) bf16."""
+    s, d = w.shape
+    chunks = -(-d // WT_CHUNK)
+    wt = F.pad(w.detach().float().t(), (0, 0, 0, chunks * WT_CHUNK - d))
+    return split_weight(wt.reshape(chunks, WT_CHUNK, s))
 
 
 def sgraf_align_plain(cap, mask, img, w, b):
@@ -189,16 +212,17 @@ def _launch_fwd(cap, mask, img, w, b):
     return out
 
 
-def row_layout(mask, ni: int):
+def row_layout(mask):
     """The backward's compact rows: one per (caption, image, valid word),
-    caption-major, then image, then word.  Returns (pos (Nc, L) int32, the
-    rank of each valid word in its caption; cstart (Nc,) int32, the valid
-    words before each caption; n_words, the valid words in all)."""
+    caption-major, then image, then word, formed on the device (nothing is
+    read back).  Returns (pos (Nc, L) int32, the rank of each valid word in
+    its caption; cstart (Nc + 1,) int32, the valid words before each
+    caption, then the number of valid words)."""
     valid = (mask > 0).to(torch.int32)
     pos = (torch.cumsum(valid, dim=1) - valid).to(torch.int32).contiguous()
-    lens = valid.sum(dim=1)
-    cstart = (torch.cumsum(lens, dim=0) - lens).to(torch.int32).contiguous()
-    return pos, cstart, int(lens.sum())
+    ends = torch.cumsum(valid.sum(dim=1), dim=0)
+    cstart = torch.cat([ends.new_zeros(1), ends]).to(torch.int32).contiguous()
+    return pos, cstart
 
 
 def _launch_bwd(cap, mask, img, w, b, g):
@@ -209,42 +233,38 @@ def _launch_bwd(cap, mask, img, w, b, g):
     dev = img.device
     cap, img = _embeddings(name, cap, img)
     g = g.detach().to(cap.dtype).contiguous()
-    pos, cstart, n_words = row_layout(mask, ni)
-    n_rows = n_words * ni
+    pos, cstart = row_layout(mask)
+    # sized from the shapes: Nc L Ni rows at most (the count stays on the
+    # card); D padded to the kernels' slab of 32
+    rows = nc * l * ni
+    dp = -(-d // SPLIT_DEPTH) * SPLIT_DEPTH
     gcap = torch.empty_like(cap)
     gimg = torch.empty_like(img)
     gw = torch.empty(s, d, dtype=torch.float32, device=dev)
     gb = torch.empty(s, dtype=torch.float32, device=dev)
     cpb = min(BLOCK_WORDS // l, MAX_CAPS)
     n_groups = -(-nc // cpb)
-    n_pairs = -(-ni // 2)
     f32 = dict(dtype=torch.float32, device=dev)
-    # fp32 workspaces: the rows' S-space cotangent, (ctx_n - cap), its
-    # cotangent and the context's; the cinv of each row; the partial sums
-    # of dcap (per image pair), of dimg (per caption group) and of
-    # [dW | db] (per split of the rows)
-    ws = dict(gy=torch.empty(max(n_rows, 1), s, **f32),
-              e=torch.empty(max(n_rows, 1), d, **f32),
-              ge=torch.empty(max(n_rows, 1), d, **f32),
-              gctx=torch.empty(max(n_rows, 1), d, **f32),
-              cinv=torch.empty(max(n_rows, 1), **f32),
-              gcap_p=torch.empty(n_pairs, max(n_words, 1), d, **f32),
-              gimg_p=torch.empty(n_groups, ni, N_REGIONS, d, **f32),
-              gw_p=torch.empty(GW_SPLITS, s, d + 1, **f32))
+    # fp32 workspaces: e, then ge, then dcap per row; gy per row; the partial
+    # sums of dimg (per caption group) and of dW and db (per split of the rows)
+    ws = dict(e=torch.empty(rows, dp, **f32), gy=torch.empty(rows, s, **f32),
+              gimg_p=torch.empty(n_groups, ni, N_REGIONS, dp, **f32),
+              gw_p=torch.empty(GW_SPLITS, s, dp, **f32),
+              gb_p=torch.empty(GW_SPLITS, s, **f32))
     im32 = img.float()
     gram = torch.matmul(im32, im32.transpose(1, 2)).contiguous()
     lib = load("sgraf_align_bwd")
     fn = lib.itrx_sgraf_align_bwd
-    fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     # every temporary is held by a name until the launches have been queued
-    maskf, wt, wf, bf = _f32(mask), _f32(w).t().contiguous(), _f32(w), _f32(b)
-    code = fn(ptr(cap), ptr(maskf), ptr(img), ptr(gram), ptr(wt), ptr(wf), ptr(bf), ptr(g),
-              ptr(pos), ptr(cstart), ptr(gcap), ptr(gimg), ptr(gw), ptr(gb),
-              *(ptr(ws[k]) for k in ("gy", "e", "ge", "gctx", "cinv", "gcap_p", "gimg_p",
-                                     "gw_p")),
-              ni, nc, l, d, s, n_words, GW_SPLITS, int(img.dtype == torch.bfloat16),
-              dev.index, current_stream(dev))
+    maskf, bf = _f32(mask), _f32(b)
+    wsplit, wtsplit = split_weight(w), split_weight_t(w)
+    code = fn(ptr(cap), ptr(maskf), ptr(img), ptr(gram), ptr(wsplit), ptr(wtsplit), ptr(bf),
+              ptr(g), ptr(pos), ptr(cstart), ptr(gcap), ptr(gimg), ptr(gw), ptr(gb),
+              *(ptr(ws[k]) for k in ("e", "gy", "gimg_p", "gw_p", "gb_p")),
+              ni, nc, l, d, s, GW_SPLITS, int(img.dtype == torch.bfloat16), dev.index,
+              current_stream(dev))
     check(lib, "sgraf_align_bwd_kernels", code)
     sgraf_align_bwd_fused.launches += 1
     return gcap, gimg, gw, gb

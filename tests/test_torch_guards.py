@@ -542,6 +542,31 @@ def test_sgraf_align_sources_are_built_and_hashed(tmp_path, monkeypatch):
     assert len({paths[1] for paths in seen}) == 4  # the backward: all but fwd's source
 
 
+def test_sgraf_align_bwd_sources_are_built_and_hashed(tmp_path, monkeypatch):
+    """The backward's C entry exists; it includes the node assembly and the
+    split tensor-core products (which include the A product), no longer the
+    fp32-FMA tile product of gemm_tile.cuh; and its library name changes when
+    its source or any header it includes changes, and not when another
+    kernel's source does."""
+    bwd = kernels.CSRC / sgraf_align.BWD_SOURCE
+    text = bwd.read_text()
+    assert "int itrx_sgraf_align_bwd(" in text
+    for header in ("sgraf_nodes.cuh", "sgraf_nodes_mma.cuh"):
+        assert f'#include "{header}"' in text
+    assert '#include "gemm_tile.cuh"' not in text
+    headers = ("sgraf_nodes_mma.cuh", "sgraf_nodes.cuh", "xattn_product.cuh")
+    for name in (sgraf_align.BWD_SOURCE, sgraf_align.SOURCE) + headers:
+        (tmp_path / name).write_text((kernels.CSRC / name).read_text())
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    seen = [kernels.library_path("sgraf_align_bwd")]
+    for edited in headers + (sgraf_align.BWD_SOURCE,):
+        (tmp_path / edited).write_text("// edited\n")
+        seen.append(kernels.library_path("sgraf_align_bwd"))
+    assert len(set(seen)) == 2 + len(headers)
+    (tmp_path / sgraf_align.SOURCE).write_text("// edited\n")
+    assert kernels.library_path("sgraf_align_bwd") == seen[-1]
+
+
 @pytest.mark.parametrize("sim_bf16", [True, False])
 def test_sgraf_sgr_training_routes_the_reasoning_by_sim_bf16(monkeypatch, sim_bf16):
     """SGRAF-SGR training sends each chunk's reasoning steps to

@@ -166,9 +166,10 @@ def test_sgraf_align_fused_takes_the_plain_pair_on_the_cpu(rng):
 
 def test_row_layout_ranks_valid_words(rng):
     """The backward's compact rows: each valid word's rank in its caption
-    and each caption's first row, for a mask with a hole."""
+    and each caption's first word, then the number of valid words (no
+    count is returned to the host), for a mask with a hole."""
     mask = torch.tensor([[1.0, 1.0, 0.0, 0.0], [1.0, 0.0, 1.0, 1.0], [1.0, 1.0, 1.0, 1.0]])
-    pos, cstart, n = ka.row_layout(mask, 5)
-    assert n == 9
-    assert cstart.tolist() == [0, 2, 5]
+    pos, cstart = ka.row_layout(mask)
+    assert cstart.dtype == pos.dtype == torch.int32
+    assert cstart.tolist() == [0, 2, 5, 9]
     assert pos.tolist() == [[0, 1, 2, 2], [0, 1, 1, 2], [0, 1, 2, 3]]
