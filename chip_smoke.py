@@ -31,8 +31,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    bit-identical) at one training chunk, 32 captions x 128 images x 24
    words, and at a ragged odd shape, bf16 and fp32, with the backward's
    device time by launch (torch.profiler over the timed calls), its
-   products' TFLOP/s and share of the bound, and one backward call under
-   torch.cuda.set_sync_debug_mode("error") (no device-to-host sync); the SGR training
+   products' TFLOP/s and share of the bound, one backward call under
+   torch.cuda.set_sync_debug_mode("error") (no device-to-host sync), and in
+   bf16 a float64 witness (gcap and gimg of the kernel and of the plain
+   version, each against a float64 plain run on the same values); the SGR training
    reasoning kernels to `sgr_reason_plain` and `sgr_reason_bwd_plain`
    (the final nodes, all seven cotangents, dbk identically 0, two backward
    calls bit-identical) at one training chunk, 4096 pairs x 25 nodes,
@@ -41,7 +43,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    `vsrn_dec_bwd_plain` (the states and residuals, all nine cotangents, two
    backward calls bit-identical) at the training path's decode, 59 steps x
    128 x 36 regions, H 512, without and with the context dropout, and at a
-   ragged odd shape; CAMERA's AGSA gated attention kernels to
+   ragged odd shape, the backward also at its other loop routes
+   (VSRN_DEC_ROUTE_SHAPES: H 1024 with its weights streamed, 128 regions,
+   B 200; one and two blocks a unit slice over several batch tiles), with
+   the backward's device time by launch (profiler), its products' TFLOP/s
+   and share of the bound, and one backward call under
+   torch.cuda.set_sync_debug_mode("error"); CAMERA's AGSA gated attention kernels to
    `agsa_attention_plain` and `agsa_attention_bwd_plain` (all eleven
    cotangents, two backward calls bit-identical) at both towers' calls on
    the evaluation and training paths (128 x 64 heads x 36 regions or 32
@@ -309,6 +316,12 @@ VSRN_BWD_REL = 1e-4
 # 60, batch 128, 36 regions, dim_hidden 512) without and with its 0.2
 # dropout, then a ragged odd shape
 VSRN_DEC_SHAPES = ((59, 128, 36, 512, 1.0), (59, 128, 36, 512, 0.8), (7, 37, 5, 96, 0.5))
+# the backward's other loop routes, held within VSRN_BWD_REL too (inputs
+# from a generator of their own): H 1024 (its weight fragments streamed,
+# one block a unit slice) with the most regions and two 128-row batch tiles;
+# one block a slice with the fragments resident; two blocks a slice with
+# several 64-row tiles each
+VSRN_DEC_ROUTE_SHAPES = ((5, 200, 128, 1024, 0.8), (4, 40, 7, 600, 1.0), (3, 300, 36, 64, 0.5))
 VSRN_DEC_NAMES = ("g_gxw", "g_cmask", "g_enc_out", "g_enc_att", "g_h0", "dWatt", "dw2",
                   "dWctx", "dWhh", "dbhh")
 # CAMERA's AGSA gated attention kernel vs its plain version on the same
@@ -405,6 +418,11 @@ SGRAF_EVAL_FMA_MS = {"saf": (12.642, 18.232), "sgr": (24.046, 29.145)}
 # products) at one training chunk (ms, bf16 and fp32; NVIDIA H100 80GB HBM3,
 # 700.00 W), printed beside this run's
 ALIGN_BWD_FMA_MS = (12.659, 15.660)
+# the VSRN decoder backward's earlier design (four launches a step on 16
+# SMs, fp32-FMA products) at the training path's decode, T 59 x B 128 x R 36
+# x H 512, keep 0.8 (ms, fp32; NVIDIA H100 80GB HBM3, 700.00 W), printed
+# beside this run's
+VSRN_BWD_FMA_MS = 37.474
 # builds of the SAF kernel for measurements only (kernels.load(name,
 # defines)): its tile epilogues cut, and the projection cut too (the phases
 # of its time)
@@ -1256,6 +1274,22 @@ def phase_sgraf_align(g) -> dict:
             log(f"  {tag}: two backward calls bit-identical: {same}")
             if not same:
                 raise AssertionError(f"{tag}: the backward is not deterministic")
+            if dt == torch.bfloat16:
+                # the float64 witness: the kernel's and the plain version's bf16
+                # gcap and gimg, each against a float64 plain run on the same
+                # (bf16) values, which separates the kernel's error from the
+                # conditioning of the one-word captions' sign-like word norm
+                x64 = {k: v.double() for k, v in xd.items()}
+                p64 = sgraf_align_bwd_plain(**x64, g=cot.to(dt).double())
+                wit = {}
+                for i, name in ((0, "gcap"), (1, "gimg")):
+                    wit[name] = {"kernel": rel_err(kb[i].double(), p64[i]),
+                                 "plain": rel_err(pb[i].double(), p64[i])}
+                    log(f"    float64 witness {name}: kernel {wit[name]['kernel']:.3e}, plain "
+                        f"{wit[name]['plain']:.3e} of the float64 plain run (the kernel vs "
+                        f"the plain version: {errs[name]:.3e}; limit "
+                        f"{ALIGN_BWD_BF16_REL:g})")
+                res.setdefault("bwd_f64_witness", {})[f"{nc}x{ni}x{l}"] = wit
             if (nc, ni, l) == ALIGN_SHAPES[0] and dt == torch.bfloat16:
                 res["max_abs_err"] = e_fwd
                 res["bwd_max_abs_err"] = max(float((a.float() - w_.float()).abs().max())
@@ -2058,14 +2092,18 @@ def _vsrn_dec_inputs(g, t, b, r, h, keep):
     return {n: v.to(DEV).contiguous() for n, v in x.items()}, ghs.to(DEV)
 
 
-def vsrn_dec_bound(x: dict, backward: bool = False) -> dict:
+def vsrn_dec_bound(x: dict, backward: bool = False, fma: bool = False) -> dict:
     """The bound of one decode call (fp32): the inputs read once and the
     outputs written once (the forward's states and residuals; the backward's
     ten cotangents), against the products (forward 2 B H^2 x 7 a step:
     h [Watt | Whh]^T and ctx Wctx^T; backward 2 B H^2 x 18: the recomputed
     hq and gx, g_gx Wctx, the carry's [g_hq | g_gh] [Watt ; Whh] and the
     weight sums) and the attention's elementwise work (about 6 and 16
-    operations per (b, r, h) a step) at the fp32 peak."""
+    operations per (b, r, h) a step).  The forward's products count at the
+    fp32 peak; the backward's, which its kernels run on the tensor cores as
+    split-bf16 products, at the TF32 tensor-core peak (`fma`: all at the
+    fp32 peak, the per-step FMA design's figure), its elementwise work at
+    the fp32 peak.  Also "product_flop"."""
     t, b, h3 = x["gxw"].shape
     h, r = h3 // 3, x["enc_out"].shape[1]
     ins = nbytes(*x.values())
@@ -2073,7 +2111,9 @@ def vsrn_dec_bound(x: dict, backward: bool = False) -> dict:
         return bound(ins + 4 * t * b * (h + h + h3), {"fp32": t * (14 * b * h * h + 6 * b * r * h)})
     saves = 4 * t * b * (h + h3 + h)  # hall, ghall, g_hs
     outs = ins - nbytes(x["cmask"])  # every input's cotangent but the mask's
-    return bound(ins + saves + outs, {"fp32": t * (36 * b * h * h + 16 * b * r * h)})
+    products, rest = t * 36.0 * b * h * h, t * 16.0 * b * r * h
+    ops = {"fp32": products + rest} if fma else {"tf32": products, "fp32": rest}
+    return {**bound(ins + saves + outs, ops), "product_flop": products}
 
 
 def phase_vsrn_dec(g) -> dict:
@@ -2127,6 +2167,25 @@ def phase_vsrn_dec(g) -> dict:
             res["fwd_rel_err"] = e_fwd
             res["bwd_max_abs_err"] = max(float((a - w_).abs().max()) for a, w_ in zip(kb, pb))
             res["bwd_rel_err"] = errs
+    gr = torch.Generator().manual_seed(1)
+    for t, b, r, h, keep in VSRN_DEC_ROUTE_SHAPES:
+        tag = f"vsrn_dec T {t} x B {b} x R {r} x H {h}, keep {keep}"
+        x, ghs = _vsrn_dec_inputs(gr, t, b, r, h, keep)
+        args = tuple(x.values())
+        _, hall, ghall = vsrn_dec_plain(*args)
+        kb = vsrn_dec_bwd_fused(*args, hall, ghall, ghs)
+        pb = vsrn_dec_bwd_plain(*args, hall, ghall, ghs)
+        errs = {n: rel_err(a, w_) for n, a, w_ in zip(VSRN_DEC_NAMES, kb, pb) if n != "g_cmask"}
+        worst = max(errs, key=errs.get)
+        same = all(torch.equal(a, b_) for a, b_ in
+                   zip(kb, vsrn_dec_bwd_fused(*args, hall, ghall, ghs)))
+        log(f"  {tag} backward ({kvsrn.plan(b, r, h, sms=kvsrn._sms(DEV))}): largest rel_err "
+            f"{errs[worst]:.3e} ({worst}; limit {VSRN_BWD_REL:g}), two calls bit-identical: {same}")
+        if not all(torch.isfinite(a).all() for a in kb) or not errs[worst] <= VSRN_BWD_REL:
+            raise AssertionError(f"{tag}: {worst} rel_err {errs[worst]} > {VSRN_BWD_REL}")
+        if not same or float(kb[1].abs().max()) != 0.0:
+            raise AssertionError(f"{tag}: the backward is not deterministic or the mask's "
+                                 "cotangent is not 0")
     x, ghs = _vsrn_dec_inputs(g, *VSRN_DEC_SHAPES[1])
     args = tuple(x.values())
     _, hall, ghall = vsrn_dec_plain(*args)
@@ -2136,18 +2195,40 @@ def phase_vsrn_dec(g) -> dict:
         res["fwd_no_residuals_ms"] = cuda_ms(lambda: vsrn_dec_fused(*args), reps=10)
         res["plain_ms"] = cuda_ms(lambda: vsrn_dec_plain(*args), reps=5)
     res["bwd_ms"] = cuda_ms(lambda: vsrn_dec_bwd_fused(*args, hall, ghall, ghs), reps=10)
+    res["bwd_launch_ms"] = _launch_ms(lambda: vsrn_dec_bwd_fused(*args, hall, ghall, ghs))
     res["bwd_plain_ms"] = cuda_ms(lambda: vsrn_dec_bwd_plain(*args, hall, ghall, ghs), reps=5)
     res.update(vsrn_dec_bound(x))
     for k, v in vsrn_dec_bound(x, backward=True).items():
         res["bwd_" + k] = v
+    res["bwd_bound_ms_fma"] = vsrn_dec_bound(x, backward=True, fma=True)["bound_ms"]
+    res["bwd_tflops"] = res["bwd_product_flop"] / (res["bwd_ms"] * 1e9)
+    res["bwd_share_of_bound"] = res["bwd_bound_ms"] / res["bwd_ms"]
+    res["bwd_plan"] = kvsrn.plan(x["gxw"].shape[1], x["enc_out"].shape[1],
+                                 x["enc_out"].shape[2], sms=kvsrn._sms(DEV))
+    # the backward reads nothing back to the host: a synchronizing call
+    # under the sync debug mode raises
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        vsrn_dec_bwd_fused(*args, hall, ghall, ghs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    res["bwd_no_sync"] = True
     # no PyTorch call computes the decode loop or its backward
     res["library_ms"] = None
     t, b, r, h, keep = VSRN_DEC_SHAPES[1]
     log(f"  time T {t} x B {b} x R {r} x H {h} (keep {keep}), fp32: forward kernels "
         f"{res['ms']:.3f} ms with residuals ({res['fwd_no_residuals_ms']:.3f} without), plain "
         f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
-        f"backward kernels {res['bwd_ms']:.3f} ms, plain {res['bwd_plain_ms']:.3f} ms, bound "
-        f"{res['bwd_bound_ms']:.4f} ms ({res['bwd_bound_by']})")
+        f"backward kernels {res['bwd_ms']:.3f} ms (the per-step FMA design: "
+        f"{VSRN_BWD_FMA_MS:.3f}), plain {res['bwd_plain_ms']:.3f} ms, bound "
+        f"{res['bwd_bound_ms']:.4f} ms ({res['bwd_bound_by']}, products at the TF32 peak; "
+        f"{res['bwd_bound_ms_fma']:.4f} at the fp32 peak), products "
+        f"{res['bwd_tflops']:.2f} TFLOP/s, {100 * res['bwd_share_of_bound']:.2f}% of the bound; "
+        f"loop {res['bwd_plan']}")
+    log("  backward, device ms a call by launch (profiler): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in res["bwd_launch_ms"].items()))
+    log("  one backward call under torch.cuda.set_sync_debug_mode('error'): no sync")
     return res
 
 

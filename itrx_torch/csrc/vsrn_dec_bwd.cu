@@ -7,218 +7,801 @@
 //     (alpha, the masked ctx; vsrn_dec.cuh) and gx = ctx Wctx^T + gxw;
 //   then in reverse over t, carrying only g (B x H), g_ht = g + g_hs[t]:
 //     the GRU cell's adjoint -> g_gx = [g_prer | g_prez | g_pren] (= g_gxw[t])
-//       and g_gh = [g_prer | g_prez | g_pren r]
+//       and g_gh = [g_prer | g_prez | g_pren r], gp = g_ht z
 //     g_ctx = (g_gx Wctx) * cmask_t
 //     per batch row: g_alpha_r = g_ctx . enc_out_r, g_e = alpha (g_alpha -
-//       alpha . g_alpha), g_pre = g_e w2 (1 - o^2); g_enc_att += g_pre,
-//       g_enc_out += alpha g_ctx, g_hq = sum_r g_pre, dw2 part = sum_r g_e o
-//     g = g_ht z + [g_hq | g_gh] [Watt ; Whh]
-//   then the weight sums over the T x B rows:
-//     [dWatt ; dWhh | . ; dbhh] = [g_hq | g_gh]^T [hall | 1],
-//     dWctx = g_gx^T ctx,  dw2 = the sum of the parts.
+//       alpha . g_alpha), g_hq = sum_r g_e_r w2 (1 - o_r^2), o = tanh(enc_att
+//       + hq)
+//     g = gp + [g_hq | g_gh] [Watt ; Whh]
+//   then the sums over t that nothing in the loop reads:
+//     g_enc_out[b] = sum_t alpha_t[b]^T g_ctx_t[b],
+//     g_enc_att[b, r] = w2 * sum_t g_e_t[b, r] (1 - o_t[b, r]^2),
+//     dw2 = sum_{t, b, r} g_e o,
+//     [dWatt ; dWhh | . ; dbhh] = [g_hq | g_gh]^T [hall | 1],  dWctx = g_gx^T ctx.
 //
-// What bounds it here: fp32 operations, about 2 B H^2 x 18 a step (the
-// recomputed hq and gx, g_gx Wctx, [g_hq | g_gh] [Watt ; Whh] and the three
-// weight sums), the T steps of the carry in sequence.  Design: the
-// recomputation and the weight sums run over all T x B rows at once (the
-// 64 x 64 fp32 tile product of gemm_tile.cuh; the weight sums over fixed
-// splits of the rows summed in order); per step four launches (cell, g_ctx
-// product, attention adjoint with one block a batch row, carry product).
-// g_enc_att and g_enc_out are sums over t of which each element is owned by
-// one thread; no atomics, so two calls give identical gradients.
-#include "gemm_tile.cuh"
+// What bounds it: the products, 2 B H^2 x 18 a step (the recomputed hq and
+// gx, g_gx Wctx, the carry's [g_hq | g_gh] [Watt ; Whh] and the weight sums),
+// of which the loop's two run in T steps one after the other.  Every product
+// runs on the tensor cores as a split-bf16 product (sgraf_nodes_mma.cuh's
+// split: x = hi + lo both bf16, three passes a_hi b_lo + a_lo b_hi +
+// a_hi b_hi, fp32 accumulation), so the gradients keep fp32 accuracy; the
+// weights are split once a call by the wrapper.  Design:
+//   1. proj_kernel (twice) and attend_kernel: the recomputation over all rows
+//      (mma_tile's wgmma on TMA-staged weight slabs).
+//   2. loop_kernel: the reverse loop as one persistent cooperative launch, a
+//      block an SM (gru_persistent.cuh's grid barrier).  A block owns 8
+//      hidden units j and keeps its split B fragments of the loop's weights
+//      in shared memory for all steps (streamed through a cp.async ring where
+//      they do not fit: H above 775); where the card has room (H <= 528 on
+//      132 SMs) two blocks share the units, each taking half of the batch
+//      rows.  A step is three phases between three grid barriers:
+//        - from one read of the exchange [g_prer | g_prez | g_pren | g_pren r]
+//          (B x 4H, at L2), g_ctx[:, j] = (g_gx Wctx)[:, j] cmask_t and the
+//          carry's g_gh Whh[:, j] (mma.sync, two n8 tiles);
+//        - the attention's adjoint, a block a batch row, from the whole g_ctx
+//          row: g_e and g_hq;
+//        - the carry g[:, j] = gp + g_hq Watt[:, j] (one n8 tile), then the
+//          cell's adjoint of the next step for the block's units, which
+//          writes the exchange (the cell is elementwise in j; its inputs load
+//          during the product).
+//      The products' operand rows come from the exchange at L2 and pace them
+//      with the barriers (python -m itrx_torch.tools.vsrn_dec_phases); each
+//      block walks the depth from its own offset.  The loop keeps only what
+//      feeds the carry: it saves g_ctx and g_e of every step and writes
+//      [g_hq | g_gh] per step where the weight sums read it.
+//   3. attn_sums_kernel: g_enc_out, g_enc_att and dw2's parts in one pass
+//      after the loop, a thread per (b, h) and four regions, the sums over t
+//      in order (tanh again on the recomputed hq).
+//   4. gsum_kernel (twice): the weight sums (wgmma, both operands split as
+//      they are staged, sgraf_align_bwd.cu's gw_kernel pattern) over fixed
+//      splits of the rows; wsum_reduce and colsum_kernel sum the splits and
+//      parts in order.
+// No atomics and every sum in a fixed order, so two calls give identical
+// gradients; nothing is read back to the host.  Each launch's time on the
+// card is in PERF.md §6.
+#include "gru_persistent.cuh"
+#include "sgraf_nodes_mma.cuh"
 #include "vsrn_dec.cuh"
 
 namespace {
 
-using namespace itrx_gemm;
-using namespace itrx_vsrn;
+namespace mma = itrx_sgraf_mma;
+using itrx_vsrn::kMaxH;
+using itrx_vsrn::kMaxR;
+using itrx_vsrn::sigmoid_f;
+using itrx_vsrn::warp_sum;
 
-// C (M x N) = A (M x K, row stride lda) Bm (K x N, row stride ldb), then
-// C *= mul and C += add where those are not null (both M x N).
-__global__ void __launch_bounds__(kGemmThreads)
-dense_kernel(const float* __restrict__ A, int lda, const float* __restrict__ Bm, int ldb,
-             const float* __restrict__ mul, const float* __restrict__ add,
-             float* __restrict__ C, int M, int N, int K) {
-  __shared__ __align__(16) float As[kBK][kBM];
-  __shared__ __align__(16) float Bs[kBK][kBN];
-  gemm_tile<false>(
-      As, Bs, M, N, 0, K, blockIdx.y * kBM, blockIdx.x * kBN,
-      [&](int m, int k) { return A[(size_t)m * lda + k]; },
-      [&](int k, int n) { return Bm[(size_t)k * ldb + n]; },
-      [&](int m, int n, float v) {
-        const size_t o = (size_t)m * N + n;
-        if (mul != nullptr) v *= mul[o];
-        if (add != nullptr) v += add[o];
-        C[o] = v;
-      });
+constexpr int kThreads = 256, kWarps = kThreads / 32;
+
+#ifdef ITRX_VSRN_DEC_PHASES
+// the loop's phases as block 0's thread 0 sees them (tools/vsrn_dec_phases.py)
+constexpr int kPhases = 7;
+__device__ unsigned long long g_phase_ns[kPhases];
+__device__ __forceinline__ unsigned long long phase_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define PHASE_START                                  \
+  unsigned long long phase_ns[kPhases] = {}, phase_at = 0; \
+  if (blockIdx.x == 0 && threadIdx.x == 0) phase_at = phase_now();
+#define PHASE(i)                                     \
+  if (blockIdx.x == 0 && threadIdx.x == 0) {         \
+    const unsigned long long now_ = phase_now();     \
+    phase_ns[i] += now_ - phase_at;                  \
+    phase_at = now_;                                 \
+  }
+#define PHASE_END                                    \
+  if (blockIdx.x == 0 && threadIdx.x == 0) {         \
+    for (int i = 0; i < kPhases; ++i) g_phase_ns[i] = phase_ns[i]; \
+  }
+#else
+#define PHASE_START
+#define PHASE(i)
+#define PHASE_END
+#endif
+
+// ---------------------------------------------------------------- 1
+// Rows t0 .. t0 + nrows - 1 of an fp32 matrix (row stride ld), columns
+// k < K: the operand of mma_tile (scalar loads, any alignment).
+struct RowsF32 {
+  const float* __restrict__ src;
+  long long t0;
+  int nrows, ld, K;
+  float pre[8];
+
+  __device__ __forceinline__ void prepare() {}
+  __device__ __forceinline__ void stage(int) {}
+  __device__ __forceinline__ void load(int s) {
+    const mma::Part pt(s);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = pt.r0 + 8 * h;
+      const float* row = src + (t0 + (r < nrows ? r : 0)) * ld;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pre[4 * h + i] = (r < nrows && pt.k(i) < K) ? row[pt.k(i)] : 0.0f;
+    }
+  }
+  __device__ __forceinline__ void make(int, float (&v)[8]) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = pre[i];
+  }
+};
+
+constexpr int kProjBytes = (mma::kWStages * mma::kWStage + 2 * mma::kAStage) * 4;
+
+// out (rows x N, row stride N) = A (rows x K, row stride lda) W^T (+ add, the
+// layout of out), one 64-row tile and one chunk of S8 columns a block; W
+// split by the wrapper into chunks of S8 rows of Kp words (mma_tile's slab
+// layout).  Two blocks an SM.
+__global__ void __launch_bounds__(kThreads, 2)
+proj_kernel(const float* __restrict__ A, int lda, int K, const uint32_t* __restrict__ wsplit,
+            int Kp, int S8, const float* __restrict__ add, float* __restrict__ out, int N,
+            long long rows) {
+  extern __shared__ __align__(128) float smem[];
+  uint32_t* const u = reinterpret_cast<uint32_t*>(smem);
+  const mma::Ring rg{u + mma::kWStages * mma::kWStage, u, smem};
+  const long long t0 = (long long)blockIdx.x * mma::kMmaRows;
+  const int j = blockIdx.y;
+  const int nrows = (int)min((long long)mma::kMmaRows, rows - t0);
+  mma::init_weight_bars();
+  RowsF32 prod{A, t0, nrows, lda, K, {}};
+  mma::Acc acc;
+  mma::mma_tile(acc, rg, wsplit + (size_t)j * S8 * Kp, Kp, S8, nrows, prod);
+  mma::tile_out(acc, rg, nrows, [&](const float* y, int n) {
+    const int c = threadIdx.x, col = j * S8 + c;
+    if (c >= S8 || col >= N) return;
+    for (int r = 0; r < n; ++r) {
+      const size_t o = (size_t)(t0 + r) * N + col;
+      out[o] = y[r * mma::kLdY + c] + (add != nullptr ? add[o] : 0.0f);
+    }
+  });
 }
 
-// The GRU cell's adjoint at step t, one thread an element of (B, H).
-__global__ void cell_bwd_kernel(const float* __restrict__ carry, const float* __restrict__ ghs,
-                                const float* __restrict__ gx, const float* __restrict__ gh,
-                                const float* __restrict__ hprev, float* __restrict__ ggx,
-                                float* __restrict__ ggh, float* __restrict__ gp, int B, int H) {
-  const size_t n_el = (size_t)B * H;
-  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < n_el;
-       idx += (size_t)gridDim.x * blockDim.x) {
-    const size_t b = idx / H, j = idx % H;
-    const size_t row = b * 3 * H;
-    const float g_ht = carry[idx] + ghs[idx];
-    const float r = sigmoid_f(gx[row + j] + gh[row + j]);
-    const float z = sigmoid_f(gx[row + H + j] + gh[row + H + j]);
-    const float hn = gh[row + 2 * H + j];
-    const float n = tanhf(gx[row + 2 * H + j] + r * hn);
+// ---------------------------------------------------------------- 2
+struct LoopArgs {
+  const float* gx;      // (T, B, 3H) recomputed input gates
+  const float* ghall;   // (T, B, 3H)
+  const float* hall;    // (T, B, H)
+  const float* ghs;     // (T, B, H)
+  const float* cmask;   // (T, B, H)
+  const float* enco;    // (B, R, H)
+  const float* enca;    // (B, R, H)
+  const float* hq;      // (T, B, H) recomputed
+  const float* alpha;   // (T, B, R) recomputed
+  const float* w2;      // (H)
+  const uint32_t* f1;   // the first product's split B fragments, a unit group's
+                        // Kp4 / 16 k16 steps x 2 n8 tiles (loop_weights)
+  const uint32_t* f3;   // the carry product's (Watt^T), Kp1 / 16 steps x 1 tile
+  float* ggxw;          // (T, B, 3H) out
+  float* gh0;           // (B, H) out
+  float* eg;            // (B, Kp4) exchange: [g_prer | g_prez | g_pren | g_pren r]
+  float* cat;           // (T, B, Kp4): [g_hq | g_gh] a step, zero past 4H
+  float* gctx;          // (T, B, H): the masked g_ctx a step
+  float* ge;            // (T, B, R): g_e a step
+  float* gp;            // (B, H): g_ht z of the step
+  unsigned* bar;        // grid barrier, two zeroed words
+  int T, B, R, H, Kp1, Kp4;
+};
+
+constexpr int kUnits = 8;        // hidden units a loop block owns: one n8 tile
+constexpr int kStepWords = 128;  // one n8 tile's split B fragments of a k16 step, 32 lanes
+constexpr int kChunkSteps = gru::kKAlign / 16;  // k16 steps in one streamed chunk
+
+// Chunk `chunk` of a streamed run of the first product's weight fragments
+// (NT tiles) into ring slot chunk % kStages: k16 steps ((chunk % per + rot) %
+// per) 4 .. + 3, one contiguous piece of NT kChunkSteps kStepWords words.
+template <int NT>
+__device__ __forceinline__ void ring_issue_frag(uint32_t* ring, int chunk, int total, int per,
+                                                int rot, const uint32_t* __restrict__ src) {
+  constexpr int kWords = NT * kChunkSteps * kStepWords;
+  if (chunk < total) {
+    uint32_t* slot = ring + (chunk % gru::kStages) * kWords;
+    const uint32_t* from = src + (size_t)((chunk % per + rot) % per) * kWords;
+    for (int i = 4 * threadIdx.x; i < kWords; i += 4 * kThreads) {
+      gru::cp_async16(slot + i, from + i, 16);
+    }
+  }
+  gru::cp_async_commit();
+}
+
+// One product of a tile of the block's batch rows (16 MT rows) against the
+// block's NT n8 tiles of weight columns, on the tensor cores: mma.sync
+// m16n8k16 with x = hi + lo both bf16 and three passes a_hi b_lo + a_lo b_hi
+// + a_hi b_hi, fp32 accumulation (sgraf_nodes_mma.cuh's split, fp32 accuracy
+// kept).  Warp w takes m-tile w % MT and part w / MT of the depth's k16 steps
+// (8 / MT parts); its A rows come from the exchange at L2, a float4 of rows g
+// and g + 8 a step and lane (lane t holding columns 4t .. 4t + 3 of the k16
+// step as its fragment slots 2t, 2t + 1, 2t + 8, 2t + 9; the wrapper lays the
+// B fragments out with the same permutation), DEPTH - 1 steps ahead, split as
+// they are used; its B fragments, pre-split, from shared memory (ws, or the
+// ring's slots when STREAM).  The walk over the depth starts at chunk `rot`
+// (of 4 k16 steps) and wraps, so that blocks reading the same rows at once
+// read different lines.  The parts are summed in order through shared
+// memory (part_s), ending with a barrier of the block; warps of part 0 end
+// with the tile's sums: d[nt][2 h + e] at row 16 mt + g + 8 h, column 2t + e
+// of tile nt.
+template <int MT, int NT, bool STREAM>
+__device__ __forceinline__ void product_mma(float (&d)[NT][4], const float* A, int lda,
+                                            int nrows, const uint32_t* ws, int Kp, int rot,
+                                            int& chunk, int total, const uint32_t* src,
+                                            float* part_s) {
+  using namespace gru;
+  constexpr int KS = 8 / MT, DEPTH = 8;
+  static_assert(!STREAM || KS == 1, "a streamed ring feeds every warp the same chunk");
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int mt = warp % MT, part = warp / MT;
+  const int nsteps = Kp / 16, per = nsteps / KS, s0 = part * per, r16 = rot * kChunkSteps;
+  const int ra = 16 * mt + g, rb = ra + 8;
+  const bool oka = ra < nrows, okb = rb < nrows;
+  const float* pa = A + (size_t)(oka ? ra : 0) * lda + 4 * t;
+  const float* pb = A + (size_t)(okb ? rb : 0) * lda + 4 * t;
+  // the part's s-th step is k16 step (s0 + s + r16) mod nsteps
+  const auto step_of = [&](int s) {
+    const int k = s0 + s + r16;
+    return k < nsteps ? k : k - nsteps;
+  };
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const auto load = [&](int s, float4& xa, float4& xb) {
+#ifdef ITRX_VSRN_DEC_PROBE_NO_LOADS
+    // a measurement build: the operand rows never read, what the rest takes
+    xa = xb = make_float4(__int_as_float(0x3f000000 | threadIdx.x), 0.f, 0.f, 0.f);
+#else
+    const int k = step_of(s) * 16;
+    xa = oka ? __ldcg(reinterpret_cast<const float4*>(pa + k)) : zero;
+    xb = okb ? __ldcg(reinterpret_cast<const float4*>(pb + k)) : zero;
+#endif
+  };
+  float dlo[NT][4], dhi[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) dlo[n][q] = dhi[n][q] = 0.0f;
+  float4 bufa[DEPTH], bufb[DEPTH];
+#pragma unroll
+  for (int i = 0; i < DEPTH - 1; ++i)
+    if (i < per) load(i, bufa[i], bufb[i]);
+  for (int s0i = 0; s0i < per; s0i += DEPTH) {
+#pragma unroll
+    for (int i = 0; i < DEPTH; ++i) {
+      const int s = s0i + i;
+      if (s < per) {
+        if (s + DEPTH - 1 < per) {
+          load(s + DEPTH - 1, bufa[(i + DEPTH - 1) % DEPTH], bufb[(i + DEPTH - 1) % DEPTH]);
+        }
+        const uint32_t* w;
+        if constexpr (STREAM) {
+          if (s % kChunkSteps == 0) {
+            cp_async_wait<kStages - 2>();
+            __syncthreads();
+            ring_issue_frag<NT>(const_cast<uint32_t*>(ws), chunk + kStages - 1, total,
+                                Kp / kKAlign, rot, src);
+            ++chunk;
+          }
+          w = ws + ((chunk - 1) % kStages) * (NT * kChunkSteps * kStepWords) +
+              (s % kChunkSteps) * NT * kStepWords;
+        } else {
+          w = ws + (size_t)step_of(s) * NT * kStepWords;
+        }
+        const float4 xa = bufa[i], xb = bufb[i];
+        uint32_t ah[4], al[4];
+        mma::split2(xa.x, xa.y, ah[0], al[0]);
+        mma::split2(xb.x, xb.y, ah[1], al[1]);
+        mma::split2(xa.z, xa.w, ah[2], al[2]);
+        mma::split2(xb.z, xb.w, ah[3], al[3]);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const uint4 b = *reinterpret_cast<const uint4*>(w + n * kStepWords + 4 * lane);
+#ifdef ITRX_VSRN_DEC_PROBE_NO_PRODUCTS
+          // a measurement build: the operands formed and kept, no products
+          dhi[n][0] += __uint_as_float(ah[0] ^ al[1] ^ ah[2] ^ al[3] ^ b.x ^ b.y ^ b.z ^ b.w);
+#else
+          mma::mma16(dlo[n], ah, b.z, b.w);
+          mma::mma16(dlo[n], al, b.x, b.y);
+          mma::mma16(dhi[n], ah, b.x, b.y);
+#endif
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) d[n][q] = dlo[n][q] + dhi[n][q];
+  if constexpr (KS > 1) {
+    // the parts' sums, in order of the part
+    float* mine = part_s + ((size_t)mt * 32 + lane) * NT * 4;
+    for (int p = 1; p < KS; ++p) {
+      if (part == p) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) mine[n * 4 + q] = d[n][q];
+      }
+      __syncthreads();
+      if (part == 0) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) d[n][q] += mine[n * 4 + q];
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The inputs of the cell's adjoint at one (row, unit), loaded a product ahead
+struct CellIn {
+  float x[3], hh[3], hp, gs;
+};
+
+// The reverse loop, a block an SM.  Block i owns hidden units j0 = (i /
+// halves) 8 .. j0 + 7 and, of the batch cut in tiles of 16 MT rows, the tiles
+// i % halves, i % halves + halves, ... (halves = 8 / MT; with MT 4 two blocks
+// share the units, each reading half of every exchange row block).  In the
+// warps of part 0 of the products, thread (warp, lane) owns, of each of its
+// tiles, rows 16 (warp % MT) + lane / 4 + 8 h and units j0 + 2 (lane % 4) + e
+// (h, e in {0, 1}): the products' output map, the same in every phase, so the
+// carry's local term gp never leaves its thread.
+template <int MT, bool STREAM>
+__global__ void __launch_bounds__(kThreads, 1) loop_kernel(const LoopArgs p) {
+  using namespace gru;
+  constexpr int kTile = 16 * MT, kHalves = 8 / MT, NT1 = 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float gcs[kMaxH];
+  __shared__ float al[kMaxR], ga[kMaxR];
+  __shared__ __align__(16) float part_s[4 * 32 * NT1 * 4];
+  const int T = p.T, B = p.B, Rg = p.R, H = p.H, H3 = 3 * H, Kp1 = p.Kp1, Kp4 = p.Kp4;
+  const int words3 = Kp1 / 16 * kStepWords;
+  const int words1 =
+      STREAM ? kStages * NT1 * kChunkSteps * kStepWords : Kp4 / 16 * NT1 * kStepWords;
+  uint32_t* const w3 = reinterpret_cast<uint32_t*>(smem_raw);  // Watt^T's fragments, resident
+  uint32_t* const w1 = w3 + words3;                            // w1's fragments, or the ring
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, tq = lane % 4, mt = warp % MT;
+  const bool owner = warp < MT;  // part 0 of the products
+  const int half = blockIdx.x % kHalves, group = blockIdx.x / kHalves;
+  const int j0 = group * kUnits;
+  const int n_tiles = (B + kTile - 1) / kTile;
+  const int my_tiles = n_tiles > half ? (n_tiles - half + kHalves - 1) / kHalves : 0;
+  const int per1 = Kp4 / kKAlign, total1 = STREAM ? T * my_tiles * per1 : 0;
+  // where the block's walks over the depth start (chunks of kKAlign columns)
+  const int rot1 = group % per1, rot3 = group % (Kp1 / kKAlign);
+  const uint32_t* f1 = p.f1 + (size_t)group * (Kp4 / 16) * NT1 * kStepWords;
+  const uint32_t* f3 = p.f3 + (size_t)group * words3;
+  int chunk1 = 0, chunk3 = 0;
+
+  for (int i = 4 * tid; i < words3; i += 4 * kThreads) cp_async16(w3 + i, f3 + i, 16);
+  if constexpr (STREAM) {
+    cp_async_commit();
+    for (int i = 0; i < kStages - 1; ++i) ring_issue_frag<NT1>(w1, i, total1, per1, rot1, f1);
+  } else {
+    for (int i = 4 * tid; i < words1; i += 4 * kThreads) cp_async16(w1 + i, f1 + i, 16);
+    cp_async_commit();
+  }
+  // the resident fragments are in before the first product (its barriers
+  // follow); a streamed ring's groups are waited for as they are used
+  if constexpr (!STREAM) cp_async_wait<0>();
+
+  const auto row_of = [&](int b0, int h) { return b0 + 16 * mt + g + 8 * h; };
+  const auto unit_of = [&](int e) { return j0 + 2 * tq + e; };
+  const auto load_cell = [&](int t, int b, int j, CellIn& v) {
+    if (b >= B || j >= H) return;
+    const size_t bt = (size_t)t * B + b;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      v.x[q] = p.gx[bt * H3 + q * H + j];
+      v.hh[q] = p.ghall[bt * H3 + q * H + j];
+    }
+    v.hp = p.hall[bt * H + j];
+    v.gs = p.ghs[bt * H + j];
+  };
+  // the cell's adjoint at step t for (row b, unit j) with carry g
+  const auto cell = [&](int t, int b, int j, const CellIn& v, float gc) {
+    const size_t bt = (size_t)t * B + b;
+    const float g_ht = gc + v.gs;
+    const float r = sigmoid_f(v.x[0] + v.hh[0]);
+    const float z = sigmoid_f(v.x[1] + v.hh[1]);
+    const float hn = v.hh[2];
+    const float n = tanhf(v.x[2] + r * hn);
     const float g_n = g_ht * (1.0f - z);
-    const float g_z = g_ht * (hprev[idx] - n);
-    gp[idx] = g_ht * z;
+    const float g_z = g_ht * (v.hp - n);
     const float g_pren = g_n * (1.0f - n * n);
     const float g_r = g_pren * hn;
     const float g_prer = g_r * r * (1.0f - r);
     const float g_prez = g_z * z * (1.0f - z);
-    ggx[row + j] = g_prer;
-    ggx[row + H + j] = g_prez;
-    ggx[row + 2 * H + j] = g_pren;
-    ggh[row + j] = g_prer;
-    ggh[row + H + j] = g_prez;
-    ggh[row + 2 * H + j] = g_pren * r;
-  }
-}
+    float* o = p.ggxw + bt * H3;
+    o[j] = g_prer;
+    o[H + j] = g_prez;
+    o[2 * H + j] = g_pren;
+    float* e = p.eg + (size_t)b * Kp4;
+    e[j] = g_prer;
+    e[H + j] = g_prez;
+    e[2 * H + j] = g_pren;
+    e[3 * H + j] = g_pren * r;
+    float* cr = p.cat + bt * Kp4 + H;
+    cr[j] = g_prer;
+    cr[H + j] = g_prez;
+    cr[2 * H + j] = g_pren * r;
+    p.gp[(size_t)b * H + j] = g_ht * z;
+  };
 
-// The attention's adjoint at step t, one block a batch row b (row i = t B + b
-// of the recomputed hq and alpha).  Accumulates g_enc_att and g_enc_out;
-// writes g_hq and the dw2 part of the row.
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_kernel(const float* __restrict__ enca, const float* __restrict__ enco,
-                const float* __restrict__ hq, const float* __restrict__ alpha,
-                const float* __restrict__ w2, const float* __restrict__ gctx,
-                float* __restrict__ genca, float* __restrict__ genco, float* __restrict__ ghq,
-                float* __restrict__ dw2p, int t, int B, int R, int H) {
-  __shared__ float gc[kMaxH];
-  __shared__ float al[kMaxR], ga[kMaxR];
-  const size_t b = blockIdx.x;
-  const size_t i = (size_t)t * B + b;
-  const size_t base = b * R * H;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int j = threadIdx.x; j < H; j += kThreads) gc[j] = gctx[b * H + j];
-  for (int r = threadIdx.x; r < R; r += kThreads) al[r] = alpha[i * R + r];
-  __syncthreads();
-  for (int r = warp; r < R; r += kWarps) {
-    float s = 0.0f;
-    for (int j = lane; j < H; j += 32) s = fmaf(gc[j], enco[base + (size_t)r * H + j], s);
-    s = warp_sum(s);
-    if (lane == 0) ga[r] = s;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    float d = 0.0f;
-    for (int r = lane; r < R; r += 32) d = fmaf(al[r], ga[r], d);
-    d = warp_sum(d);
-    for (int r = lane; r < R; r += 32) ga[r] = al[r] * (ga[r] - d);  // g_e
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < H; j += kThreads) {
-    const float q = hq[i * H + j], w = w2[j], c = gc[j];
-    float g_hq = 0.0f, dw = 0.0f;
-    for (int r = 0; r < R; ++r) {
-      const size_t o = base + (size_t)r * H + j;
-      const float ov = tanhf(enca[o] + q);
-      const float g_pre = ga[r] * w * (1.0f - ov * ov);
-      genca[o] += g_pre;
-      genco[o] += al[r] * c;
-      g_hq += g_pre;
-      dw = fmaf(ga[r], ov, dw);
+  // the first step's cell, with the carry 0
+  if (owner) {
+    for (int tl = half; tl < n_tiles; tl += kHalves) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int b = row_of(tl * kTile, h), j = unit_of(e);
+          CellIn v;
+          load_cell(T - 1, b, j, v);
+          if (b < B && j < H) cell(T - 1, b, j, v, 0.0f);
+        }
     }
-    ghq[i * H + j] = g_hq;
-    dw2p[i * H + j] = dw;
   }
-}
-
-// The carry: g = gp + [g_hq | g_gh] [Watt ; Whh], wcat (4H, H).
-__global__ void __launch_bounds__(kGemmThreads)
-carry_kernel(const float* __restrict__ ghq, const float* __restrict__ ggh,
-             const float* __restrict__ wcat, const float* __restrict__ gp,
-             float* __restrict__ out, int B, int H) {
-  __shared__ __align__(16) float As[kBK][kBM];
-  __shared__ __align__(16) float Bs[kBK][kBN];
-  gemm_tile<false>(
-      As, Bs, B, H, 0, 4 * H, blockIdx.y * kBM, blockIdx.x * kBN,
-      [&](int m, int k) {
-        return k < H ? ghq[(size_t)m * H + k] : ggh[(size_t)m * 3 * H + k - H];
-      },
-      [&](int k, int n) { return wcat[(size_t)k * H + n]; },
-      [&](int m, int n, float v) {
-        const size_t o = (size_t)m * H + n;
-        out[o] = v + gp[o];
-      });
-}
-
-// Split z of the weight sums over rows [z per, (z + 1) per): which == 0 gives
-// [g_hq | g_gh]^T [hall | 1] (4H x (H + 1)), which == 1 g_gx^T ctx (3H x H),
-// into part + z M N.
-__global__ void __launch_bounds__(kGemmThreads)
-wgrad_kernel(int which, const float* __restrict__ ghq, const float* __restrict__ ggh,
-             const float* __restrict__ hall, const float* __restrict__ ggx,
-             const float* __restrict__ ctx, int n_rows, int H, int per_split,
-             float* __restrict__ part) {
-  __shared__ __align__(16) float As[kBK][kBM];
-  __shared__ __align__(16) float Bs[kBK][kBN];
-  const int z = blockIdx.z;
-  const int kb = min(n_rows, z * per_split), ke = min(n_rows, kb + per_split);
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int M = which == 0 ? 4 * H : 3 * H, N = which == 0 ? H + 1 : H;
-  float* out = part + (size_t)z * M * N;
-  const auto st = [&](int m, int n, float v) { out[(size_t)m * N + n] = v; };
-  if (which == 0) {
-    gemm_tile<true>(
-        As, Bs, M, N, kb, ke, m0, n0,
-        [&](int m, int k) {
-          return m < H ? ghq[(size_t)k * H + m] : ggh[(size_t)k * 3 * H + m - H];
-        },
-        [&](int k, int n) { return n == H ? 1.0f : hall[(size_t)k * H + n]; }, st);
-  } else {
-    gemm_tile<true>(
-        As, Bs, M, N, kb, ke, m0, n0, [&](int m, int k) { return ggx[(size_t)k * 3 * H + m]; },
-        [&](int k, int n) { return ctx[(size_t)k * H + n]; }, st);
+  PHASE_START
+  for (int t = T - 1; t >= 0; --t) {
+    const size_t tB = (size_t)t * B;
+    grid_sync(p.bar);  // every unit's g_gx of step t is out
+    PHASE(1)
+    // from one read of the exchange: g_ctx[:, j] = (g_gx Wctx)[:, j] * cmask_t
+    // and the carry's g_gh Whh[:, j], added to gp
+    for (int tl = half; tl < n_tiles; tl += kHalves) {
+      const int b0 = tl * kTile;
+      float d[NT1][4];
+      product_mma<MT, NT1, STREAM>(d, p.eg + (size_t)b0 * Kp4, Kp4, B - b0, w1, Kp4, rot1,
+                                   chunk1, total1, f1, part_s);
+      if (owner) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int b = row_of(b0, h), j = unit_of(e);
+            if (b < B && j < H) {
+              const size_t o = (tB + b) * H + j;
+              p.gctx[o] = d[0][2 * h + e] * p.cmask[o];
+              p.gp[(size_t)b * H + j] += d[1][2 * h + e];
+            }
+          }
+      }
+    }
+    PHASE(2)
+    grid_sync(p.bar);  // every g_ctx row of step t is whole
+    PHASE(3)
+    // the attention's adjoint, a block a batch row
+    for (int b = blockIdx.x; b < B; b += gridDim.x) {
+      const size_t bt = tB + b;
+      for (int k = tid; k < H; k += kThreads) gcs[k] = __ldcg(p.gctx + bt * H + k);
+      for (int r = tid; r < Rg; r += kThreads) al[r] = p.alpha[bt * Rg + r];
+      __syncthreads();
+      // g_alpha: warp w takes rows w, w + 8, w + 16, w + 24 at once (their
+      // loads in flight together), then the next four
+      const float* eo = p.enco + (size_t)b * Rg * H;
+      for (int r0 = warp; r0 < Rg; r0 += 4 * kWarps) {
+        float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+        for (int k = lane; k < H; k += 32) {
+          const float gk = gcs[k];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (r0 + kWarps * i < Rg) s[i] = fmaf(gk, eo[(size_t)(r0 + kWarps * i) * H + k], s[i]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[i] = warp_sum(s[i]);
+          if (lane == 0 && r0 + kWarps * i < Rg) ga[r0 + kWarps * i] = s[i];
+        }
+      }
+      __syncthreads();
+      if (warp == 0) {
+        float dd = 0.0f;
+        for (int r = lane; r < Rg; r += 32) dd = fmaf(al[r], ga[r], dd);
+        dd = warp_sum(dd);
+        for (int r = lane; r < Rg; r += 32) {
+          ga[r] = al[r] * (ga[r] - dd);  // g_e
+          p.ge[bt * Rg + r] = ga[r];
+        }
+      }
+      __syncthreads();
+      // g_hq: a thread takes columns k and k + 256 at once
+      const float* ea = p.enca + (size_t)b * Rg * H;
+      for (int k = tid; k < H; k += 2 * kThreads) {
+        const int k2 = k + kThreads;
+        const bool two = k2 < H;
+        const float q = p.hq[bt * H + k], w = p.w2[k];
+        const float q2 = two ? p.hq[bt * H + k2] : 0.0f, w2v = two ? p.w2[k2] : 0.0f;
+        float g_hq = 0.0f, g_hq2 = 0.0f;
+#pragma unroll 6
+        for (int r = 0; r < Rg; ++r) {
+          const float o = tanhf(ea[(size_t)r * H + k] + q);
+          g_hq += ga[r] * w * (1.0f - o * o);
+          if (two) {
+            const float o2 = tanhf(ea[(size_t)r * H + k2] + q2);
+            g_hq2 += ga[r] * w2v * (1.0f - o2 * o2);
+          }
+        }
+        p.cat[bt * Kp4 + k] = g_hq;
+        if (two) p.cat[bt * Kp4 + k2] = g_hq2;
+      }
+      __syncthreads();  // the row's buffers are free
+    }
+    PHASE(4)
+    grid_sync(p.bar);  // every [g_hq | g_gh] row of step t is whole
+    PHASE(5)
+    // g = gp + g_hq Watt[:, j], then the next step's cell
+    for (int tl = half; tl < n_tiles; tl += kHalves) {
+      const int b0 = tl * kTile;
+      CellIn next[2][2];
+      if (owner && t > 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) load_cell(t - 1, row_of(b0, h), unit_of(e), next[h][e]);
+      }
+      float d[1][4];
+      product_mma<MT, 1, false>(d, p.cat + (tB + b0) * Kp4, Kp4, B - b0, w3, Kp1, rot3, chunk3,
+                                0, f3, part_s);
+      PHASE(6)
+      if (owner) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int b = row_of(b0, h), j = unit_of(e);
+            if (b >= B || j >= H) continue;
+            const float gc = p.gp[(size_t)b * H + j] + d[0][2 * h + e];
+            if (t > 0) {
+              cell(t - 1, b, j, next[h][e], gc);
+            } else {
+              p.gh0[(size_t)b * H + j] = gc;
+            }
+          }
+      }
+    }
+    PHASE(0)
   }
+  PHASE_END
 }
 
-// The splits summed in order: which == 0 into dWatt (H, H), dWhh (3H, H) and
-// dbhh (3H); which == 1 into dWctx (3H, H).
-__global__ void wreduce_kernel(int which, const float* __restrict__ part, int splits, int H,
-                               float* __restrict__ dwatt, float* __restrict__ dwhh,
-                               float* __restrict__ dbhh, float* __restrict__ dwctx) {
-  const int M = which == 0 ? 4 * H : 3 * H, N = which == 0 ? H + 1 : H;
-  const size_t n_out = (size_t)M * N;
-  const size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= n_out) return;
+// ---------------------------------------------------------------- 3
+constexpr int kSumCols = 128;  // h a block
+constexpr int kSumRegions = 4;  // regions a thread
+
+// A thread per (b, h) and kSumRegions regions r0 .. r0 + 3, the sums over t
+// in order: g_enc_out[b, r, h] = sum_t alpha[t, b, r] g_ctx[t, b, h];
+// g_enc_att[b, r, h] = w2[h] sum_t g_e[t, b, r] (1 - o^2); dw2p[(b, rgroup),
+// h] = sum over the thread's regions of sum_t g_e o (o = tanh(enc_att + hq)).
+__global__ void __launch_bounds__(kSumCols)
+attn_sums_kernel(const float* __restrict__ enca, const float* __restrict__ hq,
+                 const float* __restrict__ alpha, const float* __restrict__ gctx,
+                 const float* __restrict__ ge, const float* __restrict__ w2,
+                 float* __restrict__ genco, float* __restrict__ genca,
+                 float* __restrict__ dw2p, int T, int B, int R, int H) {
+  const int h = blockIdx.x * kSumCols + threadIdx.x;
+  const int rgi = blockIdx.y, r0 = rgi * kSumRegions, b = blockIdx.z;
+  if (h >= H) return;
+  float ea[kSumRegions], se[kSumRegions], so[kSumRegions], sd[kSumRegions];
+#pragma unroll
+  for (int k = 0; k < kSumRegions; ++k) {
+    ea[k] = r0 + k < R ? enca[((size_t)b * R + r0 + k) * H + h] : 0.0f;
+    se[k] = so[k] = sd[k] = 0.0f;
+  }
+  for (int t = 0; t < T; ++t) {
+    const size_t bt = (size_t)t * B + b;
+    const float q = hq[bt * H + h], gc = gctx[bt * H + h];
+#pragma unroll
+    for (int k = 0; k < kSumRegions; ++k) {
+      if (r0 + k >= R) continue;
+      const float o = tanhf(ea[k] + q);
+      const float g_e = ge[bt * R + r0 + k];
+      se[k] = fmaf(g_e, 1.0f - o * o, se[k]);
+      sd[k] = fmaf(g_e, o, sd[k]);
+      so[k] = fmaf(alpha[bt * R + r0 + k], gc, so[k]);
+    }
+  }
+  const float w = w2[h];
+  float dw = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kSumRegions; ++k) {
+    if (r0 + k >= R) continue;
+    const size_t o = ((size_t)b * R + r0 + k) * H + h;
+    genca[o] = w * se[k];
+    genco[o] = so[k];
+    dw += sd[k];
+  }
+  dw2p[((size_t)b * gridDim.y + rgi) * H + h] = dw;
+}
+
+// dw2 (H) = the sum of the n parts (n x H), in order.
+__global__ void colsum_kernel(const float* __restrict__ part, int n, int H,
+                              float* __restrict__ out) {
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  if (h >= H) return;
   float sum = 0.0f;
-  for (int z = 0; z < splits; ++z) sum += part[(size_t)z * n_out + o];
-  if (which == 1) {
-    dwctx[o] = sum;
-    return;
+  for (int i = 0; i < n; ++i) sum += part[(size_t)i * H + h];
+  out[h] = sum;
+}
+
+// ---------------------------------------------------------------- 4
+// part[z] (M x N) = sum over the rows of split z of A[row, m] Bm[row, n], a
+// 64 (m) x 256 (n) tile a block on wgmma, both operands split as they are
+// staged (a slab of 32 rows ahead, in registers); with bpart, also
+// bpart[z, m] = sum over the rows of A[row, m] (blocks with blockIdx.y 0).
+constexpr int kGsM = mma::kMmaRows;
+constexpr int kGsN = 256;
+constexpr int kGsA = kGsM * mma::kSlab;
+constexpr int kGsB = kGsN * mma::kSlab;
+constexpr int kGsBytes = 2 * (kGsA + kGsB) * 4;
+
+__global__ void __launch_bounds__(kThreads, 1)
+gsum_kernel(const float* __restrict__ A, int lda, int M, const float* __restrict__ Bm, int ldb,
+            int N, long long n_rows, int splits, float* __restrict__ part,
+            float* __restrict__ bpart) {
+  using mma::core_word;
+  extern __shared__ __align__(128) float smem[];
+  uint32_t* const a_s = reinterpret_cast<uint32_t*>(smem);  // [2][kGsA]
+  uint32_t* const b_s = a_s + 2 * kGsA;                     // [2][kGsB]
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, wg = tid / 128;
+  const int m0 = blockIdx.x * kGsM, n0 = blockIdx.y * kGsN, z = blockIdx.z;
+  const long long per = (n_rows + splits - 1) / splits;
+  const long long kb = min(n_rows, (long long)z * per), ke = min(n_rows, kb + per);
+  const int nslab = (int)((ke - kb + mma::kSlab - 1) / mma::kSlab);
+  // this thread forms k pairs 4 cc + t of A column am and of B columns
+  // 8 (warp + 8 jj) + lane / 4 (a warp's words on 32 banks)
+  const int t = tid % 4, am = tid / 4, bn = lane / 4;
+  const bool a_ok = m0 + am < M;
+  float pa[8], pb[32];
+  float bsum = 0.0f;
+  const auto load = [&](int sl) {
+    const long long k0 = kb + (long long)sl * mma::kSlab;
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long k = k0 + 2 * (4 * cc + t) + h;
+        const bool ok = k < ke;
+        pa[2 * cc + h] = (ok && a_ok) ? A[k * lda + m0 + am] : 0.0f;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int n = n0 + 8 * (warp + 8 * jj) + bn;
+          pb[8 * jj + 2 * cc + h] = (ok && n < N) ? Bm[k * ldb + n] : 0.0f;
+        }
+      }
+  };
+  const auto make = [&](int buf) {
+    uint32_t* a = a_s + buf * kGsA;
+    uint32_t* bb = b_s + buf * kGsB;
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const int st = cc / 2, kg = cc % 2;
+      uint32_t hi, lo;
+      mma::split2(pa[2 * cc], pa[2 * cc + 1], hi, lo);
+      a[2 * st * (kGsM * 8) + core_word(am, kg, t)] = hi;
+      a[(2 * st + 1) * (kGsM * 8) + core_word(am, kg, t)] = lo;
+      bsum += pa[2 * cc] + pa[2 * cc + 1];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int n = 8 * (warp + 8 * jj) + bn;
+        mma::split2(pb[8 * jj + 2 * cc], pb[8 * jj + 2 * cc + 1], hi, lo);
+        bb[2 * st * (kGsN * 8) + core_word(n, kg, t)] = hi;
+        bb[(2 * st + 1) * (kGsN * 8) + core_word(n, kg, t)] = lo;
+      }
+    }
+  };
+
+  mma::Acc acc;
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[i][q] = 0.0f;
+  mma::fence_acc(acc);
+  if (nslab > 0) {
+    load(0);
+    make(0);
+    if (nslab > 1) load(1);
   }
-  const int m = o / N, n = o % N;
-  if (m < H) {
-    if (n < H) dwatt[(size_t)m * H + n] = sum;  // column H (the bias of hq) has no use
-  } else if (n < H) {
-    dwhh[(size_t)(m - H) * H + n] = sum;
-  } else {
+  for (int sl = 0; sl < nslab; ++sl) {
+    // slab sl is formed and visible to the tensor cores; every warpgroup is
+    // done with slab sl - 1
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const uint32_t* as = a_s + (sl & 1) * kGsA;
+    const uint32_t* bs = b_s + (sl & 1) * kGsB + wg * 16 * 2 * mma::kCoreWords;
+    mma::fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      const uint64_t ah = mma::smem_desc(as + (2 * st) * (kGsM * 8), 128, 256);
+      const uint64_t alo = mma::smem_desc(as + (2 * st + 1) * (kGsM * 8), 128, 256);
+      const uint64_t bh = mma::smem_desc(bs + (2 * st) * (kGsN * 8), 128, 256);
+      const uint64_t blo = mma::smem_desc(bs + (2 * st + 1) * (kGsN * 8), 128, 256);
+      mma::wgmma_m64n128(acc, ah, blo);
+      mma::wgmma_m64n128(acc, alo, bh);
+      mma::wgmma_m64n128(acc, ah, bh);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // the products of slab sl run while slab sl + 1 is formed
+    if (sl + 1 < nslab) {
+      make((sl + 1) & 1);
+      if (sl + 2 < nslab) load(sl + 2);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    mma::fence_acc(acc);
+  }
+  const mma::Frag f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + f.row(h);
+    if (m >= M) continue;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + f.col(i, e);
+        if (n < N) part[((size_t)z * M + m) * N + n] = acc[i][2 * h + e];
+      }
+  }
+  if (bpart != nullptr && blockIdx.y == 0) {
+    // the four pair groups of each m summed in a fixed order
+    bsum += __shfl_xor_sync(0xffffffffu, bsum, 1);
+    bsum += __shfl_xor_sync(0xffffffffu, bsum, 2);
+    if (t == 0 && a_ok) bpart[(size_t)z * M + m0 + am] = bsum;
+  }
+}
+
+// The splits summed in order.  cat (which == 0): part (splits, 4H, H) into
+// dWatt (rows < H) and dWhh, bpart (splits, 4H) into dbhh (rows >= H); ctx
+// (which == 1): part (splits, 3H, H) into dWctx.
+__global__ void wsum_reduce(int which, const float* __restrict__ part,
+                            const float* __restrict__ bpart, int splits, int H,
+                            float* __restrict__ dwatt, float* __restrict__ dwhh,
+                            float* __restrict__ dbhh, float* __restrict__ dwctx) {
+  const int M = which == 0 ? 4 * H : 3 * H;
+  const size_t n_w = (size_t)M * H;
+  const size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  float sum = 0.0f;
+  if (o < n_w) {
+    for (int z = 0; z < splits; ++z) sum += part[(size_t)z * n_w + o];
+    if (which == 1) {
+      dwctx[o] = sum;
+    } else if (o < (size_t)H * H) {
+      dwatt[o] = sum;
+    } else {
+      dwhh[o - (size_t)H * H] = sum;
+    }
+  } else if (which == 0 && o < n_w + 3 * (size_t)H) {
+    const size_t m = o - n_w + H;
+    for (int z = 0; z < splits; ++z) sum += bpart[(size_t)z * M + m];
     dbhh[m - H] = sum;
   }
 }
 
-// dw2 (H) = the sum of the n_rows parts (n_rows x H), in row order.
-__global__ void colsum_kernel(const float* __restrict__ part, int n_rows, int H,
-                              float* __restrict__ out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= H) return;
-  float sum = 0.0f;
-  for (int i = 0; i < n_rows; ++i) sum += part[(size_t)i * H + j];
-  out[j] = sum;
+unsigned blocks_for(size_t n, int per) { return (unsigned)((n + per - 1) / per); }
+
+int round_up_i(int x, int m) { return (x + m - 1) / m * m; }
+
+// dynamic shared memory of the loop (ops/kernels/vsrn_dec.py::plan computes
+// the same)
+int loop_smem(int H, bool streamed) {
+  const int kp1 = round_up_i(H, gru::kKAlign), kp4 = round_up_i(4 * H, gru::kKAlign);
+  const int w3 = kp1 / 16 * kStepWords;
+  const int w1 = streamed ? gru::kStages * 2 * kChunkSteps * kStepWords : kp4 / 16 * 2 * kStepWords;
+  return (w3 + w1) * 4;
 }
 
-dim3 tiles(int M, int N) { return dim3((N + kBN - 1) / kBN, (M + kBM - 1) / kBM); }
+template <int MT, bool S>
+cudaError_t launch_loop(const LoopArgs& a, int blocks, int smem, cudaStream_t stream) {
+  auto* kernel = loop_kernel<MT, S>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  void* args[] = {const_cast<LoopArgs*>(&a)};
+  return cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args, (size_t)smem,
+                                     stream);
+}
 
 }  // namespace
 
@@ -226,90 +809,115 @@ extern "C" {
 
 // The backward of itrx_vsrn_dec_fwd.  In, fp32 and contiguous: gxw (T, B, 3H),
 // cmask (T, B, H), enco, enca (B, R, H), hall (T, B, H), ghall (T, B, 3H),
-// ghs (T, B, H), wcat (4H, H) = [Watt ; Whh], wcatT = wcat^T, w2 (H), wctx
-// (3H, H), wctxT = wctx^T.  Out, fp32: ggxw (T, B, 3H), gh0 (B, H), genco,
-// genca (B, R, H), dwatt (H, H), dw2 (H), dwctx (3H, H), dwhh (3H, H), dbhh
-// (3H).  Workspaces, fp32: hq, ctx, ghq, dw2p of T x B x H, alpha of
-// T x B x R, gx and ggh of T x B x 3H, gp and gctx of B x H, carry of
-// 2 x B x H, part0 of splits x 4H x (H + 1), part1 of splits x 3H x H.
-// 1 <= R <= 128, 1 <= H <= 1024, splits >= 1.  Launches on `stream` of CUDA
-// device `device`; returns the first CUDA error (cudaGetLastError()) or 0.
+// ghs (T, B, H), w2 (H); wattS and wctxS Watt (H, H) and Wctx (3H, H) split
+// for the tensor cores (ops/kernels/vsrn_dec.py::split_rows: chunks of s8a
+// and s8c rows of kpw words, kpw = H rounded up to 32); the loop's split B
+// fragments f1 and f3 (ops/kernels/vsrn_dec.py::loop_weights: per group of 8
+// units, kp4 / 16 and kp1 / 16 k16 steps of 2 and 1 n8 tiles; kp1, kp4 = H,
+// 4H rounded up to 64).  Out, fp32: ggxw (T, B, 3H), gh0 (B, H),
+// genco, genca (B, R, H), dwatt (H, H), dw2 (H), dwctx (3H, H), dwhh (3H, H),
+// dbhh (3H).  Workspaces, fp32: hq, ctx, gctx of T x B x H, alpha and ge of
+// T x B x R, gx of T x B x 3H, cat of T x B x kp4, eg of B x kp4, gp of B x H,
+// dw2p of B x ceil(R / 4) x H, part0 of splits x 4H x H, bpart of splits x
+// 4H, part1 of splits x 3H x H; bar two words.  1 <= R <= 128, 1 <= H <=
+// 1024, splits >= 1.  The loop runs as one cooperative launch of `blocks` =
+// halves x ceil(H / 8) blocks of 8 hidden units, each reading 1 / `halves`
+// (1 or 2) of every exchange row block, f1's fragments `streamed` or
+// resident, `smem` bytes of dynamic shared memory.  Launches on `stream` of CUDA
+// device `device`, none of which the host waits for; returns the first CUDA
+// error (cudaErrorInvalidValue for a plan the kernels cannot take,
+// cudaErrorCooperativeLaunchTooLarge for a grid that cannot be co-resident)
+// or 0.
 int itrx_vsrn_dec_bwd(const void* gxw, const void* cmask, const void* enco, const void* enca,
-                      const void* hall, const void* ghall, const void* ghs, const void* wcat,
-                      const void* wcatT, const void* w2, const void* wctx, const void* wctxT,
-                      void* ggxw, void* gh0, void* genco, void* genca, void* dwatt, void* dw2,
-                      void* dwctx, void* dwhh, void* dbhh, void* ws_hq, void* ws_alpha,
-                      void* ws_ctx, void* ws_gx, void* ws_ggh, void* ws_ghq, void* ws_dw2p,
-                      void* ws_gp, void* ws_gctx, void* ws_carry, void* part0, void* part1,
-                      int T, int B, int R, int H, int splits, int device, void* stream) {
-  if (T < 1 || B < 1 || R < 1 || R > kMaxR || H < 1 || H > kMaxH || splits < 1) {
+                      const void* hall, const void* ghall, const void* ghs, const void* w2,
+                      const void* wattS, const void* wctxS, const void* f1,
+                      const void* f3, void* ggxw, void* gh0, void* genco, void* genca,
+                      void* dwatt, void* dw2, void* dwctx, void* dwhh, void* dbhh, void* ws_hq,
+                      void* ws_ctx, void* ws_gctx, void* ws_alpha, void* ws_ge, void* ws_gx,
+                      void* ws_cat, void* ws_eg, void* ws_gp, void* ws_dw2p, void* part0,
+                      void* bpart, void* part1, void* bar, int T, int B, int R, int H,
+                      int s8a, int s8c, int kpw, int splits, int halves, int blocks,
+                      int streamed, int smem, int device, void* stream) {
+  const int kp1 = round_up_i(H, gru::kKAlign), kp4 = round_up_i(4 * H, gru::kKAlign);
+  if (T < 1 || B < 1 || R < 1 || R > kMaxR || H < 1 || H > kMaxH || splits < 1 ||
+      (halves != 1 && halves != 2) || blocks != halves * ((H + kUnits - 1) / kUnits) ||
+      smem < loop_smem(H, streamed != 0) || s8a < 8 || s8a > 256 || s8a % 8 ||
+      s8c < 8 || s8c > 256 || s8c % 8 || kpw != round_up_i(H, mma::kSlab)) {
     return (int)cudaErrorInvalidValue;
   }
-  const cudaError_t dev_err = cudaSetDevice(device);
-  if (dev_err != cudaSuccess) return (int)dev_err;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto cf = [](const void* p) { return static_cast<const float*>(p); };
   const auto f = [](void* p) { return static_cast<float*>(p); };
-  const int rows = T * B;
-  const size_t bh = (size_t)B * H, bh3 = 3 * bh, brh = (size_t)B * R * H;
-  int err;
+  const auto cu = [](const void* p) { return static_cast<const uint32_t*>(p); };
+  const long long rows = (long long)T * B;
+  const int H3 = 3 * H;
 
-  // the recomputation, all rows at once: hq, alpha and ctx, gx
-  dense_kernel<<<tiles(rows, H), kGemmThreads, 0, st>>>(cf(hall), H, cf(wcatT), 4 * H, nullptr,
-                                                       nullptr, f(ws_hq), rows, H, H);
-  attend_kernel<<<(unsigned)rows, kThreads, 0, st>>>(cf(enca), cf(enco), f(ws_hq), cf(w2),
-                                                     cf(cmask), f(ws_ctx), f(ws_alpha), B, R,
-                                                     H);
-  dense_kernel<<<tiles(rows, 3 * H), kGemmThreads, 0, st>>>(f(ws_ctx), H, cf(wctxT), 3 * H,
-                                                           nullptr, cf(gxw), f(ws_gx), rows,
-                                                           3 * H, H);
-  for (void* p : {genco, genca}) {
-    err = (int)cudaMemsetAsync(p, 0, sizeof(float) * brh, st);
-    if (err != 0) return err;
+  // 1. the recomputation over all rows: hq, alpha and ctx, gx
+  err = cudaFuncSetAttribute(proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kProjBytes);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned row_tiles = blocks_for(rows, mma::kMmaRows);
+  proj_kernel<<<dim3(row_tiles, blocks_for(H, s8a)), kThreads, kProjBytes, st>>>(
+      cf(hall), H, H, cu(wattS), kpw, s8a, nullptr, f(ws_hq), H, rows);
+  itrx_vsrn::attend_kernel<<<(unsigned)rows, itrx_vsrn::kThreads, 0, st>>>(
+      cf(enca), cf(enco), f(ws_hq), cf(w2), cf(cmask), f(ws_ctx), f(ws_alpha), B, R, H);
+  proj_kernel<<<dim3(row_tiles, blocks_for(H3, s8c)), kThreads, kProjBytes, st>>>(
+      cf(ws_ctx), H, H, cu(wctxS), kpw, s8c, cf(gxw), f(ws_gx), H3, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // 2. the reverse loop; the exchanges' pad columns read as zero
+  if (kp4 > 4 * H) {
+    err = cudaMemsetAsync(ws_eg, 0, sizeof(float) * B * kp4, st);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaMemsetAsync(ws_cat, 0, sizeof(float) * rows * kp4, st);
+    if (err != cudaSuccess) return (int)err;
   }
-  err = (int)cudaMemsetAsync(ws_carry, 0, sizeof(float) * bh, st);
-  if (err != 0) return err;
-  err = (int)cudaGetLastError();
-  if (err != 0) return err;
-
-  // the reverse steps, carrying g
-  const unsigned cell_blocks = (unsigned)((bh + 255) / 256);
-  for (int t = T - 1; t >= 0; --t) {
-    const float* carry = f(ws_carry) + ((T - 1 - t) % 2) * bh;
-    float* next = f(ws_carry) + ((T - t) % 2) * bh;
-    cell_bwd_kernel<<<cell_blocks, 256, 0, st>>>(carry, cf(ghs) + t * bh, f(ws_gx) + t * bh3,
-                                                 cf(ghall) + t * bh3, cf(hall) + t * bh,
-                                                 f(ggxw) + t * bh3, f(ws_ggh) + t * bh3,
-                                                 f(ws_gp), B, H);
-    dense_kernel<<<tiles(B, H), kGemmThreads, 0, st>>>(f(ggxw) + t * bh3, 3 * H, cf(wctx), H,
-                                                       cf(cmask) + t * bh, nullptr, f(ws_gctx),
-                                                       B, H, 3 * H);
-    attn_bwd_kernel<<<(unsigned)B, kThreads, 0, st>>>(cf(enca), cf(enco), f(ws_hq), f(ws_alpha),
-                                                      cf(w2), f(ws_gctx), f(genca), f(genco),
-                                                      f(ws_ghq), f(ws_dw2p), t, B, R, H);
-    carry_kernel<<<tiles(B, H), kGemmThreads, 0, st>>>(f(ws_ghq) + t * bh, f(ws_ggh) + t * bh3,
-                                                       cf(wcat), f(ws_gp),
-                                                       t == 0 ? f(gh0) : next, B, H);
-    err = (int)cudaGetLastError();
-    if (err != 0) return err;
+  err = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned), st);
+  if (err != cudaSuccess) return (int)err;
+  const LoopArgs a{cf(ws_gx), cf(ghall), cf(hall), cf(ghs), cf(cmask), cf(enco), cf(enca),
+                   cf(ws_hq), cf(ws_alpha), cf(w2), cu(f1), cu(f3), f(ggxw), f(gh0),
+                   f(ws_eg), f(ws_cat), f(ws_gctx), f(ws_ge), f(ws_gp),
+                   static_cast<unsigned*>(bar), T, B, R, H, kp1, kp4};
+  if (halves == 2) {
+    // two blocks a unit slice only where the weights stay resident (H <= 528)
+    err = streamed ? cudaErrorInvalidValue : launch_loop<4, false>(a, blocks, smem, st);
+  } else {
+    err = streamed ? launch_loop<8, true>(a, blocks, smem, st)
+                   : launch_loop<8, false>(a, blocks, smem, st);
   }
+  if (err != cudaSuccess) return (int)err;
 
-  // the weight sums over every row, in fixed splits summed in order
-  const int per_split = (rows + splits - 1) / splits;
-  wgrad_kernel<<<dim3((H + 1 + kBN - 1) / kBN, (4 * H + kBM - 1) / kBM, splits), kGemmThreads,
-                 0, st>>>(0, f(ws_ghq), f(ws_ggh), cf(hall), f(ggxw), f(ws_ctx), rows, H,
-                          per_split, f(part0));
-  wgrad_kernel<<<dim3((H + kBN - 1) / kBN, (3 * H + kBM - 1) / kBM, splits), kGemmThreads, 0,
-                 st>>>(1, f(ws_ghq), f(ws_ggh), cf(hall), f(ggxw), f(ws_ctx), rows, H,
-                       per_split, f(part1));
-  const size_t n0 = (size_t)4 * H * (H + 1), n1 = (size_t)3 * H * H;
-  wreduce_kernel<<<(unsigned)((n0 + 255) / 256), 256, 0, st>>>(0, f(part0), splits, H, f(dwatt),
-                                                              f(dwhh), f(dbhh), nullptr);
-  wreduce_kernel<<<(unsigned)((n1 + 255) / 256), 256, 0, st>>>(1, f(part1), splits, H, nullptr,
-                                                              nullptr, nullptr, f(dwctx));
-  colsum_kernel<<<(unsigned)((H + 255) / 256), 256, 0, st>>>(f(ws_dw2p), rows, H, f(dw2));
+  // 3. the attention's sums over t
+  const int rgroups = (R + kSumRegions - 1) / kSumRegions;
+  attn_sums_kernel<<<dim3(blocks_for(H, kSumCols), rgroups, B), kSumCols, 0, st>>>(
+      cf(enca), f(ws_hq), f(ws_alpha), f(ws_gctx), f(ws_ge), cf(w2), f(genco), f(genca),
+      f(ws_dw2p), T, B, R, H);
+  colsum_kernel<<<blocks_for(H, 256), 256, 0, st>>>(f(ws_dw2p), B * rgroups, H, f(dw2));
+
+  // 4. the weight sums over every row, in fixed splits summed in order
+  err = cudaFuncSetAttribute(gsum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGsBytes);
+  if (err != cudaSuccess) return (int)err;
+  gsum_kernel<<<dim3(blocks_for(4 * H, kGsM), blocks_for(H, kGsN), splits), kThreads, kGsBytes,
+                st>>>(f(ws_cat), kp4, 4 * H, cf(hall), H, H, rows, splits, f(part0), f(bpart));
+  gsum_kernel<<<dim3(blocks_for(H3, kGsM), blocks_for(H, kGsN), splits), kThreads, kGsBytes,
+                st>>>(f(ggxw), H3, H3, f(ws_ctx), H, H, rows, splits, f(part1), nullptr);
+  const size_t n0 = (size_t)4 * H * H + H3, n1 = (size_t)H3 * H;
+  wsum_reduce<<<blocks_for(n0, 256), 256, 0, st>>>(0, f(part0), f(bpart), splits, H, f(dwatt),
+                                                  f(dwhh), f(dbhh), nullptr);
+  wsum_reduce<<<blocks_for(n1, 256), 256, 0, st>>>(1, f(part1), nullptr, splits, H, nullptr,
+                                                  nullptr, nullptr, f(dwctx));
   return (int)cudaGetLastError();
 }
+
+#ifdef ITRX_VSRN_DEC_PHASES
+// the loop's phase times of the last launch (ns, block 0)
+int itrx_vsrn_dec_bwd_phases(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_phase_ns, sizeof(g_phase_ns));
+}
+#endif
 
 const char* itrx_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

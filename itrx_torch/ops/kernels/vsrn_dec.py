@@ -27,15 +27,28 @@ its kernel only under bf16 training, with bf16 operands; the port has no
 bf16 training yet (ROADMAP queue 1 item 7), so every CUDA training step goes
 to the fp32 kernels.  A CPU tensor takes the plain pair; a CUDA tensor
 launches the kernels or raises.
+
+The backward (csrc/vsrn_dec_bwd.cu) runs every product on the tensor cores
+as a split-bf16 product (the weights split once a call here: `split_rows`
+for the recomputed hq and gx, `loop_weights` for the reverse loop), the
+reverse loop as one persistent cooperative launch (`plan`: the blocks, how
+many share a slice of 8 hidden units, whether the loop's weight fragments
+stay resident in shared memory or stream, the shared-memory bytes; pure
+Python, held by the CPU tests), then the attention's sums over t and the
+weight sums after it.  It reads nothing back to the host.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from . import check, current_stream, load, ptr
+from .sgraf_eval import SPLIT_DEPTH, SPLIT_ROWS, bf16_split, split_weight
 
 SOURCE = "vsrn_dec.cu"
 BWD_SOURCE = "vsrn_dec_bwd.cu"
@@ -45,6 +58,133 @@ MAX_HIDDEN = 1024
 # parts, summed in order (no atomics, so two calls give identical gradients)
 W_SPLITS = 8
 _NAMES = ("gxw", "cmask", "enc_out", "enc_att", "h0", "watt", "w2", "wctx", "whh", "bhh")
+# the backward loop's constants (csrc/vsrn_dec_bwd.cu, csrc/gru_persistent.cuh)
+UNITS = 8  # hidden units a block
+HALVES = (2, 1)  # blocks that share a block's units, each taking a share of the rows
+K_ALIGN = 64  # the loop's products pad their depth to this
+STAGES = 4  # ring depth of the streamed first-product fragments
+STEP_BYTES = 512  # one n8 tile's split B fragments of a k16 step (32 lanes x 16 B)
+# static shared memory of a loop block: a g_ctx row, alpha and g_e of a row,
+# the products' part sums (4 m-tiles x 32 lanes x 2 tiles x 4)
+LOOP_STATIC_SMEM = (MAX_HIDDEN + 2 * MAX_REGIONS + 4 * 32 * 2 * 4) * 4
+MAX_SMEM = 232_448  # shared memory one block may take on an H100
+H100_SMS = 132
+# output columns of one chunk of a split weight (two warpgroups of n128)
+SPLIT_CHUNK = 256
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclass(frozen=True)
+class LoopPlan:
+    """How the backward's reverse loop runs: `blocks` = `halves` x ceil(H /
+    UNITS) blocks; the `halves` blocks of units i (blocks halves i .. halves
+    i + halves - 1) own hidden units [i UNITS, (i + 1) UNITS) and each takes
+    1 / `halves` of the batch rows; the block's fragments of the first
+    product's weights (`loop_weights`' f1, two n8 tiles) "resident" in shared
+    memory for all steps beside f3's or "streamed" through a ring each step;
+    `smem` bytes of dynamic shared memory a block; the padded depths of the
+    two products (H and 4H rounded up to K_ALIGN)."""
+
+    halves: int
+    blocks: int
+    route: str
+    smem: int
+    k1: int
+    k4: int
+
+
+def plan(batch: int, regions: int, hidden: int, *, sms: int = H100_SMS,
+         halves: int | None = None) -> LoopPlan:
+    """The loop's launch plan at (B, R, H) on a card of `sms` SMs: the most
+    blocks that share a unit slice (of HALVES, or `halves`) with one block an
+    SM, f1's fragments resident where both products' fit shared memory.
+    Raises ValueError for a request the kernels do not take."""
+    if batch < 1 or not 1 <= regions <= MAX_REGIONS or not 1 <= hidden <= MAX_HIDDEN:
+        raise ValueError(f"vsrn_dec plan: B >= 1, R in [1, {MAX_REGIONS}], H in "
+                         f"[1, {MAX_HIDDEN}], got {(batch, regions, hidden)}")
+    if halves is not None and halves not in HALVES:
+        raise ValueError(f"vsrn_dec plan: {halves} blocks a unit slice not in {HALVES}")
+    groups = -(-hidden // UNITS)
+    hv = next((x for x in ((halves,) if halves else HALVES) if x * groups <= sms), None)
+    if hv is None:
+        raise ValueError(f"vsrn_dec plan: H {hidden} needs {groups} blocks of {UNITS} units "
+                         f"{'x ' + str(halves) + ' ' if halves else ''}on {sms} SMs")
+    k1, k4 = _round_up(hidden, K_ALIGN), _round_up(4 * hidden, K_ALIGN)
+    w3 = k1 // 16 * STEP_BYTES
+    resident = w3 + k4 // 16 * 2 * STEP_BYTES
+    room = MAX_SMEM - LOOP_STATIC_SMEM
+    if resident <= room:
+        route, smem = "resident", resident
+    else:
+        route, smem = "streamed", w3 + STAGES * 2 * (K_ALIGN // 16) * STEP_BYTES
+        if hv == 2:  # the streamed ring takes one part of the depth a block
+            raise ValueError(f"vsrn_dec plan: H {hidden} streams its weights; "
+                             "two blocks a unit slice need them resident")
+    return LoopPlan(halves=hv, blocks=hv * groups, route=route, smem=smem, k1=k1, k4=k4)
+
+
+@functools.cache
+def _sms_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sms(dev: torch.device) -> int:
+    return _sms_of(dev.index if dev.index is not None else torch.cuda.current_device())
+
+
+def split_rows(w: torch.Tensor) -> tuple:
+    """A weight w (N, K), (out, in) as torch stores it, in the backward's
+    tensor-core form: cut into chunks of S8 = min(SPLIT_CHUNK, N rounded up
+    to SPLIT_ROWS) output rows (zero rows past N), each chunk as
+    `split_weight` lays a weight out, so chunk j is contiguous.  Returns
+    (the split chunks (N8 // S8, K32 // 32, 2, 2, S8 // 8, 2, 8, 8) bf16,
+    S8)."""
+    n, k = w.shape
+    s8 = min(SPLIT_CHUNK, _round_up(n, SPLIT_ROWS))
+    chunks = -(-n // s8)
+    wp = F.pad(w.detach().float(), (0, 0, 0, chunks * s8 - n))
+    return split_weight(wp.reshape(chunks, s8, k)), s8
+
+
+def _fragments(w: torch.Tensor, tiles: int, k: int, groups: int) -> torch.Tensor:
+    """Weight rows w (tiles H, K: tile q's output unit j is row q H + j) as
+    the loop's split B fragments of mma.sync m16n8k16: per group of UNITS
+    units, per k16 step, per n8 tile, per lane (g = lane // 4 the unit, t =
+    lane % 4), the bf16 hi of columns 4t .. 4t + 3 of the step then their lo
+    (`bf16_split`), so that a lane's 16 bytes are its fragment registers b0,
+    b1 (hi) and b0, b1 (lo) with fragment slots 2t, 2t + 1, 2t + 8, 2t + 9
+    holding those columns, as the kernel reads its A rows.  Zero past H (up
+    to `groups` groups) and past the K columns up to k.  Returns (groups, k //
+    16, tiles, 8, 4, 2, 4) bf16."""
+    rows, cols = w.shape
+    hd = rows // tiles
+    wp = F.pad(w.detach().float().reshape(tiles, hd, cols),
+               (0, k - cols, 0, groups * UNITS - hd))
+    # [tile][group][g][step][t][c] -> [group][step][tile][g][t][c]
+    wp = wp.reshape(tiles, groups, UNITS, k // 16, 4, 4).permute(1, 3, 0, 2, 4, 5)
+    return torch.stack(bf16_split(wp), dim=-2).contiguous()
+
+
+def loop_weights(watt, wctx, whh, k1: int, k4: int, groups: int) -> tuple:
+    """The reverse loop's weights as `_fragments`, rows j the output unit j
+    of a product over an exchange row: f1 from w1 (2H, k4), whose rows j are
+    Wctx^T over the exchange's columns [g_prer | g_prez | g_pren] (zero over
+    its last H, g_pren r) and rows H + j Whh^T over [g_prer | g_prez | . |
+    g_pren r] (zero over g_pren), so that one read of the exchange gives
+    g_gx Wctx (tile 0) and g_gh Whh (tile 1); f3 from Watt^T (H, H), for
+    g_hq Watt; `groups` groups of UNITS units each (ceil(H / UNITS)).
+    Returns (f1, f3)."""
+    hd = watt.shape[0]
+    f = lambda w: w.detach().float()  # noqa: E731
+    whh_t = f(whh).t()
+    w1 = torch.zeros(2 * hd, 4 * hd, dtype=torch.float32, device=watt.device)
+    w1[:hd, :3 * hd] = f(wctx).t()
+    w1[hd:, :2 * hd] = whh_t[:, :2 * hd]
+    w1[hd:, 3 * hd:] = whh_t[:, 2 * hd:]
+    return _fragments(w1, 2, k4, groups), _fragments(f(watt).t(), 1, k1, groups)
 
 
 def _work(t: torch.Tensor) -> torch.dtype:
@@ -217,6 +357,7 @@ def _launch_bwd(gxw, cmask, enc_out, enc_att, h0, watt, w2, wctx, whh, bhh, hall
     t, b, h3 = gxw.shape
     hd, r = h3 // 3, enc_out.shape[1]
     dev = gxw.device
+    p = plan(b, r, hd, sms=_sms(dev))
     f32 = dict(dtype=torch.float32, device=dev)
     g_gxw = torch.empty(t, b, h3, **f32)
     g_h0 = torch.empty(b, hd, **f32)
@@ -225,28 +366,29 @@ def _launch_bwd(gxw, cmask, enc_out, enc_att, h0, watt, w2, wctx, whh, bhh, hall
     d_wctx, d_whh, d_bhh = (torch.empty(h3, hd, **f32), torch.empty(h3, hd, **f32),
                             torch.empty(h3, **f32))
     rows = t * b
-    ws = [torch.empty(rows, hd, **f32), torch.empty(rows, r, **f32),    # hq, alpha
-          torch.empty(rows, hd, **f32), torch.empty(rows, h3, **f32),   # ctx, gx
-          torch.empty(rows, h3, **f32), torch.empty(rows, hd, **f32),   # g_gh, g_hq
-          torch.empty(rows, hd, **f32), torch.empty(b, hd, **f32),      # dw2 parts, gp
-          torch.empty(b, hd, **f32), torch.empty(2, b, hd, **f32),      # g_ctx, carry
-          torch.empty(W_SPLITS, 4 * hd, hd + 1, **f32),
-          torch.empty(W_SPLITS, h3, hd, **f32)]
+    rgroups = -(-r // 4)
+    ws = [torch.empty(rows, hd, **f32), torch.empty(rows, hd, **f32),   # hq, ctx
+          torch.empty(rows, hd, **f32), torch.empty(rows, r, **f32),    # g_ctx, alpha
+          torch.empty(rows, r, **f32), torch.empty(rows, h3, **f32),    # g_e, gx
+          torch.empty(rows, p.k4, **f32), torch.empty(b, p.k4, **f32),  # [g_hq | g_gh], exchange
+          torch.empty(b, hd, **f32), torch.empty(b * rgroups, hd, **f32),  # gp, dw2 parts
+          torch.empty(W_SPLITS, 4 * hd, hd, **f32), torch.empty(W_SPLITS, 4 * hd, **f32),
+          torch.empty(W_SPLITS, h3, hd, **f32), torch.empty(2, dtype=torch.int32, device=dev)]
     lib = load("vsrn_dec_bwd")
     fn = lib.itrx_vsrn_dec_bwd
-    fn.argtypes = [ctypes.c_void_p] * 33 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 35 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     # every temporary is held by a name until the launches have been queued
     ins = [_c(a) for a in (gxw, cmask, enc_out, enc_att, hall, ghall, g_hs)]
-    wcat = torch.cat([watt.detach(), whh.detach()], dim=0).contiguous()
-    wcat_t = wcat.t().contiguous()
     w2v = _c(w2).reshape(-1)
-    wctxc = _c(wctx)
-    wctx_t = wctxc.t().contiguous()
+    watt_s, s8a = split_rows(watt)
+    wctx_s, s8c = split_rows(wctx)
+    f1, f3 = loop_weights(watt, wctx, whh, p.k1, p.k4, p.blocks // p.halves)
     outs = (g_gxw, g_h0, g_enco, g_enca, d_watt, d_w2, d_wctx, d_whh, d_bhh)
-    code = fn(*(ptr(a) for a in ins), ptr(wcat), ptr(wcat_t), ptr(w2v), ptr(wctxc),
-              ptr(wctx_t), *(ptr(a) for a in outs), *(ptr(a) for a in ws), t, b, r, hd,
-              W_SPLITS, dev.index, current_stream(dev))
+    code = fn(*(ptr(a) for a in ins), ptr(w2v), ptr(watt_s), ptr(wctx_s), ptr(f1), ptr(f3),
+              *(ptr(a) for a in outs), *(ptr(a) for a in ws), t, b, r, hd, s8a, s8c,
+              _round_up(hd, SPLIT_DEPTH), W_SPLITS, p.halves, p.blocks,
+              int(p.route == "streamed"), p.smem, dev.index, current_stream(dev))
     check(lib, "vsrn_dec_bwd kernels", code)
     vsrn_dec_bwd_fused.launches += 1
     return (g_gxw, torch.zeros_like(cmask), g_enco, g_enca, g_h0, d_watt, d_w2, d_wctx, d_whh,

@@ -781,14 +781,18 @@ def test_vsrn_evaluation_reaches_no_grid_kernel(monkeypatch):
 
 def test_vsrn_dec_sources_are_built_and_hashed(tmp_path, monkeypatch):
     """The decoder's forward and backward kernels exist with their C
-    interfaces, both include the shared attention header and the tile
-    product, and both library names change when either header changes."""
+    interfaces, both include the shared attention header, the forward the
+    tile product and the backward the persistent loop's pieces and the
+    split tensor-core product, and both library names change when any of
+    those headers changes."""
     fwd, bwd = (kernels.CSRC / n for n in (vsrn_dec.SOURCE, vsrn_dec.BWD_SOURCE))
     assert "int itrx_vsrn_dec_fwd(" in fwd.read_text()
     assert "int itrx_vsrn_dec_bwd(" in bwd.read_text()
-    headers = ("vsrn_dec.cuh", "gemm_tile.cuh")
-    for src in (fwd, bwd):
-        assert all(f'#include "{h}"' in src.read_text() for h in headers)
+    includes = {fwd: ("vsrn_dec.cuh", "gemm_tile.cuh"),
+                bwd: ("vsrn_dec.cuh", "gru_persistent.cuh", "sgraf_nodes_mma.cuh")}
+    for src, names in includes.items():
+        assert all(f'#include "{h}"' in src.read_text() for h in names)
+    headers = ("vsrn_dec.cuh", "gemm_tile.cuh", "gru_persistent.cuh", "sgraf_nodes_mma.cuh")
     for name in (vsrn_dec.SOURCE, vsrn_dec.BWD_SOURCE) + headers:
         (tmp_path / name).write_text((kernels.CSRC / name).read_text())
     monkeypatch.setattr(kernels, "CSRC", tmp_path)
@@ -798,7 +802,7 @@ def test_vsrn_dec_sources_are_built_and_hashed(tmp_path, monkeypatch):
         (tmp_path / edited).write_text("// edited\n")
         seen.append([kernels.library_path(n) for n in libs])
     for i, _ in enumerate(libs):
-        assert len({paths[i] for paths in seen}) == 3
+        assert len({paths[i] for paths in seen}) == 1 + len(headers)
 
 
 class _CudaStandIn:
