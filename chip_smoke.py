@@ -38,7 +38,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    reasoning kernels to `sgr_reason_plain` and `sgr_reason_bwd_plain`
    (the final nodes, all seven cotangents, dbk identically 0, two backward
    calls bit-identical) at one training chunk, 4096 pairs x 25 nodes,
-   S 256, sgr_step 3, at a ragged odd shape and at 129 nodes, fp32 and bf16;
+   S 256, sgr_step 3, at a ragged odd shape and at 129 nodes, fp32 and bf16,
+   with the backward's device time by launch (profiler), its products'
+   TFLOP/s and share of the bound, and one backward call under
+   torch.cuda.set_sync_debug_mode("error");
    VSRN's caption-decoder kernels to `vsrn_dec_plain` and
    `vsrn_dec_bwd_plain` (the states and residuals, all nine cotangents, two
    backward calls bit-identical) at the training path's decode, 59 steps x
@@ -418,6 +421,10 @@ SGRAF_EVAL_FMA_MS = {"saf": (12.642, 18.232), "sgr": (24.046, 29.145)}
 # products) at one training chunk (ms, bf16 and fp32; NVIDIA H100 80GB HBM3,
 # 700.00 W), printed beside this run's
 ALIGN_BWD_FMA_MS = (12.659, 15.660)
+# the SGR reasoning backward's earlier design (six launches a step, its
+# products on fp32 FMAs) at one training chunk (ms, fp32 and bf16 nodes;
+# NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+SGR_BWD_FMA_MS = (9.511, 9.425)
 # the VSRN decoder backward's earlier design (four launches a step on 16
 # SMs, fp32-FMA products) at the training path's decode, T 59 x B 128 x R 36
 # x H 512, keep 0.8 (ms, fp32; NVIDIA H100 80GB HBM3, 700.00 W), printed
@@ -1395,22 +1402,25 @@ def _sgr_reason_inputs(g, pairs, l, steps, s):
 
 
 def sgr_train_bound(s0, mask, steps: int, backward: bool = False) -> dict:
-    """The bounds of one reasoning call at the fp32 peak (the kernels' and
-    the training path's arithmetic) and at the bf16 peak (the work as
-    `itrx` runs it, bf16 operands on the MXU).  Per pair over its n valid
-    nodes and per step, the forward does the folded q/k product s M and
-    ctx Wg^T (4 n S^2) and the edges and contexts (4 n^2 S); the backward
-    recomputes s M and the edges and adds g_pre Wg, the two weight sums and
-    g_sm M^T (10 n S^2 in all) and g_a, g_sm and the key-side sums (12 n^2 S
-    in all).  Bytes: the nodes, the mask and the steps' weights read once;
-    the forward writes every step's fp32 output, the backward reads them
-    and the cotangent and writes g_s0 and the weight gradients."""
+    """The bounds of one reasoning call.  Per pair over its n valid nodes
+    and per step, the forward does the folded q/k product s M and ctx Wg^T
+    (4 n S^2) and the edges and contexts (4 n^2 S); the backward recomputes
+    s M and the edges and adds g_pre Wg, the two weight sums and g_sm M^T
+    (10 n S^2 in all) and g_a, g_sm and the key-side sums (12 n^2 S in
+    all).  Bytes: the nodes, the mask and the steps' weights read once; the
+    forward writes every step's fp32 output, the backward reads them and
+    the cotangent and writes g_s0 and the weight gradients.  The forward
+    runs its products on fp32 FMAs, so "bound_ms" counts every operation at
+    the fp32 peak; the backward runs its products on the tensor cores as
+    split-bf16 products, so they count at the TF32 tensor-core peak and its
+    edges at the fp32 peak ("bound_ms_fp32_peak": all at the fp32 peak, the
+    FMA design's figure).  "bound_ms_bf16_peak": all at the bf16 peak (the
+    work as `itrx` runs it, bf16 operands on the MXU).  Also
+    "product_flop", the S x S products' operations."""
     b, nn_, s = s0.shape
     n = mask.sum(dim=1).double()
-    if backward:
-        ops = steps * float((10 * n * s * s + 12 * n * n * s).sum())
-    else:
-        ops = steps * float((4 * n * s * s + 4 * n * n * s).sum())
+    products = steps * float(((10 if backward else 4) * n * s * s).sum())
+    edges = steps * float(((12 if backward else 4) * n * n * s).sum())
     weights = 4 * steps * (3 * s * s + 3 * s)
     saves = 4 * steps * b * nn_ * s
     if backward:
@@ -1418,9 +1428,15 @@ def sgr_train_bound(s0, mask, steps: int, backward: bool = False) -> dict:
             + s0.numel() * s0.element_size() + weights
     else:
         n_bytes = nbytes(s0, mask) + weights + saves
-    b32, b16 = bound(n_bytes, {"fp32": ops}), bound(n_bytes, {"bf16": ops})
-    return {"bound_ms": b32["bound_ms"], "bound_by": b32["bound_by"],
-            "bound_ms_bf16_peak": b16["bound_ms"], "bound_by_bf16_peak": b16["bound_by"]}
+    b32 = bound(n_bytes, {"fp32": products + edges})
+    b16 = bound(n_bytes, {"bf16": products + edges})
+    main = bound(n_bytes, {"tf32": products, "fp32": edges}) if backward else b32
+    out = {"bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+           "bound_ms_bf16_peak": b16["bound_ms"], "bound_by_bf16_peak": b16["bound_by"],
+           "product_flop": products}
+    if backward:
+        out.update(bound_ms_fp32_peak=b32["bound_ms"], bound_by_fp32_peak=b32["bound_by"])
+    return out
 
 
 def _sgr_rel(got, want, scale: float) -> float:
@@ -1496,9 +1512,22 @@ def phase_sgr(g) -> dict:
                                       reps=10)
         res["bwd_plain_ms" + suf] = cuda_ms(
             lambda: sgr_reason_bwd_plain(**xd, outs=outs, g=cot), reps=5)
+        res["bwd_launch_ms" + suf] = _launch_ms(
+            lambda: sgr_reason_bwd_fused(**xd, outs=outs, g=cot))
         for pre, bwd in (("", False), ("bwd_", True)):
             for k, v in sgr_train_bound(xd["s0"], xd["mask"], steps, bwd).items():
                 res[pre + k + suf] = v
+        res["bwd_tflops" + suf] = res["bwd_product_flop" + suf] / (res["bwd_ms" + suf] * 1e9)
+        res["bwd_share_of_bound" + suf] = res["bwd_bound_ms" + suf] / res["bwd_ms" + suf]
+    # the backward reads nothing back to the host: a synchronizing call
+    # under the sync debug mode raises
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sgr_reason_bwd_fused(**xd, outs=outs, g=cot)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    res["bwd_no_sync"] = True
     res["nodes_per_pair_mean"] = float(x["mask"].sum(dim=1).mean())
     # no single PyTorch call computes the reasoning chain or its backward
     res["library_ms"] = None
@@ -1506,11 +1535,20 @@ def phase_sgr(g) -> dict:
         f"S {s}, sgr_step {steps}, fp32: forward kernels {res['ms']:.3f} ms, plain "
         f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}; "
         f"{res['bound_ms_bf16_peak']:.4f} ms at the bf16 peak); backward kernels "
-        f"{res['bwd_ms']:.3f} ms, plain {res['bwd_plain_ms']:.3f} ms, bound "
-        f"{res['bwd_bound_ms']:.4f} ms ({res['bwd_bound_by']}; "
-        f"{res['bwd_bound_ms_bf16_peak']:.4f} ms at the bf16 peak); bf16 nodes: forward "
-        f"{res['ms_bf16']:.3f} ms (plain {res['plain_ms_bf16']:.3f}), backward "
-        f"{res['bwd_ms_bf16']:.3f} ms (plain {res['bwd_plain_ms_bf16']:.3f})")
+        f"{res['bwd_ms']:.3f} ms (the FMA design: {SGR_BWD_FMA_MS[0]:.3f}), plain "
+        f"{res['bwd_plain_ms']:.3f} ms, bound {res['bwd_bound_ms']:.4f} ms at the TF32 peak "
+        f"({res['bwd_bound_by']}; {res['bwd_bound_ms_fp32_peak']:.4f} ms at the fp32 peak, "
+        f"{res['bwd_bound_ms_bf16_peak']:.4f} ms at the bf16 peak), products "
+        f"{res['bwd_tflops']:.2f} TFLOP/s, {100 * res['bwd_share_of_bound']:.2f}% of the "
+        f"bound; bf16 nodes: forward {res['ms_bf16']:.3f} ms (plain "
+        f"{res['plain_ms_bf16']:.3f}), backward {res['bwd_ms_bf16']:.3f} ms (the FMA design: "
+        f"{SGR_BWD_FMA_MS[1]:.3f}; plain {res['bwd_plain_ms_bf16']:.3f}, bound "
+        f"{res['bwd_bound_ms_bf16']:.4f}, products {res['bwd_tflops_bf16']:.2f} TFLOP/s, "
+        f"{100 * res['bwd_share_of_bound_bf16']:.2f}%)")
+    for suf, tag in (("", "fp32"), ("_bf16", "bf16")):
+        log(f"  backward {tag} nodes, device ms a call by launch (profiler): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in res["bwd_launch_ms" + suf].items()))
+    log("  one backward call under torch.cuda.set_sync_debug_mode('error'): no sync")
     return res
 
 

@@ -1,7 +1,5 @@
 // A generic fp32 tile product with loaders and a store given as functors:
-// used by the SGR reasoning backward (sgr_bwd.cu), whose operands are
-// gathered and whose weight gradients are sums over fixed splits of their
-// rows, and by the VSRN decoder's forward (vsrn_dec.cu) for its per-step
+// used by the VSRN decoder's forward (vsrn_dec.cu) for its per-step
 // products.  A block of 256 threads computes one 64 x 64 tile of C over a
 // range of the depth, staged 16 at a time in shared memory.
 

@@ -1,6 +1,7 @@
 // Shared by the SGR training kernels, sgr.cu (forward) and sgr_bwd.cu
-// (backward): the node layout, the S x S product over the listed rows and the
-// per-warp row helpers of the edge passes.
+// (backward): the node layout and the per-warp row helpers of the edge
+// passes; and the forward's S x S product over the listed rows (the
+// backward runs its products on the tensor cores, sgraf_nodes_mma.cuh).
 //
 // Nodes lie as the caller holds them, (B, N, S) with row p * N + j for node j
 // of pair p; a row is valid where the node mask is > 0.  The wrapper lists the
@@ -9,8 +10,8 @@
 // tile product of sgraf_nodes.cuh (the weight staged by cp.async in slabs of
 // 32, the operand transposed in shared memory, a 32 x 2 corner of the 64 x S
 // tile a thread), so masked rows cost nothing and are never written.  The
-// edge passes run one block a pair and one warp a node row: lane l holds
-// columns 4l .. 4l+3 and 128 + 4l .. 128 + 4l + 3 of a row (S <= 256).
+// edge passes run one warp a node row: lane l holds columns 4l .. 4l+3 and
+// 128 + 4l .. 128 + 4l + 3 of a row (S <= 256).
 
 #pragma once
 

@@ -1,8 +1,10 @@
 // The split-bf16 tensor-core products of the two SGRAF evaluation kernels,
-// sgraf_eval_saf.cu (SAF) and sgraf_eval_sgr.cu (SGR), and of the training
+// sgraf_eval_saf.cu (SAF) and sgraf_eval_sgr.cu (SGR), of the training
 // alignment backward (sgraf_align_bwd.cu: the word nodes' projection, with e
-// kept through WordRows' sink, and mma_tile for ge), over the node
-// assembly of sgraf_nodes.cuh (`assemble`: the A tiles, the region softmax,
+// kept through WordRows' sink, and mma_tile for ge) and of the training
+// reasoning backward (sgr_bwd.cu: mma_tile over listed node rows, and
+// wgmma_m64n256 for its weight sums), over the node assembly of
+// sgraf_nodes.cuh (`assemble`: the A tiles, the region softmax,
 // the inverse context norms and the row list):
 //   the word nodes   y = (ctx_l / |ctx_l| - cap_l)^2 . W + b,  ctx_l = sum_r s[l, r] img_r
 //   the global node  y = (img_glo - cap_glo)^2 . Wg + bg
@@ -155,6 +157,66 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[16][4], uint64_t a, uin
         "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += A . B on the tensor cores, one warpgroup: m64n256k16, bf16 operands in
+// shared memory (descriptors), fp32 accumulators d[i][q] at row
+// 16 (warp % 4) + 8 (q / 2) + lane / 4, column 8i + 2 (lane % 4) + q % 2
+__device__ __forceinline__ void wgmma_m64n256(float (&d)[32][4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127 "
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
+        "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
+        "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
+        "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
+        "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
+        "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
+        "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
+        "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
+        "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
       : "l"(a), "l"(b), "r"(1));
 }
 
@@ -320,9 +382,10 @@ using Acc = float[16][4];
 
 // keeps the compiler from moving accesses to the accumulators across this
 // point (an asynchronous product owns them between its start and its wait)
-__device__ __forceinline__ void fence_acc(Acc& acc) {
+template <int I>
+__device__ __forceinline__ void fence_acc(float (&acc)[I][4]) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int i = 0; i < I; ++i)
 #pragma unroll
     for (int q = 0; q < 4; ++q) asm volatile("" : "+f"(acc[i][q])::"memory");
 }
@@ -338,9 +401,11 @@ __device__ __forceinline__ void fence_acc(Acc& acc) {
 //                      16st + 2t + 8, 16st + 2t + 9 (st = w / 4):
 //                      v[4h + i] = row 16u + 8h + g, the i-th of those k
 //                      (0 past the tile's rows or the depth)
-// Starts and ends with a barrier.
+// Starts and ends with a barrier.  kALo false: the operand is exact in its
+// hi part (bf16 values), so its lo part is neither written nor multiplied
+// (two passes).
 // (init_weight_bars first, once a block)
-template <typename Prod>
+template <bool kALo = true, typename Prod>
 __device__ __forceinline__ void mma_tile(Acc& acc, const Ring& rg,
                                          const uint32_t* __restrict__ wsplit, int Kp, int S8,
                                          int nrows, Prod& prod) {
@@ -370,8 +435,10 @@ __device__ __forceinline__ void mma_tile(Acc& acc, const Ring& rg,
       split2(v[4 * h + 2], v[4 * h + 3], hi1, lo1);
       a[core_word(r, 0, f.t)] = hi0;
       a[core_word(r, 1, f.t)] = hi1;
-      a[kMmaRows * 8 + core_word(r, 0, f.t)] = lo0;
-      a[kMmaRows * 8 + core_word(r, 1, f.t)] = lo1;
+      if constexpr (kALo) {
+        a[kMmaRows * 8 + core_word(r, 0, f.t)] = lo0;
+        a[kMmaRows * 8 + core_word(r, 1, f.t)] = lo1;
+      }
     }
     if (s + 1 < nslab) prod.load(s + 1);
   };
@@ -389,7 +456,7 @@ __device__ __forceinline__ void mma_tile(Acc& acc, const Ring& rg,
       const uint64_t bh = smem_desc(ws + (2 * st) * (kMaxS * 8), 128, 256);
       const uint64_t bl = smem_desc(ws + (2 * st + 1) * (kMaxS * 8), 128, 256);
       wgmma_m64n128(acc, ah, bl);
-      wgmma_m64n128(acc, al, bh);
+      if constexpr (kALo) wgmma_m64n128(acc, al, bh);
       wgmma_m64n128(acc, ah, bh);
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");

@@ -23,10 +23,15 @@ itrx/ops/pallas/sgr.py:318-333 does): dWq = Wk dM^T, dWk = Wq dM + bq dv^T,
 dbq = Wk dv, and dbk = 0 exactly (bk moves each query's logits by a
 constant).
 
-What bounds them on an H100: fp32 operations, the S x S products (X M and
-ctx Wg^T in the forward, five of them in the backward) over the valid
-nodes, then the n x n x S edges and contexts of each pair.  Both keep the
-chain in fp32 whatever the nodes' dtype; the saves are fp32.
+What bounds them on an H100: the S x S products (X M and ctx Wg^T in the
+forward, five of them in the backward) over the valid nodes, then the
+n x n x S edges and contexts of each pair.  The forward runs its products
+on fp32 FMAs.  The backward runs its five on the tensor cores as split-bf16
+products (three bf16 passes, a_hi b_lo + a_lo b_hi + a_hi b_hi, fp32
+accumulation; two where the operand is bf16 nodes), on weights split once
+a call here (`bwd_weights`), over a list of the valid rows formed on the
+card (`row_list`: nothing is read back).  Both keep the chain's other
+arithmetic in fp32 whatever the nodes' dtype; the saves are fp32.
 
 Arguments are the port's layouts: the stacked steps' Linears as torch stores
 them, wq, wk, wg (steps, S, S) (out, in) and bq, bk, bg (steps, S).  A CPU
@@ -41,16 +46,20 @@ import torch
 import torch.nn.functional as F
 
 from . import check, current_stream, load, ptr
-from .sgraf_eval import fold_sgr_qk
+from .sgraf_eval import fold_sgr_qk, split_weight
 
 SOURCE = "sgr.cu"
 BWD_SOURCE = "sgr_bwd.cu"
 MAX_NODES = 129  # 128 words + the global node (sgraf_align.MAX_WORDS + 1)
 MAX_SIM_DIM = 256
 NEG_INF = -1e18
-# the backward's weight sums over the rows: split into this many fixed parts,
-# summed in order (no atomics, so two calls give identical gradients)
-W_SPLITS = 16
+# the backward's weight sums over the rows: split into this many fixed parts
+# (at S 256, 2 x 2 x 32 blocks of 128 x 256 on 132 SMs), summed in order (no
+# atomics, so two calls give identical gradients)
+W_SPLITS = 32
+# the backward's edge pass: a persistent grid of this many blocks an SM
+# (csrc/sgr_bwd.cu::edge_kernel, 110 KB of shared memory a block)
+EDGE_BLOCKS_PER_SM = 2
 
 
 def _work(t: torch.Tensor) -> torch.dtype:
@@ -179,6 +188,47 @@ def _rows(mask):
     return torch.nonzero(mask.reshape(-1) > 0).reshape(-1).to(torch.int32).contiguous()
 
 
+def row_list(mask):
+    """The backward's valid rows p * N + j of the (B, N) mask, formed on the
+    device (nothing is read back): (rows (B N,) int32, the valid rows in
+    order, then the masked rows; pstart (B + 1,) int32, each pair's first
+    row in that list, then the number of valid rows).  A permutation, so
+    every entry is written once."""
+    valid = mask > 0
+    v = valid.reshape(-1).to(torch.int32)
+    pos = torch.cumsum(v, 0, dtype=torch.int32) - v
+    ends = torch.cumsum(valid.sum(dim=1, dtype=torch.int32), 0, dtype=torch.int32)
+    pstart = torch.cat([ends.new_zeros(1), ends])
+    idx = torch.arange(v.numel(), dtype=torch.int32, device=mask.device)
+    dest = torch.where(v > 0, pos, pstart[-1:] + idx - pos)
+    return torch.empty_like(idx).scatter_(0, dest.long(), idx), pstart
+
+
+def edge_bounds(pstart, blocks: int):
+    """The edge pass's pair ranges: block b takes pairs bounds[b] ..
+    bounds[b + 1] - 1, cut so that each range's sum of n (n + 4) over its
+    pairs' n valid nodes (the edges ~ n^2, the staging ~ n) is about equal;
+    formed on the device from pstart (B + 1,).  (blocks + 1,) int32."""
+    n = (pstart[1:] - pstart[:-1]).to(torch.int64)
+    cost = torch.cumsum(n * (n + 4), 0)
+    prefix = torch.cat([cost.new_zeros(1), cost])
+    steps = torch.arange(blocks, dtype=torch.int64, device=pstart.device)
+    # (the last bound by a fill on the device: setting an entry from the
+    # host would copy, and wait)
+    last = torch.full((1,), n.numel(), dtype=torch.int64, device=pstart.device)
+    return torch.cat([torch.searchsorted(prefix, steps * prefix[-1:] // blocks),
+                      last]).to(torch.int32)
+
+
+def bwd_weights(mm, wg):
+    """The backward's three S x S products' weights, per step, split once a
+    call for the tensor cores (`split_weight`, output column first): M^T
+    for sm = X M, M for g_sm M^T, and Wg^T for g_ctx = g_pre Wg, from M
+    (steps, S, S) and sim_graph_w Wg (steps, S, S) (out, in)."""
+    return (split_weight(mm.transpose(1, 2)), split_weight(mm),
+            split_weight(wg.transpose(1, 2)))
+
+
 def _launch_fwd(s0, mask, wq, bq, wk, bk, wg, bg):
     """(final nodes in s0's dtype, fp32 saves (steps, B, N, S))."""
     name = "sgr_reason_fused"
@@ -212,25 +262,34 @@ def _launch_bwd(s0, mask, wq, bq, wk, bk, wg, bg, outs, g):
     steps = wq.shape[0]
     dev = s0.device
     f32 = dict(dtype=torch.float32, device=dev)
-    # the cotangent, fp32, zero at masked nodes: the kernels overwrite it
-    # step by step with the cotangent of each step's input
-    gx = (g.detach().float() * mask.detach().float()[..., None]).contiguous()
+    # the cotangent of s0, zero at masked nodes: the kernels write it at the
+    # valid nodes, step by step the cotangent of each step's input
+    g_in = g.detach().float().contiguous()
+    gx = torch.zeros(b, n, s, **f32)
     dmm, dwg = torch.empty(steps, s, s, **f32), torch.empty(steps, s, s, **f32)
     dvv, dbg = torch.empty(steps, s, **f32), torch.empty(steps, s, **f32)
-    ws = [torch.empty(b * n, s, **f32) for _ in range(5)]  # sm, ctx, g_ctx, g_sm, gx
-    ws += [torch.empty(b * n, **f32), torch.empty(2, W_SPLITS, s, s + 1, **f32)]
+    # sized from the shapes (the row count stays on the card): sm, ctx,
+    # g_ctx, g_sm, gx, g_pre per row, col, and the weight sums' partials per
+    # split
+    ws = [torch.empty(b * n, s, **f32) for _ in range(6)]
+    ws += [torch.empty(b * n, **f32), torch.empty(2, W_SPLITS, s, s, **f32),
+           torch.empty(2, W_SPLITS, s, **f32)]
     lib = load("sgr_bwd")
     fn = lib.itrx_sgr_bwd
-    fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     # every temporary is held by a name until the launches have been queued
-    maskf, rows, saves = _f32(mask), _rows(mask), outs.detach().contiguous()
+    maskf, saves = _f32(mask), outs.detach().contiguous()
+    rows, pstart = row_list(mask)
+    blocks = max(1, min(b, EDGE_BLOCKS_PER_SM
+                        * torch.cuda.get_device_properties(dev).multi_processor_count))
+    bounds = edge_bounds(pstart, blocks)
     mm, vv = (t.contiguous() for t in fold_sgr_qk(wq.detach(), bq.detach(), wk.detach()))
-    mmt, wgf = mm.transpose(1, 2).contiguous(), _f32(wg)
-    code = fn(ptr(s0), ptr(saves), ptr(maskf), ptr(rows), ptr(mm), ptr(mmt), ptr(vv), ptr(wgf),
-              ptr(gx), ptr(dmm), ptr(dvv), ptr(dwg), ptr(dbg), *(ptr(t) for t in ws),
-              b, n, s, steps, rows.numel(), W_SPLITS, int(s0.dtype == torch.bfloat16),
-              dev.index, current_stream(dev))
+    mts, ms, gs = bwd_weights(mm, wg.detach())
+    code = fn(ptr(s0), ptr(saves), ptr(maskf), ptr(rows), ptr(pstart), ptr(bounds), ptr(mts),
+              ptr(ms), ptr(vv), ptr(gs), ptr(g_in), ptr(gx), ptr(dmm), ptr(dvv), ptr(dwg),
+              ptr(dbg), *(ptr(t) for t in ws), b, n, s, steps, W_SPLITS, blocks,
+              int(s0.dtype == torch.bfloat16), dev.index, current_stream(dev))
     check(lib, "sgr_bwd_kernels", code)
     sgr_reason_bwd_fused.launches += 1
     dwq, dbq, dwk = _unfold(dmm, dvv, wq, bq, wk)

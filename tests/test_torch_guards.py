@@ -634,17 +634,19 @@ def test_sgr_wrappers_raise_off_cpu():
 
 def test_sgr_sources_are_built_and_hashed(tmp_path, monkeypatch):
     """The forward and backward kernels exist with their C interfaces, both
-    include the listed-row product (which includes the node tile product),
-    the backward the split tile product, and both library names change when
+    include the listed-row helpers (which include the node tile product),
+    the backward the split tensor-core products and no longer the fp32-FMA
+    tile product of gemm_tile.cuh, and both library names change when
     their source or a header they include changes."""
     fwd, bwd = (kernels.CSRC / n for n in (sgr.SOURCE, sgr.BWD_SOURCE))
     assert "int itrx_sgr_fwd(" in fwd.read_text()
     assert "int itrx_sgr_bwd(" in bwd.read_text()
     for src in (fwd, bwd):
         assert '#include "sgr_rows.cuh"' in src.read_text()
-    assert '#include "gemm_tile.cuh"' in bwd.read_text()
+    assert '#include "sgraf_nodes_mma.cuh"' in bwd.read_text()
+    assert '#include "gemm_tile.cuh"' not in bwd.read_text()
     assert '#include "sgraf_nodes.cuh"' in (kernels.CSRC / "sgr_rows.cuh").read_text()
-    headers = ("sgr_rows.cuh", "gemm_tile.cuh", "sgraf_nodes.cuh", "xattn_product.cuh")
+    headers = ("sgr_rows.cuh", "sgraf_nodes_mma.cuh", "sgraf_nodes.cuh", "xattn_product.cuh")
     for name in (sgr.SOURCE, sgr.BWD_SOURCE) + headers:
         (tmp_path / name).write_text((kernels.CSRC / name).read_text())
     monkeypatch.setattr(kernels, "CSRC", tmp_path)
