@@ -44,13 +44,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    torch.cuda.set_sync_debug_mode("error");
    VSRN's caption-decoder kernels to `vsrn_dec_plain` and
    `vsrn_dec_bwd_plain` (the states and residuals, all nine cotangents, two
-   backward calls bit-identical) at the training path's decode, 59 steps x
-   128 x 36 regions, H 512, without and with the context dropout, and at a
-   ragged odd shape, the backward also at its other loop routes
-   (VSRN_DEC_ROUTE_SHAPES: H 1024 with its weights streamed, 128 regions,
-   B 200; one and two blocks a unit slice over several batch tiles), with
-   the backward's device time by launch (profiler), its products' TFLOP/s
-   and share of the bound, and one backward call under
+   forward and two backward calls bit-identical) at the training path's
+   decode, 59 steps x 128 x 36 regions, H 512, without and with the context
+   dropout, and at a ragged odd shape, both also at the loops' other routes
+   (VSRN_DEC_ROUTE_SHAPES: H 1024 with weights streamed, 128 regions, B 200;
+   one and two blocks a unit slice over several batch tiles), with each
+   one's device time by launch (profiler), its products' TFLOP/s and share
+   of the bound, and one call of each under
    torch.cuda.set_sync_debug_mode("error"); CAMERA's AGSA gated attention kernels to
    `agsa_attention_plain` and `agsa_attention_bwd_plain` (all eleven
    cotangents, two backward calls bit-identical) at both towers' calls on
@@ -430,6 +430,11 @@ SGR_BWD_FMA_MS = (9.511, 9.425)
 # x H 512, keep 0.8 (ms, fp32; NVIDIA H100 80GB HBM3, 700.00 W), printed
 # beside this run's
 VSRN_BWD_FMA_MS = 37.474
+# the VSRN decoder forward's earlier design (three launches a step, fp32-FMA
+# products on 16 to 64 blocks) at the same decode, with and without the
+# residuals (ms, fp32; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this
+# run's
+VSRN_FWD_PER_STEP_MS = (11.535, 11.167)
 # builds of the SAF kernel for measurements only (kernels.load(name,
 # defines)): its tile epilogues cut, and the projection cut too (the phases
 # of its time)
@@ -2137,29 +2142,32 @@ def vsrn_dec_bound(x: dict, backward: bool = False, fma: bool = False) -> dict:
     h [Watt | Whh]^T and ctx Wctx^T; backward 2 B H^2 x 18: the recomputed
     hq and gx, g_gx Wctx, the carry's [g_hq | g_gh] [Watt ; Whh] and the
     weight sums) and the attention's elementwise work (about 6 and 16
-    operations per (b, r, h) a step).  The forward's products count at the
-    fp32 peak; the backward's, which its kernels run on the tensor cores as
-    split-bf16 products, at the TF32 tensor-core peak (`fma`: all at the
-    fp32 peak, the per-step FMA design's figure), its elementwise work at
-    the fp32 peak.  Also "product_flop"."""
+    operations per (b, r, h) a step).  The products, which both kernels run
+    on the tensor cores as split-bf16 products, count at the TF32
+    tensor-core peak (`fma`: all at the fp32 peak, the figure of the
+    per-step FMA designs), the elementwise work at the fp32 peak.  Also
+    "product_flop"."""
     t, b, h3 = x["gxw"].shape
     h, r = h3 // 3, x["enc_out"].shape[1]
     ins = nbytes(*x.values())
-    if not backward:
-        return bound(ins + 4 * t * b * (h + h + h3), {"fp32": t * (14 * b * h * h + 6 * b * r * h)})
-    saves = 4 * t * b * (h + h3 + h)  # hall, ghall, g_hs
-    outs = ins - nbytes(x["cmask"])  # every input's cotangent but the mask's
-    products, rest = t * 36.0 * b * h * h, t * 16.0 * b * r * h
+    if backward:
+        saves = 4 * t * b * (h + h3 + h)  # hall, ghall, g_hs
+        moved = ins + saves + ins - nbytes(x["cmask"])  # every cotangent but the mask's
+        products, rest = t * 36.0 * b * h * h, t * 16.0 * b * r * h
+    else:
+        moved = ins + 4 * t * b * (h + h + h3)  # hs, hall, ghall
+        products, rest = t * 14.0 * b * h * h, t * 6.0 * b * r * h
     ops = {"fp32": products + rest} if fma else {"tf32": products, "fp32": rest}
-    return {**bound(ins + saves + outs, ops), "product_flop": products}
+    return {**bound(moved, ops), "product_flop": products}
 
 
 def phase_vsrn_dec(g) -> dict:
     """VSRN's decoder kernels vs their plain pair: the training path's decode
     (59 steps x 128 x 36 regions, H 512) without and with the context
     dropout, and a ragged odd shape; the states, the residuals, all nine
-    cotangents (the mask's zero), two backward calls bit-identical; then the
-    times and bounds at the path's shape."""
+    cotangents (the mask's zero), two forward and two backward calls
+    bit-identical; both kernels at the loops' other routes; then the times
+    and bounds at the path's shape."""
     log("vsrn_dec decoder forward + backward kernels vs plain (fp32)")
     res = {}
     for t, b, r, h, keep in VSRN_DEC_SHAPES:
@@ -2168,12 +2176,13 @@ def phase_vsrn_dec(g) -> dict:
         args = tuple(x.values())
         with torch.no_grad():
             got = vsrn_dec_fused(*args)
-        k_hs, k_hall, k_ghall = kvsrn._launch_fwd(*args, residuals=True)
+        k_fwd = kvsrn._launch_fwd(*args, residuals=True)
         want, hall, ghall = vsrn_dec_plain(*args)
         e_fwd = check_rel(f"{tag} states", got, want, VSRN_FWD_REL)
-        for name, a, w in (("states with residuals", k_hs, want), ("hall", k_hall, hall),
-                           ("ghall", k_ghall, ghall)):
+        for name, a, w in zip(("states with residuals", "hall", "ghall"), k_fwd,
+                              (want, hall, ghall)):
             check_rel(f"{tag} {name}", a, w, VSRN_FWD_REL)
+        check_fwd_repeats(tag, args, k_fwd)
         kb = vsrn_dec_bwd_fused(*args, hall, ghall, ghs)
         pb = vsrn_dec_bwd_plain(*args, hall, ghall, ghs)
         # the fault the limit must separate: the second step's cotangent lost
@@ -2210,7 +2219,15 @@ def phase_vsrn_dec(g) -> dict:
         tag = f"vsrn_dec T {t} x B {b} x R {r} x H {h}, keep {keep}"
         x, ghs = _vsrn_dec_inputs(gr, t, b, r, h, keep)
         args = tuple(x.values())
-        _, hall, ghall = vsrn_dec_plain(*args)
+        want = vsrn_dec_plain(*args)
+        _, hall, ghall = want
+        k_fwd = kvsrn._launch_fwd(*args, residuals=True)
+        fwd_errs = [rel_err(a, w_) for a, w_ in zip(k_fwd, want)]
+        log(f"  {tag} forward ({kvsrn.fwd_plan(b, r, h, sms=kvsrn._sms(DEV))}): states, hall, "
+            f"ghall rel_err {', '.join(f'{e:.3e}' for e in fwd_errs)} (limit {VSRN_FWD_REL:g})")
+        if not all(torch.isfinite(a).all() for a in k_fwd) or not max(fwd_errs) <= VSRN_FWD_REL:
+            raise AssertionError(f"{tag}: forward rel_err {max(fwd_errs)} > {VSRN_FWD_REL}")
+        check_fwd_repeats(tag, args, k_fwd)
         kb = vsrn_dec_bwd_fused(*args, hall, ghall, ghs)
         pb = vsrn_dec_bwd_plain(*args, hall, ghall, ghs)
         errs = {n: rel_err(a, w_) for n, a, w_ in zip(VSRN_DEC_NAMES, kb, pb) if n != "g_cmask"}
@@ -2232,10 +2249,16 @@ def phase_vsrn_dec(g) -> dict:
         res["ms"] = cuda_ms(lambda: kvsrn._launch_fwd(*args, residuals=True), reps=10)
         res["fwd_no_residuals_ms"] = cuda_ms(lambda: vsrn_dec_fused(*args), reps=10)
         res["plain_ms"] = cuda_ms(lambda: vsrn_dec_plain(*args), reps=5)
+        res["launch_ms"] = _launch_ms(lambda: kvsrn._launch_fwd(*args, residuals=True))
     res["bwd_ms"] = cuda_ms(lambda: vsrn_dec_bwd_fused(*args, hall, ghall, ghs), reps=10)
     res["bwd_launch_ms"] = _launch_ms(lambda: vsrn_dec_bwd_fused(*args, hall, ghall, ghs))
     res["bwd_plain_ms"] = cuda_ms(lambda: vsrn_dec_bwd_plain(*args, hall, ghall, ghs), reps=5)
     res.update(vsrn_dec_bound(x))
+    res["bound_ms_fma"] = vsrn_dec_bound(x, fma=True)["bound_ms"]
+    res["tflops"] = res["product_flop"] / (res["ms"] * 1e9)
+    res["share_of_bound"] = res["bound_ms"] / res["ms"]
+    res["plan"] = kvsrn.fwd_plan(x["gxw"].shape[1], x["enc_out"].shape[1],
+                                 x["enc_out"].shape[2], sms=kvsrn._sms(DEV))
     for k, v in vsrn_dec_bound(x, backward=True).items():
         res["bwd_" + k] = v
     res["bwd_bound_ms_fma"] = vsrn_dec_bound(x, backward=True, fma=True)["bound_ms"]
@@ -2243,31 +2266,47 @@ def phase_vsrn_dec(g) -> dict:
     res["bwd_share_of_bound"] = res["bwd_bound_ms"] / res["bwd_ms"]
     res["bwd_plan"] = kvsrn.plan(x["gxw"].shape[1], x["enc_out"].shape[1],
                                  x["enc_out"].shape[2], sms=kvsrn._sms(DEV))
-    # the backward reads nothing back to the host: a synchronizing call
+    # neither kernel reads anything back to the host: a synchronizing call
     # under the sync debug mode raises
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
+        kvsrn._launch_fwd(*args, residuals=True)
         vsrn_dec_bwd_fused(*args, hall, ghall, ghs)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    res["bwd_no_sync"] = True
+    res["no_sync"] = True
     # no PyTorch call computes the decode loop or its backward
     res["library_ms"] = None
     t, b, r, h, keep = VSRN_DEC_SHAPES[1]
-    log(f"  time T {t} x B {b} x R {r} x H {h} (keep {keep}), fp32: forward kernels "
-        f"{res['ms']:.3f} ms with residuals ({res['fwd_no_residuals_ms']:.3f} without), plain "
-        f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
-        f"backward kernels {res['bwd_ms']:.3f} ms (the per-step FMA design: "
+    log(f"  time T {t} x B {b} x R {r} x H {h} (keep {keep}), fp32: forward kernel "
+        f"{res['ms']:.3f} ms with residuals ({res['fwd_no_residuals_ms']:.3f} without; the "
+        f"per-step FMA design: {VSRN_FWD_PER_STEP_MS[0]:.3f}, {VSRN_FWD_PER_STEP_MS[1]:.3f}), "
+        f"plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
+        f"products at the TF32 peak; {res['bound_ms_fma']:.4f} at the fp32 peak), products "
+        f"{res['tflops']:.2f} TFLOP/s, {100 * res['share_of_bound']:.2f}% of the bound; loop "
+        f"{res['plan']}; backward kernels {res['bwd_ms']:.3f} ms (the per-step FMA design: "
         f"{VSRN_BWD_FMA_MS:.3f}), plain {res['bwd_plain_ms']:.3f} ms, bound "
         f"{res['bwd_bound_ms']:.4f} ms ({res['bwd_bound_by']}, products at the TF32 peak; "
         f"{res['bwd_bound_ms_fma']:.4f} at the fp32 peak), products "
         f"{res['bwd_tflops']:.2f} TFLOP/s, {100 * res['bwd_share_of_bound']:.2f}% of the bound; "
         f"loop {res['bwd_plan']}")
-    log("  backward, device ms a call by launch (profiler): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in res["bwd_launch_ms"].items()))
-    log("  one backward call under torch.cuda.set_sync_debug_mode('error'): no sync")
+    for what in ("", "bwd_"):
+        log(f"  {'backward' if what else 'forward'}, device ms a call by launch (profiler): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in res[what + "launch_ms"].items()))
+    log("  one forward and one backward call under torch.cuda.set_sync_debug_mode('error'): "
+        "no sync")
     return res
+
+
+def check_fwd_repeats(tag: str, args, first) -> None:
+    """A second forward call with residuals gives the same states, hall and
+    ghall bit for bit."""
+    again = kvsrn._launch_fwd(*args, residuals=True)
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    log(f"  {tag}: two forward calls bit-identical: {same}")
+    if not same:
+        raise AssertionError(f"{tag}: the forward is not deterministic")
 
 
 def vsrn_bwd_result(res: dict) -> dict:

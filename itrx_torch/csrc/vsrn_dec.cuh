@@ -1,6 +1,7 @@
 // Shared by VSRN's caption-decoder kernels (vsrn_dec.cu, vsrn_dec_bwd.cu):
-// the additive attention of one decode step for one batch row, and the GRU
-// gate helpers.  All fp32.
+// the additive attention of one decode step for one batch row (the
+// backward's recompute over every row; the forward runs the same arithmetic
+// inside its loop), and the GRU gate helpers.  All fp32.
 //
 //   o_r   = tanh(enc_att_r + hq)                 (R x H)
 //   e_r   = o_r . w2,  alpha = softmax_r(e)

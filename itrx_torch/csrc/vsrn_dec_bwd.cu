@@ -29,10 +29,11 @@
 //   1. proj_kernel (twice) and attend_kernel: the recomputation over all rows
 //      (mma_tile's wgmma on TMA-staged weight slabs).
 //   2. loop_kernel: the reverse loop as one persistent cooperative launch, a
-//      block an SM (gru_persistent.cuh's grid barrier).  A block owns 8
-//      hidden units j and keeps its split B fragments of the loop's weights
-//      in shared memory for all steps (streamed through a cp.async ring where
-//      they do not fit: H above 775); where the card has room (H <= 528 on
+//      block an SM (gru_persistent.cuh's grid barrier, vsrn_dec_loop.cuh's
+//      product, shared with the forward).  A block owns 8 hidden units j and
+//      keeps its split B fragments of the loop's weights in shared memory for
+//      all steps (streamed through a cp.async ring where they do not fit: H
+//      above 775); where the card has room (H <= 528 on
 //      132 SMs) two blocks share the units, each taking half of the batch
 //      rows.  A step is three phases between three grid barriers:
 //        - from one read of the exchange [g_prer | g_prez | g_pren | g_pren r]
@@ -59,9 +60,14 @@
 // No atomics and every sum in a fixed order, so two calls give identical
 // gradients; nothing is read back to the host.  Each launch's time on the
 // card is in PERF.md §6.
+#ifdef ITRX_VSRN_DEC_PHASES
+// the loop's phases as block 0's thread 0 sees them (tools/vsrn_dec_phases.py)
+#define ITRX_VSRN_LOOP_PHASES 7
+#endif
 #include "gru_persistent.cuh"
 #include "sgraf_nodes_mma.cuh"
 #include "vsrn_dec.cuh"
+#include "vsrn_dec_loop.cuh"
 
 namespace {
 
@@ -70,36 +76,13 @@ using itrx_vsrn::kMaxH;
 using itrx_vsrn::kMaxR;
 using itrx_vsrn::sigmoid_f;
 using itrx_vsrn::warp_sum;
+using vsrn_loop::kChunkSteps;
+using vsrn_loop::kStepWords;
+using vsrn_loop::kUnits;
+using vsrn_loop::product_mma;
+using vsrn_loop::ring_issue_frag;
 
 constexpr int kThreads = 256, kWarps = kThreads / 32;
-
-#ifdef ITRX_VSRN_DEC_PHASES
-// the loop's phases as block 0's thread 0 sees them (tools/vsrn_dec_phases.py)
-constexpr int kPhases = 7;
-__device__ unsigned long long g_phase_ns[kPhases];
-__device__ __forceinline__ unsigned long long phase_now() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-#define PHASE_START                                  \
-  unsigned long long phase_ns[kPhases] = {}, phase_at = 0; \
-  if (blockIdx.x == 0 && threadIdx.x == 0) phase_at = phase_now();
-#define PHASE(i)                                     \
-  if (blockIdx.x == 0 && threadIdx.x == 0) {         \
-    const unsigned long long now_ = phase_now();     \
-    phase_ns[i] += now_ - phase_at;                  \
-    phase_at = now_;                                 \
-  }
-#define PHASE_END                                    \
-  if (blockIdx.x == 0 && threadIdx.x == 0) {         \
-    for (int i = 0; i < kPhases; ++i) g_phase_ns[i] = phase_ns[i]; \
-  }
-#else
-#define PHASE_START
-#define PHASE(i)
-#define PHASE_END
-#endif
 
 // ---------------------------------------------------------------- 1
 // Rows t0 .. t0 + nrows - 1 of an fp32 matrix (row stride ld), columns
@@ -183,152 +166,6 @@ struct LoopArgs {
   unsigned* bar;        // grid barrier, two zeroed words
   int T, B, R, H, Kp1, Kp4;
 };
-
-constexpr int kUnits = 8;        // hidden units a loop block owns: one n8 tile
-constexpr int kStepWords = 128;  // one n8 tile's split B fragments of a k16 step, 32 lanes
-constexpr int kChunkSteps = gru::kKAlign / 16;  // k16 steps in one streamed chunk
-
-// Chunk `chunk` of a streamed run of the first product's weight fragments
-// (NT tiles) into ring slot chunk % kStages: k16 steps ((chunk % per + rot) %
-// per) 4 .. + 3, one contiguous piece of NT kChunkSteps kStepWords words.
-template <int NT>
-__device__ __forceinline__ void ring_issue_frag(uint32_t* ring, int chunk, int total, int per,
-                                                int rot, const uint32_t* __restrict__ src) {
-  constexpr int kWords = NT * kChunkSteps * kStepWords;
-  if (chunk < total) {
-    uint32_t* slot = ring + (chunk % gru::kStages) * kWords;
-    const uint32_t* from = src + (size_t)((chunk % per + rot) % per) * kWords;
-    for (int i = 4 * threadIdx.x; i < kWords; i += 4 * kThreads) {
-      gru::cp_async16(slot + i, from + i, 16);
-    }
-  }
-  gru::cp_async_commit();
-}
-
-// One product of a tile of the block's batch rows (16 MT rows) against the
-// block's NT n8 tiles of weight columns, on the tensor cores: mma.sync
-// m16n8k16 with x = hi + lo both bf16 and three passes a_hi b_lo + a_lo b_hi
-// + a_hi b_hi, fp32 accumulation (sgraf_nodes_mma.cuh's split, fp32 accuracy
-// kept).  Warp w takes m-tile w % MT and part w / MT of the depth's k16 steps
-// (8 / MT parts); its A rows come from the exchange at L2, a float4 of rows g
-// and g + 8 a step and lane (lane t holding columns 4t .. 4t + 3 of the k16
-// step as its fragment slots 2t, 2t + 1, 2t + 8, 2t + 9; the wrapper lays the
-// B fragments out with the same permutation), DEPTH - 1 steps ahead, split as
-// they are used; its B fragments, pre-split, from shared memory (ws, or the
-// ring's slots when STREAM).  The walk over the depth starts at chunk `rot`
-// (of 4 k16 steps) and wraps, so that blocks reading the same rows at once
-// read different lines.  The parts are summed in order through shared
-// memory (part_s), ending with a barrier of the block; warps of part 0 end
-// with the tile's sums: d[nt][2 h + e] at row 16 mt + g + 8 h, column 2t + e
-// of tile nt.
-template <int MT, int NT, bool STREAM>
-__device__ __forceinline__ void product_mma(float (&d)[NT][4], const float* A, int lda,
-                                            int nrows, const uint32_t* ws, int Kp, int rot,
-                                            int& chunk, int total, const uint32_t* src,
-                                            float* part_s) {
-  using namespace gru;
-  constexpr int KS = 8 / MT, DEPTH = 8;
-  static_assert(!STREAM || KS == 1, "a streamed ring feeds every warp the same chunk");
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int mt = warp % MT, part = warp / MT;
-  const int nsteps = Kp / 16, per = nsteps / KS, s0 = part * per, r16 = rot * kChunkSteps;
-  const int ra = 16 * mt + g, rb = ra + 8;
-  const bool oka = ra < nrows, okb = rb < nrows;
-  const float* pa = A + (size_t)(oka ? ra : 0) * lda + 4 * t;
-  const float* pb = A + (size_t)(okb ? rb : 0) * lda + 4 * t;
-  // the part's s-th step is k16 step (s0 + s + r16) mod nsteps
-  const auto step_of = [&](int s) {
-    const int k = s0 + s + r16;
-    return k < nsteps ? k : k - nsteps;
-  };
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  const auto load = [&](int s, float4& xa, float4& xb) {
-#ifdef ITRX_VSRN_DEC_PROBE_NO_LOADS
-    // a measurement build: the operand rows never read, what the rest takes
-    xa = xb = make_float4(__int_as_float(0x3f000000 | threadIdx.x), 0.f, 0.f, 0.f);
-#else
-    const int k = step_of(s) * 16;
-    xa = oka ? __ldcg(reinterpret_cast<const float4*>(pa + k)) : zero;
-    xb = okb ? __ldcg(reinterpret_cast<const float4*>(pb + k)) : zero;
-#endif
-  };
-  float dlo[NT][4], dhi[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) dlo[n][q] = dhi[n][q] = 0.0f;
-  float4 bufa[DEPTH], bufb[DEPTH];
-#pragma unroll
-  for (int i = 0; i < DEPTH - 1; ++i)
-    if (i < per) load(i, bufa[i], bufb[i]);
-  for (int s0i = 0; s0i < per; s0i += DEPTH) {
-#pragma unroll
-    for (int i = 0; i < DEPTH; ++i) {
-      const int s = s0i + i;
-      if (s < per) {
-        if (s + DEPTH - 1 < per) {
-          load(s + DEPTH - 1, bufa[(i + DEPTH - 1) % DEPTH], bufb[(i + DEPTH - 1) % DEPTH]);
-        }
-        const uint32_t* w;
-        if constexpr (STREAM) {
-          if (s % kChunkSteps == 0) {
-            cp_async_wait<kStages - 2>();
-            __syncthreads();
-            ring_issue_frag<NT>(const_cast<uint32_t*>(ws), chunk + kStages - 1, total,
-                                Kp / kKAlign, rot, src);
-            ++chunk;
-          }
-          w = ws + ((chunk - 1) % kStages) * (NT * kChunkSteps * kStepWords) +
-              (s % kChunkSteps) * NT * kStepWords;
-        } else {
-          w = ws + (size_t)step_of(s) * NT * kStepWords;
-        }
-        const float4 xa = bufa[i], xb = bufb[i];
-        uint32_t ah[4], al[4];
-        mma::split2(xa.x, xa.y, ah[0], al[0]);
-        mma::split2(xb.x, xb.y, ah[1], al[1]);
-        mma::split2(xa.z, xa.w, ah[2], al[2]);
-        mma::split2(xb.z, xb.w, ah[3], al[3]);
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const uint4 b = *reinterpret_cast<const uint4*>(w + n * kStepWords + 4 * lane);
-#ifdef ITRX_VSRN_DEC_PROBE_NO_PRODUCTS
-          // a measurement build: the operands formed and kept, no products
-          dhi[n][0] += __uint_as_float(ah[0] ^ al[1] ^ ah[2] ^ al[3] ^ b.x ^ b.y ^ b.z ^ b.w);
-#else
-          mma::mma16(dlo[n], ah, b.z, b.w);
-          mma::mma16(dlo[n], al, b.x, b.y);
-          mma::mma16(dhi[n], ah, b.x, b.y);
-#endif
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) d[n][q] = dlo[n][q] + dhi[n][q];
-  if constexpr (KS > 1) {
-    // the parts' sums, in order of the part
-    float* mine = part_s + ((size_t)mt * 32 + lane) * NT * 4;
-    for (int p = 1; p < KS; ++p) {
-      if (part == p) {
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) mine[n * 4 + q] = d[n][q];
-      }
-      __syncthreads();
-      if (part == 0) {
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) d[n][q] += mine[n * 4 + q];
-      }
-      __syncthreads();
-    }
-  }
-}
 
 // The inputs of the cell's adjoint at one (row, unit), loaded a product ahead
 struct CellIn {
@@ -915,7 +752,8 @@ int itrx_vsrn_dec_bwd(const void* gxw, const void* cmask, const void* enco, cons
 #ifdef ITRX_VSRN_DEC_PHASES
 // the loop's phase times of the last launch (ns, block 0)
 int itrx_vsrn_dec_bwd_phases(void* out) {
-  return (int)cudaMemcpyFromSymbol(out, g_phase_ns, sizeof(g_phase_ns));
+  return (int)cudaMemcpyFromSymbol(out, vsrn_loop::g_phase_ns,
+                                   sizeof(vsrn_loop::g_phase_ns));
 }
 #endif
 

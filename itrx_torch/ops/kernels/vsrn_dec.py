@@ -28,14 +28,16 @@ bf16 training yet (ROADMAP queue 1 item 7), so every CUDA training step goes
 to the fp32 kernels.  A CPU tensor takes the plain pair; a CUDA tensor
 launches the kernels or raises.
 
-The backward (csrc/vsrn_dec_bwd.cu) runs every product on the tensor cores
-as a split-bf16 product (the weights split once a call here: `split_rows`
-for the recomputed hq and gx, `loop_weights` for the reverse loop), the
-reverse loop as one persistent cooperative launch (`plan`: the blocks, how
-many share a slice of 8 hidden units, whether the loop's weight fragments
-stay resident in shared memory or stream, the shared-memory bytes; pure
-Python, held by the CPU tests), then the attention's sums over t and the
-weight sums after it.  It reads nothing back to the host.
+Both kernels run every product on the tensor cores as a split-bf16 product,
+on weights split once a call here.  The forward (csrc/vsrn_dec.cu) is the
+decode loop as one persistent cooperative launch (`fwd_plan`, its fragments
+`fwd_weights`).  The backward (csrc/vsrn_dec_bwd.cu) recomputes hq and gx
+over every row (`split_rows`), runs the reverse loop as one persistent
+cooperative launch (`plan`, `loop_weights`), then the attention's sums over
+t and the weight sums.  A plan gives the blocks, how many share a slice of 8
+hidden units, whether the loop's weight fragments stay resident in shared
+memory or stream, and the shared-memory bytes; plans are pure Python, held
+by the CPU tests.  Neither kernel reads anything back to the host.
 """
 
 from __future__ import annotations
@@ -67,6 +69,12 @@ STEP_BYTES = 512  # one n8 tile's split B fragments of a k16 step (32 lanes x 16
 # static shared memory of a loop block: a g_ctx row, alpha and g_e of a row,
 # the products' part sums (4 m-tiles x 32 lanes x 2 tiles x 4)
 LOOP_STATIC_SMEM = (MAX_HIDDEN + 2 * MAX_REGIONS + 4 * 32 * 2 * 4) * 4
+# the forward loop's n8 tiles a unit group: the product over h ([Watt ;
+# Whh]: hq and gh's r, z, n) and over ctx (Wctx)
+FWD_TILES = (4, 3)
+# static shared memory of a forward loop block: an hq row and w2, a row's
+# scores, the products' part sums (4 m-tiles x 32 lanes x 4 tiles x 4)
+FWD_STATIC_SMEM = (2 * MAX_HIDDEN + MAX_REGIONS + 4 * 32 * 4 * 4) * 4
 MAX_SMEM = 232_448  # shared memory one block may take on an H100
 H100_SMS = 132
 # output columns of one chunk of a split weight (two warpgroups of n128)
@@ -96,34 +104,68 @@ class LoopPlan:
     k4: int
 
 
-def plan(batch: int, regions: int, hidden: int, *, sms: int = H100_SMS,
-         halves: int | None = None) -> LoopPlan:
-    """The loop's launch plan at (B, R, H) on a card of `sms` SMs: the most
-    blocks that share a unit slice (of HALVES, or `halves`) with one block an
-    SM, f1's fragments resident where both products' fit shared memory.
-    Raises ValueError for a request the kernels do not take."""
+@dataclass(frozen=True)
+class FwdPlan:
+    """How the forward's decode loop runs: as LoopPlan, with the block's
+    fragments of Wctx (`fwd_weights`' fc, three n8 tiles) "resident" in
+    shared memory beside fh's (four tiles) or "streamed" through a ring each
+    step; `k1` the products' padded depth (H rounded up to K_ALIGN)."""
+
+    halves: int
+    blocks: int
+    route: str
+    smem: int
+    k1: int
+
+
+def _loop_route(name: str, batch: int, regions: int, hidden: int, sms: int,
+                halves: int | None, resident: int, streamed: int, static: int) -> tuple:
+    """(halves, blocks, route, smem) of a loop at (B, R, H) on a card of
+    `sms` SMs: the most blocks that share a unit slice (of HALVES, or
+    `halves`) with one block an SM, the fragments resident where `resident`
+    bytes fit beside the `static` shared memory, else `streamed` bytes with
+    one block a slice.  Raises ValueError for a request the kernels do not
+    take."""
     if batch < 1 or not 1 <= regions <= MAX_REGIONS or not 1 <= hidden <= MAX_HIDDEN:
-        raise ValueError(f"vsrn_dec plan: B >= 1, R in [1, {MAX_REGIONS}], H in "
+        raise ValueError(f"vsrn_dec {name}: B >= 1, R in [1, {MAX_REGIONS}], H in "
                          f"[1, {MAX_HIDDEN}], got {(batch, regions, hidden)}")
     if halves is not None and halves not in HALVES:
-        raise ValueError(f"vsrn_dec plan: {halves} blocks a unit slice not in {HALVES}")
+        raise ValueError(f"vsrn_dec {name}: {halves} blocks a unit slice not in {HALVES}")
     groups = -(-hidden // UNITS)
     hv = next((x for x in ((halves,) if halves else HALVES) if x * groups <= sms), None)
     if hv is None:
-        raise ValueError(f"vsrn_dec plan: H {hidden} needs {groups} blocks of {UNITS} units "
+        raise ValueError(f"vsrn_dec {name}: H {hidden} needs {groups} blocks of {UNITS} units "
                          f"{'x ' + str(halves) + ' ' if halves else ''}on {sms} SMs")
+    if resident <= MAX_SMEM - static:
+        return hv, hv * groups, "resident", resident
+    if hv == 2:  # the streamed ring takes one part of the depth a block
+        raise ValueError(f"vsrn_dec {name}: H {hidden} streams its weights; "
+                         "two blocks a unit slice need them resident")
+    return hv, hv * groups, "streamed", streamed
+
+
+def plan(batch: int, regions: int, hidden: int, *, sms: int = H100_SMS,
+         halves: int | None = None) -> LoopPlan:
+    """The backward loop's launch plan (`_loop_route`): f1's fragments
+    resident where both products' fit shared memory."""
     k1, k4 = _round_up(hidden, K_ALIGN), _round_up(4 * hidden, K_ALIGN)
     w3 = k1 // 16 * STEP_BYTES
-    resident = w3 + k4 // 16 * 2 * STEP_BYTES
-    room = MAX_SMEM - LOOP_STATIC_SMEM
-    if resident <= room:
-        route, smem = "resident", resident
-    else:
-        route, smem = "streamed", w3 + STAGES * 2 * (K_ALIGN // 16) * STEP_BYTES
-        if hv == 2:  # the streamed ring takes one part of the depth a block
-            raise ValueError(f"vsrn_dec plan: H {hidden} streams its weights; "
-                             "two blocks a unit slice need them resident")
-    return LoopPlan(halves=hv, blocks=hv * groups, route=route, smem=smem, k1=k1, k4=k4)
+    hv, blocks, route, smem = _loop_route(
+        "plan", batch, regions, hidden, sms, halves, w3 + k4 // 16 * 2 * STEP_BYTES,
+        w3 + STAGES * 2 * (K_ALIGN // 16) * STEP_BYTES, LOOP_STATIC_SMEM)
+    return LoopPlan(halves=hv, blocks=blocks, route=route, smem=smem, k1=k1, k4=k4)
+
+
+def fwd_plan(batch: int, regions: int, hidden: int, *, sms: int = H100_SMS,
+             halves: int | None = None) -> FwdPlan:
+    """The forward loop's launch plan (`_loop_route`): fc's fragments
+    resident where both products' fit shared memory (H <= 960)."""
+    k1 = _round_up(hidden, K_ALIGN)
+    wh, wc = (k1 // 16 * n * STEP_BYTES for n in FWD_TILES)
+    hv, blocks, route, smem = _loop_route(
+        "fwd_plan", batch, regions, hidden, sms, halves, wh + wc,
+        wh + STAGES * FWD_TILES[1] * (K_ALIGN // 16) * STEP_BYTES, FWD_STATIC_SMEM)
+    return FwdPlan(halves=hv, blocks=blocks, route=route, smem=smem, k1=k1)
 
 
 @functools.cache
@@ -185,6 +227,17 @@ def loop_weights(watt, wctx, whh, k1: int, k4: int, groups: int) -> tuple:
     w1[hd:, :2 * hd] = whh_t[:, :2 * hd]
     w1[hd:, 3 * hd:] = whh_t[:, 2 * hd:]
     return _fragments(w1, 2, k4, groups), _fragments(f(watt).t(), 1, k1, groups)
+
+
+def fwd_weights(watt, wctx, whh, k1: int, groups: int) -> tuple:
+    """The forward loop's weights as `_fragments`, rows j the output unit j
+    of a product over an exchange row: fh from [Watt ; Whh] (4H, H), so that
+    one read of the state exchange gives hq (tile 0) and gh's r, z, n (tiles
+    1-3); fc from Wctx (3H, H) for gx; depth k1, `groups` groups of UNITS
+    units.  Returns (fh, fc)."""
+    f = lambda w: w.detach().float()  # noqa: E731
+    return (_fragments(torch.cat([f(watt), f(whh)]), FWD_TILES[0], k1, groups),
+            _fragments(f(wctx), FWD_TILES[1], k1, groups))
 
 
 def _work(t: torch.Tensor) -> torch.dtype:
@@ -324,31 +377,34 @@ def _c(t):
 
 
 def _launch_fwd(gxw, cmask, enc_out, enc_att, h0, watt, w2, wctx, whh, bhh, residuals: bool):
-    """(hs, hall, ghall) from the forward kernels; hall and ghall are None
+    """(hs, hall, ghall) from the forward kernel; hall and ghall are None
     unless `residuals`."""
     t, b, h3 = gxw.shape
     hd, r = h3 // 3, enc_out.shape[1]
     dev = gxw.device
+    p = fwd_plan(b, r, hd, sms=_sms(dev))
     f32 = dict(dtype=torch.float32, device=dev)
     hs = torch.empty(t, b, hd, **f32)
     hall = torch.empty(t, b, hd, **f32) if residuals else None
     ghall = torch.empty(t, b, h3, **f32) if residuals else None
-    ws_hq, ws_ctx, ws_gh = (torch.empty(b, hd, **f32), torch.empty(b, hd, **f32),
-                            torch.empty(b, h3, **f32))
+    ws = [torch.empty(b, p.k1, **f32), torch.empty(b, hd, **f32),  # state, hq
+          torch.empty(b, p.k1, **f32)]                              # context
+    ws_gh = None if residuals else torch.empty(b, h3, **f32)
+    bar = torch.empty(2, dtype=torch.int32, device=dev)
     lib = load("vsrn_dec")
     fn = lib.itrx_vsrn_dec_fwd
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    # every temporary is held by a name until the launches have been queued
+    # every temporary is held by a name until the launch has been queued
     ins = [_c(a) for a in (gxw, cmask, enc_out, enc_att, h0)]
-    wcat_t = torch.cat([watt.detach(), whh.detach()], dim=0).t().contiguous()
-    wctx_t = wctx.detach().t().contiguous()
     w2v, bhhc = _c(w2).reshape(-1), _c(bhh)
+    fh, fc = fwd_weights(watt, wctx, whh, p.k1, p.blocks // p.halves)
     opt = [ctypes.c_void_p(None) if a is None else ptr(a) for a in (hall, ghall)]
-    code = fn(*(ptr(a) for a in ins), ptr(wcat_t), ptr(w2v), ptr(wctx_t), ptr(bhhc), ptr(hs),
-              *opt, ptr(ws_hq), ptr(ws_gh), ptr(ws_ctx), t, b, r, hd, dev.index,
-              current_stream(dev))
-    check(lib, "vsrn_dec kernels", code)
+    code = fn(*(ptr(a) for a in ins), ptr(w2v), ptr(bhhc), ptr(fh), ptr(fc), ptr(hs), *opt,
+              *(ptr(a) for a in ws), ctypes.c_void_p(None) if ws_gh is None else ptr(ws_gh),
+              ptr(bar), t, b, r, hd, p.halves, p.blocks, int(p.route == "streamed"), p.smem,
+              dev.index, current_stream(dev))
+    check(lib, "vsrn_dec kernel", code)
     vsrn_dec_fused.launches += 1
     return hs, hall, ghall
 
@@ -435,7 +491,7 @@ def vsrn_dec_fused(gxw, cmask, enc_out, enc_att, h0, watt, w2, wctx, whh, bhh):
     """The teacher-forced decode: the states hs (T, B, H), differentiable in
     every input but the mask.  A CPU tensor takes `vsrn_dec_plain` (and
     `vsrn_dec_bwd_plain` in the backward); a CUDA tensor launches the forward
-    kernels (and the backward kernels), fp32 only, or raises; any other
+    kernel (and the backward kernels), fp32 only, or raises; any other
     device raises."""
     args = (gxw, cmask, enc_out, enc_att, h0, watt, w2, wctx, whh, bhh)
     dev = _guard("vsrn_dec_fused", args)

@@ -783,18 +783,25 @@ def test_vsrn_evaluation_reaches_no_grid_kernel(monkeypatch):
 
 def test_vsrn_dec_sources_are_built_and_hashed(tmp_path, monkeypatch):
     """The decoder's forward and backward kernels exist with their C
-    interfaces, both include the shared attention header, the forward the
-    tile product and the backward the persistent loop's pieces and the
-    split tensor-core product, and both library names change when any of
-    those headers changes."""
+    interfaces, both include the shared attention header, the persistent
+    loops' shared pieces (the split tensor-core product, which includes the
+    grid barrier and the split) and the grid barrier, the backward also the
+    wgmma products; no source keeps a copy of the loop's product, and no
+    header the fp32-FMA tile product (gemm_tile.cuh is gone); and both
+    library names change when any of those headers changes."""
     fwd, bwd = (kernels.CSRC / n for n in (vsrn_dec.SOURCE, vsrn_dec.BWD_SOURCE))
     assert "int itrx_vsrn_dec_fwd(" in fwd.read_text()
     assert "int itrx_vsrn_dec_bwd(" in bwd.read_text()
-    includes = {fwd: ("vsrn_dec.cuh", "gemm_tile.cuh"),
-                bwd: ("vsrn_dec.cuh", "gru_persistent.cuh", "sgraf_nodes_mma.cuh")}
+    loop = ("vsrn_dec.cuh", "vsrn_dec_loop.cuh", "gru_persistent.cuh")
+    includes = {fwd: loop, bwd: loop + ("sgraf_nodes_mma.cuh",),
+                kernels.CSRC / "vsrn_dec_loop.cuh": ("gru_persistent.cuh", "sgraf_nodes_mma.cuh")}
     for src, names in includes.items():
         assert all(f'#include "{h}"' in src.read_text() for h in names)
-    headers = ("vsrn_dec.cuh", "gemm_tile.cuh", "gru_persistent.cuh", "sgraf_nodes_mma.cuh")
+    for src in (fwd, bwd):
+        assert "product_mma(float" not in src.read_text()
+    assert not (kernels.CSRC / "gemm_tile.cuh").exists()
+    assert all("gemm_tile" not in h.read_text() for h in kernels.CSRC.glob("*.cu*"))
+    headers = ("vsrn_dec.cuh", "vsrn_dec_loop.cuh", "gru_persistent.cuh", "sgraf_nodes_mma.cuh")
     for name in (vsrn_dec.SOURCE, vsrn_dec.BWD_SOURCE) + headers:
         (tmp_path / name).write_text((kernels.CSRC / name).read_text())
     monkeypatch.setattr(kernels, "CSRC", tmp_path)
