@@ -27,12 +27,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    SAF also at L 4, at a 128-word caption and at S 128, SGR at the last two
    in bf16, and repeat launches bit-identical; the SGRAF training
    alignment kernels (forward and backward) to `sgraf_align_plain` and
-   `sgraf_align_bwd_plain` (all four gradients, and two backward calls
-   bit-identical) at one training chunk, 32 captions x 128 images x 24
-   words, and at a ragged odd shape, bf16 and fp32, with the backward's
-   device time by launch (torch.profiler over the timed calls), its
-   products' TFLOP/s and share of the bound, one backward call under
-   torch.cuda.set_sync_debug_mode("error") (no device-to-host sync), and in
+   `sgraf_align_bwd_plain` (all four gradients, two forward and two
+   backward calls bit-identical, the forward's masked words exactly zero
+   over NaN-filled memory) at one training chunk, 32 captions x 128 images
+   x 24 words, and at a ragged odd shape, bf16 and fp32, with both kernels'
+   device time by launch (torch.profiler over the timed calls), their
+   products' TFLOP/s and share of the bound, one forward and one backward
+   call under torch.cuda.set_sync_debug_mode("error") (no device-to-host
+   sync), and in
    bf16 a float64 witness (gcap and gimg of the kernel and of the plain
    version, each against a float64 plain run on the same values); the SGR training
    reasoning kernels to `sgr_reason_plain` and `sgr_reason_bwd_plain`
@@ -417,9 +419,11 @@ COUNTERS = {"gru": gru_scan_fused, "gru_bwd": gru_bwd_fused, "xattn": xattn_t2i_
 # 64 x 320 x 36 x 24 x 1024, S 256, sgr_step 3 (ms, bf16 and fp32; NVIDIA
 # H100 80GB HBM3, 700 W), printed beside this run's
 SGRAF_EVAL_FMA_MS = {"saf": (12.642, 18.232), "sgr": (24.046, 29.145)}
-# the alignment backward's earlier design (five passes of fp32-FMA
-# products) at one training chunk (ms, bf16 and fp32; NVIDIA H100 80GB HBM3,
-# 700.00 W), printed beside this run's
+# the alignment forward's earlier design (its projection and context on fp32
+# FMAs, the output zeroed by a memset) and the backward's (five passes of
+# fp32-FMA products) at one training chunk (ms, bf16 and fp32; NVIDIA H100
+# 80GB HBM3, 700.00 W), printed beside this run's
+ALIGN_FWD_FMA_MS = (2.395, 3.522)
 ALIGN_BWD_FMA_MS = (12.659, 15.660)
 # the SGR reasoning backward's earlier design (six launches a step, its
 # products on fp32 FMAs) at one training chunk (ms, fp32 and bf16 nodes;
@@ -1220,15 +1224,14 @@ def align_bound(img, cap, mask, s: int = 256, backward: bool = False) -> dict:
     """The bound of one alignment call.  Forward: cap, img, mask and the fp32
     W, b read once, the (Nc, Ni, L, S) nodes written once in cap's dtype; per
     valid word and image the A and context products (36 x D each) and the
-    projection (D x S), at the bf16 tensor-core peak for bf16 embeddings
-    (else fp32), and some 4 D + 50 R + 4 S fp32 operations of the chain.
-    Backward: the same inputs and the cotangent read once, gcap and gimg (in
-    cap's dtype) and the fp32 dW, db written once; the recomputed products,
-    W gy and dW (D x S each) and four more 36 x D products, and about twice
-    the forward's chain.  The backward runs its products on the tensor cores
-    in both modes, so with fp32 embeddings they count at the TF32
-    tensor-core peak, as the eval kernels' do.  Also "product_flop",
-    the products' operations."""
+    projection (D x S), and some 4 D + 50 R + 4 S fp32 operations of the
+    chain.  Backward: the same inputs and the cotangent read once, gcap and
+    gimg (in cap's dtype) and the fp32 dW, db written once; the recomputed
+    products, W gy and dW (D x S each) and four more 36 x D products, and
+    about twice the forward's chain.  Both run their products on the tensor
+    cores in both modes, so they count at the bf16 tensor-core peak for bf16
+    embeddings and at the TF32 peak for fp32, as the eval kernels' do.  Also
+    "product_flop", the products' operations."""
     ni, r, d = img.shape
     nc, l, _ = cap.shape
     pairs = ni * float(mask.sum())
@@ -1244,7 +1247,7 @@ def align_bound(img, cap, mask, s: int = 256, backward: bool = False) -> dict:
         products = 2.0 * pairs * (2 * r * d + d * s)
         rest = pairs * (4 * d + 50 * r + 4 * s)
         n_bytes = nbytes(img, cap, mask) + 4 * (s * d + s) + nc * ni * l * s * es
-        ops = {"bf16": products, "fp32": rest} if bf16 else {"fp32": products + rest}
+        ops = {"bf16" if bf16 else "tf32": products, "fp32": rest}
     return {**bound(n_bytes, ops), "product_flop": products}
 
 
@@ -1260,11 +1263,28 @@ def phase_sgraf_align(g) -> dict:
         for dt in (torch.bfloat16, torch.float32):
             tag = f"sgraf_align {nc}x{ni}x36x{l} {'bf16' if dt == torch.bfloat16 else 'fp32'}"
             xd = dict(x, cap=x["cap"].to(dt), img=x["img"].to(dt))
+            # the output's memory held NaN before: the kernel writes every
+            # row, the masked words' zero rows too (the caching allocator
+            # hands the freed block to the wrapper's first allocation)
+            junk = torch.full((nc, ni, l, x["w"].shape[0]), float("nan"), dtype=dt, device=DEV)
+            junk_ptr = junk.data_ptr()
+            del junk
             with torch.no_grad():
                 got = sgraf_align_fused(**xd)
+                again = sgraf_align_fused(**xd)
             want = sgraf_align_plain(**xd)
             e_fwd = check(f"{tag} forward", got, want,
                           ALIGN_BF16_ATOL if dt == torch.bfloat16 else ALIGN_FP32_ATOL)
+            masked = got.permute(0, 2, 1, 3)[x["mask"] <= 0]
+            zero = bool((masked == 0).all())
+            same_fwd = torch.equal(got, again)
+            log(f"  {tag}: forward over NaN-filled memory (same block: "
+                f"{got.data_ptr() == junk_ptr}): {masked.shape[0]} masked rows exactly zero: "
+                f"{zero}; two forward calls bit-identical: {same_fwd}")
+            if not zero:
+                raise AssertionError(f"{tag}: the forward left masked words nonzero")
+            if not same_fwd:
+                raise AssertionError(f"{tag}: the forward is not deterministic")
             kb = sgraf_align_bwd_fused(**xd, g=cot.to(dt))
             pb = sgraf_align_bwd_plain(**xd, g=cot.to(dt))
             # the fault the limit must separate: one caption's cotangent lost
@@ -1315,6 +1335,7 @@ def phase_sgraf_align(g) -> dict:
         c_ = cot.to(dt)
         with torch.no_grad():
             res["ms" + suf] = cuda_ms(lambda: sgraf_align_fused(**xd), reps=10)
+            res["launch_ms" + suf] = _launch_ms(lambda: sgraf_align_fused(**xd))
             res["plain_ms" + suf] = cuda_ms(lambda: sgraf_align_plain(**xd), reps=5)
         res["bwd_ms" + suf] = cuda_ms(lambda: sgraf_align_bwd_fused(**xd, g=c_), reps=10)
         res["bwd_launch_ms" + suf] = _launch_ms(lambda: sgraf_align_bwd_fused(**xd, g=c_))
@@ -1322,35 +1343,45 @@ def phase_sgraf_align(g) -> dict:
         fb = align_bound(xd["img"], xd["cap"], xd["mask"])
         bb = align_bound(xd["img"], xd["cap"], xd["mask"], backward=True)
         res["bound_ms" + suf], res["bound_by" + suf] = fb["bound_ms"], fb["bound_by"]
+        res["tflops" + suf] = fb["product_flop"] / (res["ms" + suf] * 1e9)
+        res["share_of_bound" + suf] = fb["bound_ms"] / res["ms" + suf]
         res["bwd_bound_ms" + suf], res["bwd_bound_by" + suf] = bb["bound_ms"], bb["bound_by"]
         res["bwd_tflops" + suf] = bb["product_flop"] / (res["bwd_ms" + suf] * 1e9)
         res["bwd_share_of_bound" + suf] = bb["bound_ms"] / res["bwd_ms" + suf]
-    # the backward reads nothing back to the host: a synchronizing call
-    # under the sync debug mode raises
+    # neither kernel's wrapper reads anything back to the host: a
+    # synchronizing call under the sync debug mode raises
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
+        with torch.no_grad():
+            sgraf_align_fused(**xd)
         sgraf_align_bwd_fused(**xd, g=c_)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    res["bwd_no_sync"] = True
+    res["fwd_no_sync"] = res["bwd_no_sync"] = True
     # no single PyTorch call computes the alignment chain or its backward
     res["library_ms"] = None
-    log(f"  time 32x128x36x24x1024, S 256, bf16: forward kernel {res['ms']:.3f} ms, plain "
-        f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
-        f"backward kernels {res['bwd_ms']:.3f} ms (the FMA design: {ALIGN_BWD_FMA_MS[0]:.3f}), "
+    log(f"  time 32x128x36x24x1024, S 256, bf16: forward kernel {res['ms']:.3f} ms (the FMA "
+        f"design: {ALIGN_FWD_FMA_MS[0]:.3f}), plain {res['plain_ms']:.3f} ms, bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']}), products {res['tflops']:.2f} TFLOP/s, "
+        f"{100 * res['share_of_bound']:.2f}% of the bound; backward kernels "
+        f"{res['bwd_ms']:.3f} ms (the FMA design: {ALIGN_BWD_FMA_MS[0]:.3f}), "
         f"plain {res['bwd_plain_ms']:.3f} ms, bound {res['bwd_bound_ms']:.4f} ms "
         f"({res['bwd_bound_by']}), products {res['bwd_tflops']:.2f} TFLOP/s, "
         f"{100 * res['bwd_share_of_bound']:.2f}% of the bound; fp32: forward "
-        f"{res['ms_fp32']:.3f} ms (plain {res['plain_ms_fp32']:.3f}, bound "
-        f"{res['bound_ms_fp32']:.4f}), backward {res['bwd_ms_fp32']:.3f} ms "
+        f"{res['ms_fp32']:.3f} ms ({ALIGN_FWD_FMA_MS[1]:.3f}; plain {res['plain_ms_fp32']:.3f}, "
+        f"bound {res['bound_ms_fp32']:.4f} at the TF32 peak, products "
+        f"{res['tflops_fp32']:.2f} TFLOP/s, {100 * res['share_of_bound_fp32']:.2f}%), backward "
+        f"{res['bwd_ms_fp32']:.3f} ms "
         f"({ALIGN_BWD_FMA_MS[1]:.3f}; plain {res['bwd_plain_ms_fp32']:.3f}, bound "
         f"{res['bwd_bound_ms_fp32']:.4f} at the TF32 peak, products "
         f"{res['bwd_tflops_fp32']:.2f} TFLOP/s, {100 * res['bwd_share_of_bound_fp32']:.2f}%)")
     for suf, tag in (("", "bf16"), ("_fp32", "fp32")):
-        log(f"  backward {tag}, device ms a call by launch (profiler): " + ", ".join(
-            f"{k} {v:.3f}" for k, v in res["bwd_launch_ms" + suf].items()))
-    log("  one backward call under torch.cuda.set_sync_debug_mode('error'): no sync")
+        for kind, key in (("forward", "launch_ms"), ("backward", "bwd_launch_ms")):
+            log(f"  {kind} {tag}, device ms a call by launch (profiler): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in res[key + suf].items()))
+    log("  one forward and one backward call under torch.cuda.set_sync_debug_mode('error'): "
+        "no sync")
     return res
 
 

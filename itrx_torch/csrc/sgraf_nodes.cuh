@@ -1,8 +1,8 @@
 // The alignment nodes of SGRAF's kernels: their assembly, shared by the
 // evaluation kernels (sgraf_eval_saf.cu, sgraf_eval_sgr.cu) and the training
 // alignment kernels (sgraf_align.cu, sgraf_align_bwd.cu), and the fp32
-// 64-row tile product that the alignment forward (and sgr_rows.cuh) forms
-// them with.  For caption c (L words, mask m) and image i (36 regions):
+// 64-row tile product of the SGR forward's rows (sgr_rows.cuh).  For
+// caption c (L words, mask m) and image i (36 regions):
 //   A[r, l]  = img_ir . cap_cl                              (fp32 accumulation)
 //   h        = leaky_relu(A, 0.1) * m_l
 //   s[l, :]  = softmax_r(9 h[l, :] / (sqrt(max(sum_l h^2, 1e-16)) + 1e-8))
@@ -16,18 +16,15 @@
 // xattn_product.cuh (tensor cores for bf16 inputs, fp32 FMAs for fp32).
 // `assemble` runs the region softmax with one thread per (image, word), writes
 // the softmax weights over the A tile with the context norm from the Gram, and
-// lists the valid (image, word) rows, then the pairs' global rows.  The
-// evaluation kernels project those rows with the split-bf16 tensor-core
-// product of sgraf_nodes_mma.cuh.  `project` forms them here on fp32 FMAs,
-// 64 at a time with `tile_product`: over slabs of 32 of the depth, the block
-// stages the slab of the (depth, S) fp32 weight by cp.async (the next slab's
-// copy running during this slab's product) and the transposed slab of the
-// rows' operand in shared memory (for a word row, its squared difference
-// formed from the softmax weights and the image slab, so the context is never
-// stored), and accumulates in registers, a 32 x 2 corner of the 64 x S tile
-// per thread.  That product is bound by its scalar FMAs (~15 TFLOP/s); every
-// step after reading the inputs is fp32.  Padded words, ragged captions and a
-// group past Nc are masked, not padded.
+// lists the valid (image, word) rows, then the pairs' global rows.  Every
+// kernel that forms nodes projects those rows with the split-bf16
+// tensor-core products of sgraf_nodes_mma.cuh.  `tile_product` is the fp32
+// FMA product of 64 rows by a (K, S) weight that sgr_rows.cuh still takes:
+// over slabs of 32 of the depth, the block stages the slab of the weight by
+// cp.async (the next slab's copy running during this slab's product) and the
+// transposed slab of the rows' operand in shared memory, and accumulates in
+// registers, a 32 x 2 corner of the 64 x S tile per thread.  Padded words,
+// ragged captions and a group past Nc are masked, not padded.
 
 #pragma once
 
@@ -46,14 +43,12 @@ constexpr int kMaxRows = kImgs * kCols + kMaxPairs;
 constexpr float kLambda = 9.0f;
 
 // dynamic shared memory, in floats: the A / softmax tiles (and the product's
-// staging), the two weight slab buffers (first the chain's Grams and norm
-// inverses), the image slab and the transposed operand slab
+// staging), then the chain's Grams and norm inverses; tile_product's two
+// weight slab buffers and transposed operand slab
 constexpr int kTileRegion = kSmemF32 / 4;
 constexpr int kWSlab = kKS * kMaxS;
 constexpr int kXFloats = 2 * kWSlab;
-constexpr int kImgSlab = kImgs * kR * kKS;
 constexpr int kDiffFloats = kKS * kLdD;
-constexpr int kNodeFloats = kTileRegion + kXFloats + kImgSlab + kDiffFloats;
 static_assert(kSmemBf16 <= kSmemF32, "the bf16 product's stages fit the tile region");
 static_assert(kImgs * kR * kR + kImgs * kR * kMaxCaps <= kXFloats, "chain scratch fits");
 static_assert(kThreads == 4 * kTileRows && kThreads == 2 * (kMaxS / 2), "thread maps");
@@ -91,17 +86,16 @@ __device__ __forceinline__ bool word_valid(int p, int col, int i0, int c0, int n
 // arrays of the chain, and the row counts.
 struct Nodes {
   float* tile;    // [kImgs * kRPad][kLdA]: A, then the softmax weights
-  float* xbuf;    // the chain's scratch, then two weight slabs [kKS][kMaxS]
-  float* img_s;   // [kImgs][kR][kKS]
-  float* diff_t;  // [kKS][kLdD] the transposed operand slab
+  float* xbuf;    // the chain's scratch, or tile_product's two weight slabs [kKS][kMaxS]
+  float* diff_t;  // [kKS][kLdD] tile_product's transposed operand slab
   float* cinv;    // [kImgs * kCols] inverse context norms
   int* rows;      // [kMaxRows] row codes
   int* n_rows;    // [2] (valid words, valid pairs), set by assemble
 };
 
 __device__ __forceinline__ Nodes node_smem(float* smem, float* cinv, int* rows, int* n_rows) {
-  return Nodes{smem, smem + kTileRegion, smem + kTileRegion + kXFloats,
-               smem + kTileRegion + kXFloats + kImgSlab, cinv, rows, n_rows};
+  // diff_t is set by tile_product's callers, which lay out their own (sgr_rows.cuh)
+  return Nodes{smem, smem + kTileRegion, nullptr, cinv, rows, n_rows};
 }
 
 // The pair of row code `code`: p * kMaxCaps + cc
@@ -276,110 +270,6 @@ __device__ __forceinline__ void tile_product(float (&acc)[32][2], const float* _
           acc[4 * q + 3][1] = fmaf(d.w, w.y, acc[4 * q + 3][1]);
         }
       }
-    }
-  }
-}
-
-// The rows' projections y = diff . W + b, 64 rows a tile: the word rows with
-// (wt, bias), then the global rows with (gwt, gbias), both (D, S) / (S,).
-// epi(acc, t0, nrows, glo) takes each tile (bias added; zero in columns past
-// S), rows t0 .. t0 + nrows - 1 of nd.rows.
-template <typename T, typename Epi>
-__device__ __forceinline__ void project(const Nodes& nd, const T* __restrict__ cap,
-                                        const T* __restrict__ img,
-                                        const T* __restrict__ gloc,
-                                        const T* __restrict__ imgglo,
-                                        const float* __restrict__ wt,
-                                        const float* __restrict__ bias,
-                                        const float* __restrict__ gwt,
-                                        const float* __restrict__ gbias, int i0, int c0, int Ni,
-                                        int L, int D, int S, Epi epi) {
-  const int tid = threadIdx.x;
-  const int drow = tid % kTileRows;
-  const int h = tid / (kThreads / 2), cp = tid % (kThreads / 2);
-  const bool col_ok = 2 * cp < S;
-  const int n_loc = nd.n_rows[0], n_glo = nd.n_rows[1];
-  for (int phase = 0; phase < 2; ++phase) {
-    const bool glo = phase == 1;
-    const int r_begin = glo ? n_loc : 0, r_end = glo ? n_loc + n_glo : n_loc;
-    const float* wmat = glo ? gwt : wt;
-    const float* bvec = glo ? gbias : bias;
-    for (int t0 = r_begin; t0 < r_end; t0 += kTileRows) {
-      const int nrows = min(kTileRows, r_end - t0);
-      // this thread's operand row
-      const bool row_ok = drow < nrows;
-      const int code = row_ok ? nd.rows[t0 + drow] : 0;
-      int p = 0;
-      const T* cap_row = cap;
-      const T* ig_row = imgglo;
-      const T* cg_row = gloc;
-      const float* s_col = nd.tile;  // the row's softmax weights, stride kLdA
-      float ci = 0.0f;
-      if (!glo) {
-        p = code / kCols;
-        const int col = code % kCols;
-        cap_row = cap + ((size_t)(c0 + col / L) * L + col % L) * D;
-        s_col = nd.tile + p * kRPad * kLdA + col;
-        ci = row_ok ? nd.cinv[code] : 0.0f;
-      } else {
-        const int q = row_ok ? code - kImgs * kCols : 0;
-        p = q / kMaxCaps;
-        ig_row = imgglo + (size_t)(i0 + p) * D;
-        cg_row = gloc + (size_t)(c0 + q % kMaxCaps) * D;
-      }
-      // the images' slab, for the word rows
-      const auto stage = [&](int k0) {
-        if (glo) return;
-        for (int idx = tid; idx < kImgSlab; idx += kThreads) {
-          const int pr = idx / kKS, k = idx % kKS, pp = pr / kR;
-          nd.img_s[idx] = (i0 + pp < Ni && k0 + k < D)
-                              ? to_f(img[((size_t)i0 * kR + pr) * D + k0 + k]) : 0.0f;
-        }
-      };
-      // the squared differences of this thread's row at 8 columns
-      const auto row = [&](int k0, int dk, float (&dv)[8]) {
-        if (!glo) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) dv[j] = 0.0f;
-          const float* im = nd.img_s + p * kR * kKS + dk;
-#pragma unroll 6
-          for (int r = 0; r < kR; ++r) {
-            const float sr = row_ok ? s_col[r * kLdA] : 0.0f;
-            const float4 u = *reinterpret_cast<const float4*>(im + r * kKS);
-            const float4 v = *reinterpret_cast<const float4*>(im + r * kKS + 4);
-            dv[0] = fmaf(sr, u.x, dv[0]);
-            dv[1] = fmaf(sr, u.y, dv[1]);
-            dv[2] = fmaf(sr, u.z, dv[2]);
-            dv[3] = fmaf(sr, u.w, dv[3]);
-            dv[4] = fmaf(sr, v.x, dv[4]);
-            dv[5] = fmaf(sr, v.y, dv[5]);
-            dv[6] = fmaf(sr, v.z, dv[6]);
-            dv[7] = fmaf(sr, v.w, dv[7]);
-          }
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int kk = k0 + dk + j;
-            const float e = (row_ok && kk < D) ? dv[j] * ci - to_f(cap_row[kk]) : 0.0f;
-            dv[j] = e * e;
-          }
-        } else {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int kk = k0 + dk + j;
-            const float e = (row_ok && kk < D) ? to_f(ig_row[kk]) - to_f(cg_row[kk]) : 0.0f;
-            dv[j] = e * e;
-          }
-        }
-      };
-      float acc[32][2];
-      tile_product(acc, wmat, D, S, nd, 32 * h < nrows, stage, row);
-      const float b0 = col_ok ? bvec[2 * cp] : 0.0f, b1 = col_ok ? bvec[2 * cp + 1] : 0.0f;
-#pragma unroll
-      for (int r = 0; r < 32; ++r) {
-        acc[r][0] = col_ok ? acc[r][0] + b0 : 0.0f;
-        acc[r][1] = col_ok ? acc[r][1] + b1 : 0.0f;
-      }
-      epi(acc, t0, nrows, glo);
     }
   }
 }

@@ -1,10 +1,12 @@
 // The split-bf16 tensor-core products of the two SGRAF evaluation kernels,
 // sgraf_eval_saf.cu (SAF) and sgraf_eval_sgr.cu (SGR), of the training
-// alignment backward (sgraf_align_bwd.cu: the word nodes' projection, with e
-// kept through WordRows' sink, and mma_tile for ge) and of the training
-// reasoning backward (sgr_bwd.cu: mma_tile over listed node rows, and
-// wgmma_m64n256 for its weight sums), over the node assembly of
-// sgraf_nodes.cuh (`assemble`: the A tiles, the region softmax,
+// alignment forward (sgraf_align.cu: the word nodes' projection, WordRows
+// through mma_tile and tile_out) and backward (sgraf_align_bwd.cu: the same
+// projection, with e kept through WordRows' sink, and mma_tile for ge), of
+// the training reasoning backward (sgr_bwd.cu: mma_tile over listed node
+// rows, and wgmma_m64n256 for its weight sums) and of the VSRN decoder
+// kernels (vsrn_dec_loop.cuh's split; vsrn_dec_bwd.cu's mma_tile), over the node
+// assembly of sgraf_nodes.cuh (`assemble`: the A tiles, the region softmax,
 // the inverse context norms and the row list):
 //   the word nodes   y = (ctx_l / |ctx_l| - cap_l)^2 . W + b,  ctx_l = sum_r s[l, r] img_r
 //   the global node  y = (img_glo - cap_glo)^2 . Wg + bg
@@ -535,7 +537,8 @@ struct Part {
 };
 
 // What becomes of e = ctx / |ctx| - cap as the word rows' operand is formed:
-// nothing in the evaluation kernels; the training backward keeps it
+// nothing in the evaluation kernels and the training forward; the training
+// backward keeps it
 // (sgraf_align_bwd.cu).  sink(tile row, k, in range, e).
 struct NoSink {
   __device__ __forceinline__ void operator()(int, int, bool, float) const {}

@@ -137,15 +137,17 @@ __device__ __forceinline__ void stage_chunk(__nv_bfloat16* stage,
 __device__ void product_tc(const __nv_bfloat16* __restrict__ img, int i0, int Ni,
                            const __nv_bfloat16* __restrict__ cap, int c0, int ncols,
                            int Nc, int L, int D, float* buf) {
-  __nv_bfloat16* stages[2] = {reinterpret_cast<__nv_bfloat16*>(buf),
-                              reinterpret_cast<__nv_bfloat16*>(buf) + kStageElems};
+  // stage st at stage0 + st * kStageElems (an address computed, not an
+  // array of pointers indexed at run time, which would live on the stack)
+  __nv_bfloat16* const stage0 = reinterpret_cast<__nv_bfloat16*>(buf);
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   // the 12 pad rows under each image stay zero in both stages
   constexpr int kPadVecs = (kRPad - kR) * kLdT / 8;
   for (int idx = tid; idx < 2 * kImgs * kPadVecs; idx += kThreads) {
     const int st = idx / (kImgs * kPadVecs), p = idx / kPadVecs % kImgs, v = idx % kPadVecs;
-    reinterpret_cast<uint4*>(stages[st] + (p * kRPad + kR) * kLdT)[v] = make_uint4(0u, 0u, 0u, 0u);
+    reinterpret_cast<uint4*>(stage0 + st * kStageElems + (p * kRPad + kR) * kLdT)[v] =
+        make_uint4(0u, 0u, 0u, 0u);
   }
   constexpr int kM = kImgs * kRPad / 16;  // 16-row tiles of A per warp column
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kM];
@@ -153,17 +155,17 @@ __device__ void product_tc(const __nv_bfloat16* __restrict__ img, int i0, int Ni
   for (int m = 0; m < kM; ++m) wmma::fill_fragment(acc[m], 0.0f);
 
   const int n_chunks = (D + kDKT - 1) / kDKT;
-  stage_chunk(stages[0], img, i0, Ni, cap, c0, ncols, Nc, L, D, 0);
+  stage_chunk(stage0, img, i0, Ni, cap, c0, ncols, Nc, L, D, 0);
   for (int ch = 0; ch < n_chunks; ++ch) {
     if (ch + 1 < n_chunks) {
-      stage_chunk(stages[(ch + 1) & 1], img, i0, Ni, cap, c0, ncols, Nc, L, D,
+      stage_chunk(stage0 + ((ch + 1) & 1) * kStageElems, img, i0, Ni, cap, c0, ncols, Nc, L, D,
                   (ch + 1) * kDKT);
       asm volatile("cp.async.wait_group 1;\n" ::);
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::);
     }
     __syncthreads();
-    const __nv_bfloat16* img_s = stages[ch & 1];
+    const __nv_bfloat16* img_s = stage0 + (ch & 1) * kStageElems;
     const __nv_bfloat16* cap_s = img_s + kImgs * kRPad * kLdT;
 #pragma unroll
     for (int kk = 0; kk < kDKT; kk += 16) {

@@ -25,15 +25,18 @@ kernel drops (its O(eps / |y|) correction, sgraf_align.py:136-138).
 What bounds them on an H100: their products.  Per valid word and image the
 forward does the A and context products (36 x D each) and the projection
 (D x S); the backward recomputes them and adds W^T gy and the dW product
-(D x S each) and four more 36 x D products (GS, dcap, both dimg terms).  The
-forward runs them on fp32 FMAs (the A product on the tensor cores for bf16
-embeddings).  The backward runs every one on the tensor cores as a split-bf16
-product (three bf16 passes, a_hi b_lo + a_lo b_hi + a_hi b_hi, fp32
-accumulation; csrc/sgraf_nodes_mma.cuh), with the weight split once a call
-in both orientations (`split_weight`, `split_weight_t`); both keep the chain
-in fp32 whatever the embeddings' dtype.  The backward reads nothing back to
-the host: its rows are ranked on the card (`row_layout`) and its workspaces
-sized from the shapes.
+(D x S each) and four more 36 x D products (GS, dcap, both dimg terms).
+Both run the projection and the context, and the backward every other
+product, on the tensor cores as split-bf16 products (three bf16 passes,
+a_hi b_lo + a_lo b_hi + a_hi b_hi, fp32 accumulation; two where one operand
+is a bf16 embedding, which is exact; csrc/sgraf_nodes_mma.cuh), with the
+weight split once a call (`split_weight`; the backward also
+`split_weight_t`); only the A product stays as csrc/xattn_product.cuh forms
+it (tensor cores for bf16 embeddings, fp32 FMAs for fp32).  Both keep the
+chain in fp32 whatever the embeddings' dtype.  The forward writes every row
+of its output, the zero rows of masked words too.  Neither reads anything
+back to the host: the backward's rows are ranked on the card
+(`row_layout`) and its workspaces sized from the shapes.
 
 Arguments are the port's layouts: W (S, D) as torch stores it, b (S,).  A
 CPU tensor takes the plain pair; a CUDA tensor launches the kernels or
@@ -195,7 +198,8 @@ def _launch_fwd(cap, mask, img, w, b):
     nc, l, _ = cap.shape
     s = w.shape[0]
     cap, img = _embeddings(name, cap, img)
-    out = torch.zeros(nc, ni, l, s, dtype=cap.dtype, device=img.device)
+    # the kernel writes every row, the zero rows of masked words too
+    out = torch.empty(nc, ni, l, s, dtype=cap.dtype, device=img.device)
     im32 = img.float()
     gram = torch.matmul(im32, im32.transpose(1, 2)).contiguous()  # (Ni, 36, 36)
     lib = load("sgraf_align")
@@ -203,8 +207,8 @@ def _launch_fwd(cap, mask, img, w, b):
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     # every temporary is held by a name until the launch has been queued
-    maskf, wt, bf = _f32(mask), _f32(w).t().contiguous(), _f32(b)
-    code = fn(ptr(cap), ptr(maskf), ptr(img), ptr(gram), ptr(wt), ptr(bf), ptr(out),
+    maskf, wsplit, bf = _f32(mask), split_weight(w), _f32(b)
+    code = fn(ptr(cap), ptr(maskf), ptr(img), ptr(gram), ptr(wsplit), ptr(bf), ptr(out),
               ni, nc, l, d, s, int(img.dtype == torch.bfloat16), img.device.index,
               current_stream(img.device))
     check(lib, "sgraf_align_kernel", code)

@@ -519,27 +519,27 @@ def test_sgraf_saf_training_routes_the_chain_by_sim_bf16(monkeypatch, sim_bf16):
 
 
 def test_sgraf_align_sources_are_built_and_hashed(tmp_path, monkeypatch):
-    """The forward and backward kernels exist with their C interfaces; the
-    forward includes the node assembly (and through it the A product), and
-    both library names change when their source or a shared header
-    changes."""
+    """The forward and backward kernels exist with their C interfaces; both
+    include the node assembly (and through it the A product) and the split
+    tensor-core products, and both library names change when their source
+    or a shared header changes."""
     fwd, bwd = (kernels.CSRC / n for n in (sgraf_align.SOURCE, sgraf_align.BWD_SOURCE))
     assert "int itrx_sgraf_align(" in fwd.read_text()
     assert "int itrx_sgraf_align_bwd(" in bwd.read_text()
     for src in (fwd, bwd):
-        assert '#include "sgraf_nodes.cuh"' in src.read_text()
-    names = (sgraf_align.SOURCE, sgraf_align.BWD_SOURCE, "sgraf_nodes.cuh", "xattn_product.cuh")
-    for name in names:
+        for header in ("sgraf_nodes.cuh", "sgraf_nodes_mma.cuh"):
+            assert f'#include "{header}"' in src.read_text()
+    headers = ("sgraf_nodes_mma.cuh", "sgraf_nodes.cuh", "xattn_product.cuh")
+    for name in (sgraf_align.SOURCE, sgraf_align.BWD_SOURCE) + headers:
         (tmp_path / name).write_text((kernels.CSRC / name).read_text())
     monkeypatch.setattr(kernels, "CSRC", tmp_path)
     libs = ("sgraf_align", "sgraf_align_bwd")
     seen = [[kernels.library_path(n) for n in libs]]
-    for edited in ("sgraf_nodes.cuh", "xattn_product.cuh", sgraf_align.SOURCE,
-                   sgraf_align.BWD_SOURCE):
+    for edited in headers + (sgraf_align.SOURCE, sgraf_align.BWD_SOURCE):
         (tmp_path / edited).write_text("// edited\n")
         seen.append([kernels.library_path(n) for n in libs])
-    assert len({paths[0] for paths in seen}) == 4  # the forward: all but bwd's source
-    assert len({paths[1] for paths in seen}) == 4  # the backward: all but fwd's source
+    assert len({paths[0] for paths in seen}) == 5  # the forward: all but bwd's source
+    assert len({paths[1] for paths in seen}) == 5  # the backward: all but fwd's source
 
 
 def test_sgraf_align_bwd_sources_are_built_and_hashed(tmp_path, monkeypatch):
