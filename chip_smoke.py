@@ -38,11 +38,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    bf16 a float64 witness (gcap and gimg of the kernel and of the plain
    version, each against a float64 plain run on the same values); the SGR training
    reasoning kernels to `sgr_reason_plain` and `sgr_reason_bwd_plain`
-   (the final nodes, all seven cotangents, dbk identically 0, two backward
-   calls bit-identical) at one training chunk, 4096 pairs x 25 nodes,
-   S 256, sgr_step 3, at a ragged odd shape and at 129 nodes, fp32 and bf16,
-   with the backward's device time by launch (profiler), its products'
-   TFLOP/s and share of the bound, and one backward call under
+   (the final nodes and every step's save, the saves' masked rows exactly
+   zero over NaN-filled memory, two forward calls bit-identical; all seven
+   cotangents, dbk identically 0, two backward calls bit-identical) at one
+   training chunk, 4096 pairs x 25 nodes, S 256, sgr_step 3, at a ragged
+   odd shape and at 129 nodes (S 128 and S 256, each kernel's staged and
+   streamed edge routes), fp32 and bf16, with both kernels' device time by
+   launch (profiler), their products' TFLOP/s and share of the bound, and
+   one forward and one backward call under
    torch.cuda.set_sync_debug_mode("error");
    VSRN's caption-decoder kernels to `vsrn_dec_plain` and
    `vsrn_dec_bwd_plain` (the states and residuals, all nine cotangents, two
@@ -180,8 +183,10 @@ from itrx_torch.ops.kernels import sgraf_eval as ksgraf_eval
 from itrx_torch.ops.kernels import vsrn_dec as kvsrn
 from itrx_torch.ops.kernels.agsa_attn import (agsa_attention_bwd_fused, agsa_attention_bwd_plain,
                                               agsa_attention_fused, agsa_attention_plain)
-from itrx_torch.ops.kernels.sgr import (sgr_reason_bwd_fused, sgr_reason_bwd_plain,
-                                        sgr_reason_fused, sgr_reason_plain)
+from itrx_torch.ops.kernels.sgr import (card_plan, edge_blocks, edge_bounds, row_list,
+                                        sgr_reason_bwd_fused, sgr_reason_bwd_plain,
+                                        sgr_reason_fused, sgr_reason_fwd_fused,
+                                        sgr_reason_plain)
 from itrx_torch.ops.kernels.sgraf_align import (sgraf_align_bwd_fused, sgraf_align_bwd_plain,
                                                 sgraf_align_fused, sgraf_align_plain)
 from itrx_torch.ops.kernels.sgraf_eval import (sgraf_eval_saf_fused, sgraf_eval_saf_plain,
@@ -292,8 +297,10 @@ ALIGN_BWD_BF16_REL = 2.0 ** -8
 ALIGN_SHAPES = ((32, 128, 24), (37, 37, 21))
 # the SGR reasoning kernels vs their plain pair on the same inputs (fp32
 # arithmetic on both sides, bf16 nodes read as they are): the final nodes
-# (relu outputs, entries up to ~1) differ by summation order only, through
-# sgr_step steps; the backward's seven cotangents, per tensor
+# and every step's save (relu outputs, entries up to ~1), max|kernel -
+# plain| / max|plain|, differ by the split products' rounding (~5e-6 through
+# sgr_step 3 in tests/test_torch_sgr_fwd_split.py's emulation; one bf16
+# pass 2e-3) and summation order; the backward's seven cotangents, per tensor
 # max|kernel - plain| over the larger of its largest entry and SGR_FLOOR of
 # the largest entry of the seven (the later steps' q/k gradients are the
 # small remainder of a cancellation over near-uniform edges, whose rounding
@@ -308,8 +315,10 @@ SGR_BF16_REL = 2.0 ** -8
 # (pairs, L, sgr_step, S): one training chunk (cap_chunk 32 x batch 128,
 # caption bound 24, the published sgr_step 3 and sim_dim 256), a ragged odd
 # shape (odd pairs, a one-word caption, N = 22 nodes, sgr_step 1), and the
-# longest caption the kernels take (128 words, 129 nodes) at S 128
-SGR_SHAPES = ((32 * 128, 24, 3, 256), (185, 21, 1, 256), (64, 128, 2, 128))
+# longest caption the kernels take (128 words, 129 nodes) at S 128 (the
+# backward's streamed edge route, the forward's staged one) and at S 256
+# (both kernels' streamed route)
+SGR_SHAPES = ((32 * 128, 24, 3, 256), (185, 21, 1, 256), (64, 128, 2, 128), (32, 128, 2, 256))
 # VSRN's decoder kernels vs their plain pair on the same inputs (fp32 on both
 # sides): the states and the residuals, and each of the nine cotangents, per
 # tensor max|kernel - plain| / max|plain|; the two differ by fp32 summation
@@ -425,9 +434,11 @@ SGRAF_EVAL_FMA_MS = {"saf": (12.642, 18.232), "sgr": (24.046, 29.145)}
 # 80GB HBM3, 700.00 W), printed beside this run's
 ALIGN_FWD_FMA_MS = (2.395, 3.522)
 ALIGN_BWD_FMA_MS = (12.659, 15.660)
-# the SGR reasoning backward's earlier design (six launches a step, its
-# products on fp32 FMAs) at one training chunk (ms, fp32 and bf16 nodes;
-# NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+# the SGR reasoning forward's and backward's earlier designs (three and six
+# launches a step, their products on fp32 FMAs) at one training chunk (ms,
+# fp32 and bf16 nodes; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this
+# run's
+SGR_FWD_FMA_MS = (2.690, 2.734)
 SGR_BWD_FMA_MS = (9.511, 9.425)
 # the VSRN decoder backward's earlier design (four launches a step on 16
 # SMs, fp32-FMA products) at the training path's decode, T 59 x B 128 x R 36
@@ -1443,36 +1454,55 @@ def sgr_train_bound(s0, mask, steps: int, backward: bool = False) -> dict:
     (4 n S^2) and the edges and contexts (4 n^2 S); the backward recomputes
     s M and the edges and adds g_pre Wg, the two weight sums and g_sm M^T
     (10 n S^2 in all) and g_a, g_sm and the key-side sums (12 n^2 S in
-    all).  Bytes: the nodes, the mask and the steps' weights read once; the
-    forward writes every step's fp32 output, the backward reads them and
-    the cotangent and writes g_s0 and the weight gradients.  The forward
-    runs its products on fp32 FMAs, so "bound_ms" counts every operation at
-    the fp32 peak; the backward runs its products on the tensor cores as
-    split-bf16 products, so they count at the TF32 tensor-core peak and its
-    edges at the fp32 peak ("bound_ms_fp32_peak": all at the fp32 peak, the
-    FMA design's figure).  "bound_ms_bf16_peak": all at the bf16 peak (the
-    work as `itrx` runs it, bf16 operands on the MXU).  Also
-    "product_flop", the S x S products' operations."""
+    all).  Bytes: the nodes at their valid rows (no kernel reads a masked
+    row), the mask and the steps' weights read once; the forward writes
+    every step's fp32 output whole (the masked rows' zeros are part of
+    it), the backward reads them and the cotangent at the valid rows and
+    writes g_s0 and the weight gradients.  Both run their
+    products on the tensor cores as split-bf16 products, so "bound_ms"
+    counts them at the TF32 tensor-core peak and the edges at the fp32
+    peak; "bound_ms_fp32_peak": all at the fp32 peak (the FMA designs'
+    figure), "bound_ms_bf16_peak": all at the bf16 peak (the work as
+    `itrx` runs it, bf16 operands on the MXU).  Also "product_flop", the
+    S x S products' operations."""
     b, nn_, s = s0.shape
     n = mask.sum(dim=1).double()
+    rows = float(n.sum())
     products = steps * float(((10 if backward else 4) * n * s * s).sum())
     edges = steps * float(((12 if backward else 4) * n * n * s).sum())
     weights = 4 * steps * (3 * s * s + 3 * s)
-    saves = 4 * steps * b * nn_ * s
+    reads = rows * s * s0.element_size() + nbytes(mask) + weights
     if backward:
-        n_bytes = nbytes(s0, mask) + weights + saves + 4 * b * nn_ * s \
-            + s0.numel() * s0.element_size() + weights
+        n_bytes = reads + 4 * (steps + 1) * rows * s + s0.numel() * s0.element_size() + weights
     else:
-        n_bytes = nbytes(s0, mask) + weights + saves
+        n_bytes = reads + 4 * steps * b * nn_ * s
     b32 = bound(n_bytes, {"fp32": products + edges})
     b16 = bound(n_bytes, {"bf16": products + edges})
-    main = bound(n_bytes, {"tf32": products, "fp32": edges}) if backward else b32
-    out = {"bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-           "bound_ms_bf16_peak": b16["bound_ms"], "bound_by_bf16_peak": b16["bound_by"],
-           "product_flop": products}
-    if backward:
-        out.update(bound_ms_fp32_peak=b32["bound_ms"], bound_by_fp32_peak=b32["bound_by"])
-    return out
+    main = bound(n_bytes, {"tf32": products, "fp32": edges})
+    return {"bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "bound_ms_fp32_peak": b32["bound_ms"], "bound_by_fp32_peak": b32["bound_by"],
+            "bound_ms_bf16_peak": b16["bound_ms"], "bound_by_bf16_peak": b16["bound_by"],
+            "product_flop": products}
+
+
+@contextlib.contextmanager
+def nan_empty():
+    """In the block torch.empty fills every floating tensor it makes with
+    NaN, so a wrapper's output that its kernels must write whole reads NaN
+    wherever they did not; yields the list of those tensors' addresses."""
+    real, made = torch.empty, []
+
+    def empty(*args, **kwargs):
+        t = real(*args, **kwargs)
+        if t.is_floating_point():
+            made.append(t.fill_(float("nan")).data_ptr())
+        return t
+
+    torch.empty = empty
+    try:
+        yield made
+    finally:
+        torch.empty = real
 
 
 def _sgr_rel(got, want, scale: float) -> float:
@@ -1484,10 +1514,11 @@ def phase_sgr(g) -> dict:
     """The training reasoning kernels vs their plain pair: one training
     chunk (4096 pairs, ragged 1-24 words, S 256, sgr_step 3) in fp32 (the
     path's dtype) and bf16, a ragged odd shape and the 129-node limit at
-    S 128; the final nodes, all seven cotangents (dbk identically 0) and
-    two backward calls bit-identical; then times and bounds at the
-    training chunk."""
-    log("sgr reasoning forward + backward kernels vs plain (q/k fold, fp32 arithmetic)")
+    S 128 and S 256; the final nodes and every step's save (masked rows
+    exactly 0 over NaN-filled memory, two forward calls bit-identical), all
+    seven cotangents (dbk identically 0) and two backward calls
+    bit-identical; then times and bounds at the training chunk."""
+    log("sgr reasoning forward + backward kernels vs plain (q/k fold, split-bf16 products)")
     res = {}
     names = ("g_s0", "dWq", "dbq", "dWk", "dbk", "dWg", "dbg")
     for pairs, l, steps, s in SGR_SHAPES:
@@ -1496,12 +1527,40 @@ def phase_sgr(g) -> dict:
             tag = (f"sgr {pairs} pairs x {l + 1} nodes, S {s}, sgr_step {steps} "
                    f"{'bf16' if dt == torch.bfloat16 else 'fp32'}")
             xd = dict(x, s0=x["s0"].to(dt))
-            with torch.no_grad():
-                got = sgr_reason_fused(**xd)
+            # the saves' memory holds NaN before the kernels run: they write
+            # every row of every step, the masked rows' zeros too
+            with nan_empty() as made:
+                got, saves = sgr_reason_fwd_fused(**xd)
+            if saves.data_ptr() not in made:
+                raise AssertionError(f"{tag}: the saves were not allocated NaN-filled")
+            _, again = sgr_reason_fwd_fused(**xd)
+            if dt == torch.float32:
+                # the forward's list and edge ranges, formed on the card,
+                # equal their plain versions
+                blocks = edge_blocks(pairs, DEV)
+                rows, pstart, bounds = card_plan(x["mask"], blocks)
+                want_rows, want_pstart = row_list(x["mask"])
+                same_plan = (torch.equal(rows, want_rows) and torch.equal(pstart, want_pstart)
+                             and torch.equal(bounds, edge_bounds(want_pstart, blocks)))
+                log(f"  {tag}: the plan kernels' row list, pair starts and {blocks} edge ranges "
+                    f"equal row_list and edge_bounds: {same_plan}")
+                if not same_plan:
+                    raise AssertionError(f"{tag}: the plan kernels disagree with row_list / "
+                                         "edge_bounds")
             want, outs = sgr_reason_plain(**xd)
             bf16 = dt == torch.bfloat16
             e_fwd = check_rel(f"{tag} forward nodes", got, want,
                               SGR_BF16_REL if bf16 else SGR_FWD_REL)
+            e_saves = check_rel(f"{tag} forward saves, every step", saves, outs, SGR_FWD_REL)
+            masked = saves[:, x["mask"] <= 0]
+            zero = bool((masked == 0).all())
+            same_fwd = torch.equal(saves, again)
+            log(f"  {tag}: saves over NaN-filled memory: {masked.shape[1]} masked rows a step "
+                f"exactly zero: {zero}; two forward calls bit-identical: {same_fwd}")
+            if not zero:
+                raise AssertionError(f"{tag}: the forward left masked rows nonzero")
+            if not same_fwd:
+                raise AssertionError(f"{tag}: the forward is not deterministic")
             kb = sgr_reason_bwd_fused(**xd, outs=outs, g=cot)
             pb = sgr_reason_bwd_plain(**xd, outs=outs, g=cot)
             # the fault the limit must separate: one pair's cotangent lost
@@ -1533,6 +1592,7 @@ def phase_sgr(g) -> dict:
             if (pairs, l, steps, s) == SGR_SHAPES[0] and dt == torch.float32:
                 res["max_abs_err"] = float((got - want).abs().max())
                 res["fwd_rel_err"] = e_fwd
+                res["fwd_saves_rel_err"] = e_saves
                 res["bwd_max_abs_err"] = max(float((a.float() - w_.float()).abs().max())
                                              for a, w_ in zip(kb, pb))
                 res["bwd_rel_err"] = errs
@@ -1543,6 +1603,7 @@ def phase_sgr(g) -> dict:
         _, outs = sgr_reason_plain(**xd)
         with torch.no_grad():
             res["ms" + suf] = cuda_ms(lambda: sgr_reason_fused(**xd), reps=10)
+            res["launch_ms" + suf] = _launch_ms(lambda: sgr_reason_fused(**xd))
             res["plain_ms" + suf] = cuda_ms(lambda: sgr_reason_plain(**xd), reps=5)
         res["bwd_ms" + suf] = cuda_ms(lambda: sgr_reason_bwd_fused(**xd, outs=outs, g=cot),
                                       reps=10)
@@ -1553,38 +1614,48 @@ def phase_sgr(g) -> dict:
         for pre, bwd in (("", False), ("bwd_", True)):
             for k, v in sgr_train_bound(xd["s0"], xd["mask"], steps, bwd).items():
                 res[pre + k + suf] = v
-        res["bwd_tflops" + suf] = res["bwd_product_flop" + suf] / (res["bwd_ms" + suf] * 1e9)
-        res["bwd_share_of_bound" + suf] = res["bwd_bound_ms" + suf] / res["bwd_ms" + suf]
-    # the backward reads nothing back to the host: a synchronizing call
+            res[pre + "tflops" + suf] = res[pre + "product_flop" + suf] / (
+                res[pre + "ms" + suf] * 1e9)
+            res[pre + "share_of_bound" + suf] = res[pre + "bound_ms" + suf] / res[pre + "ms" + suf]
+    # neither wrapper reads anything back to the host: a synchronizing call
     # under the sync debug mode raises
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
+        with torch.no_grad():
+            sgr_reason_fused(**xd)
         sgr_reason_bwd_fused(**xd, outs=outs, g=cot)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    res["bwd_no_sync"] = True
+    res["fwd_no_sync"] = res["bwd_no_sync"] = True
     res["nodes_per_pair_mean"] = float(x["mask"].sum(dim=1).mean())
     # no single PyTorch call computes the reasoning chain or its backward
     res["library_ms"] = None
     log(f"  time {pairs} pairs x {l + 1} nodes (mean {res['nodes_per_pair_mean']:.2f} valid), "
-        f"S {s}, sgr_step {steps}, fp32: forward kernels {res['ms']:.3f} ms, plain "
-        f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}; "
-        f"{res['bound_ms_bf16_peak']:.4f} ms at the bf16 peak); backward kernels "
-        f"{res['bwd_ms']:.3f} ms (the FMA design: {SGR_BWD_FMA_MS[0]:.3f}), plain "
-        f"{res['bwd_plain_ms']:.3f} ms, bound {res['bwd_bound_ms']:.4f} ms at the TF32 peak "
-        f"({res['bwd_bound_by']}; {res['bwd_bound_ms_fp32_peak']:.4f} ms at the fp32 peak, "
-        f"{res['bwd_bound_ms_bf16_peak']:.4f} ms at the bf16 peak), products "
+        f"S {s}, sgr_step {steps}, fp32: forward kernels {res['ms']:.3f} ms (the FMA design: "
+        f"{SGR_FWD_FMA_MS[0]:.3f}), plain {res['plain_ms']:.3f} ms, bound "
+        f"{res['bound_ms']:.4f} ms at the TF32 peak ({res['bound_by']}; "
+        f"{res['bound_ms_fp32_peak']:.4f} ms at the fp32 peak, "
+        f"{res['bound_ms_bf16_peak']:.4f} ms at the bf16 peak), products "
+        f"{res['tflops']:.2f} TFLOP/s, {100 * res['share_of_bound']:.2f}% of the bound; "
+        f"backward kernels {res['bwd_ms']:.3f} ms (the FMA design: {SGR_BWD_FMA_MS[0]:.3f}), "
+        f"plain {res['bwd_plain_ms']:.3f} ms, bound {res['bwd_bound_ms']:.4f} ms at the TF32 "
+        f"peak ({res['bwd_bound_by']}; {res['bwd_bound_ms_fp32_peak']:.4f} ms at the fp32 "
+        f"peak, {res['bwd_bound_ms_bf16_peak']:.4f} ms at the bf16 peak), products "
         f"{res['bwd_tflops']:.2f} TFLOP/s, {100 * res['bwd_share_of_bound']:.2f}% of the "
-        f"bound; bf16 nodes: forward {res['ms_bf16']:.3f} ms (plain "
-        f"{res['plain_ms_bf16']:.3f}), backward {res['bwd_ms_bf16']:.3f} ms (the FMA design: "
-        f"{SGR_BWD_FMA_MS[1]:.3f}; plain {res['bwd_plain_ms_bf16']:.3f}, bound "
+        f"bound; bf16 nodes: forward {res['ms_bf16']:.3f} ms (the FMA design: "
+        f"{SGR_FWD_FMA_MS[1]:.3f}; plain {res['plain_ms_bf16']:.3f}, bound "
+        f"{res['bound_ms_bf16']:.4f}, products {res['tflops_bf16']:.2f} TFLOP/s, "
+        f"{100 * res['share_of_bound_bf16']:.2f}%), backward {res['bwd_ms_bf16']:.3f} ms (the "
+        f"FMA design: {SGR_BWD_FMA_MS[1]:.3f}; plain {res['bwd_plain_ms_bf16']:.3f}, bound "
         f"{res['bwd_bound_ms_bf16']:.4f}, products {res['bwd_tflops_bf16']:.2f} TFLOP/s, "
         f"{100 * res['bwd_share_of_bound_bf16']:.2f}%)")
     for suf, tag in (("", "fp32"), ("_bf16", "bf16")):
-        log(f"  backward {tag} nodes, device ms a call by launch (profiler): " + ", ".join(
-            f"{k} {v:.3f}" for k, v in res["bwd_launch_ms" + suf].items()))
-    log("  one backward call under torch.cuda.set_sync_debug_mode('error'): no sync")
+        for kind, key in (("forward", "launch_ms"), ("backward", "bwd_launch_ms")):
+            log(f"  {kind} {tag} nodes, device ms a call by launch (profiler): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in res[key + suf].items()))
+    log("  one forward and one backward call under torch.cuda.set_sync_debug_mode('error'): "
+        "no sync")
     return res
 
 

@@ -24,17 +24,18 @@
 // bf16, three passes a_hi b_lo + a_lo b_hi + a_hi b_hi, fp32 accumulation;
 // two passes where the operand is step 0's bf16 nodes, which are exact), so
 // the cotangents keep fp32 accuracy through the steps; the edges are fp32.
-// Design: five launches a step over a list of the valid rows that the
-// wrapper forms on the card (the rows in order and each pair's first row in
-// it, in device memory: grids are sized from B x N and no pass reads the
-// row count on the host):
+// Design: five launches a step over a list of the valid rows formed on the
+// card (the rows in order and each pair's first row in it, in device
+// memory, by sgr_rows.cuh's plan kernels, in training the forward's: grids
+// are sized from B x N and no pass reads the row count on the host):
 //   1. gctx_sm_kernel: g_ctx = g_pre Wg (the gate applied as the operand is
 //      formed, g_pre written out for the weight sums) and sm = X M, a 64-row
-//      tile of the list a block on wgmma (mma_tile, the weights split once a
-//      call by the wrapper and staged by TMA), both products in one grid;
+//      tile of the list a block on wgmma (sgr_rows.cuh's row_tile over
+//      mma_tile, the weights split once a call by the wrapper and staged by
+//      TMA), both products in one grid;
 //   2. edge_kernel, a persistent grid (two blocks an SM), block b over the
-//      pairs bounds[b] .. (ranges of about equal n (n + 4), cut by the
-//      wrapper) in batches: as many whole pairs' X, sm and g_ctx rows as
+//      pairs bounds[b] .. (ranges of about equal n (n + 4), from the plan)
+//      in batches: as many whole pairs' X, sm and g_ctx rows as
 //      fit 110 KB staged by cp.async once, then one warp a unit of two query
 //      rows of a pair, sharing each key row's reads: e and g_a over the keys
 //      (eight keys' 32 warp sums reduced together by recursive halving), the
@@ -64,120 +65,7 @@ namespace {
 using namespace itrx_sgr;
 using namespace itrx_sgraf_mma;
 
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-// four elements of a row (16 bytes fp32, 8 bytes bf16) by cp.async, zeros
-// where !ok
-__device__ __forceinline__ void cp_async_4(float* smem, const float* gmem, bool ok) {
-  cp_async16(smem, gmem, ok);
-}
-__device__ __forceinline__ void cp_async_4(__nv_bfloat16* smem, const __nv_bfloat16* gmem,
-                                           bool ok) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(ok ? 8 : 0));
-}
-
 // ---------------------------------------------------------------- rows
-// the row products' shared memory: the weight ring (a finished tile's rows
-// go there) and the two operand buffers, 112 KB: two blocks an SM
-constexpr int kRowsBytes = (kWStages * kWStage + 2 * kAStage) * 4;
-
-// Rows t0 .. t0 + nrows - 1 of the list as mma_tile's operand: src (B N, S)
-// gathered at the listed rows, zero where `gate` is not > 0 (kGate; the
-// gated rows are written to gated, for the weight sums).
-template <typename T, bool kGate>
-struct ListRows {
-  const T* __restrict__ src;
-  const float* __restrict__ gate;
-  float* __restrict__ gated;
-  const int* __restrict__ rows;
-  int* row_at;  // [kMmaRows] the tile's rows (shared memory)
-  int t0, nrows, S;
-  float2 pre[4];
-
-  __device__ __forceinline__ void prepare() {
-    if ((int)threadIdx.x < nrows) row_at[threadIdx.x] = rows[t0 + threadIdx.x];
-  }
-  __device__ __forceinline__ void stage(int) {}
-
-  __device__ __forceinline__ void load(int s) {
-    const Part pt(s);
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        // S % 4 == 0: k and k + 1 both below S or neither
-        const int r = pt.r0 + 8 * h, k = pt.k(2 * i);
-        float2 v = make_float2(0.0f, 0.0f);
-        if (r < nrows && k < S) {
-          const size_t o = (size_t)row_at[r] * S + k;
-          v = load2(src + o);
-          if constexpr (kGate) {
-            const float2 gt = load2(gate + o);
-            v.x = gt.x > 0.0f ? v.x : 0.0f;
-            v.y = gt.y > 0.0f ? v.y : 0.0f;
-            *reinterpret_cast<float2*>(gated + o) = v;
-          }
-        }
-        pre[2 * h + i] = v;
-      }
-  }
-
-  __device__ __forceinline__ void make(int, float (&v)[8]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      v[2 * i] = pre[i].x;
-      v[2 * i + 1] = pre[i].y;
-    }
-  }
-};
-
-// dst[r] = src'[r] . W (+ add[r]) for the listed rows r of tile blockIdx.x,
-// W split (S8 rows of Ks words); kALo false where src is bf16 (exact in its
-// hi part).  After init_weight_bars.
-template <bool kALo, typename T, bool kGate>
-__device__ __forceinline__ void row_tile(const T* __restrict__ src,
-                                         const float* __restrict__ gate,
-                                         float* __restrict__ gated,
-                                         const float* __restrict__ add, float* __restrict__ dst,
-                                         const int* __restrict__ rows, int n_rows, int* row_at,
-                                         const uint32_t* __restrict__ wsplit, int S, int Ks,
-                                         int S8) {
-  extern __shared__ __align__(128) float smem[];
-  uint32_t* const u = reinterpret_cast<uint32_t*>(smem);
-  const Ring rg{u + kWStages * kWStage, u, smem};
-  const int t0 = blockIdx.x * kMmaRows;
-  ListRows<T, kGate> prod{src, gate, gated, rows, row_at, t0, min(kMmaRows, n_rows - t0), S,
-                          {}};
-  Acc acc;
-  mma_tile<kALo>(acc, rg, wsplit, Ks, S8, prod.nrows, prod);
-  tile_out(acc, rg, prod.nrows, [&](const float* y, int n) {
-    // a warp per row, four columns a lane
-    const int lane = threadIdx.x % 32;
-    for (int i = threadIdx.x / 32; i < n; i += kWarps) {
-      const size_t o = (size_t)row_at[i] * S;
-      for (int c = 4 * lane; c < S; c += 128) {
-        float4 v = *reinterpret_cast<const float4*>(y + i * kLdY + c);
-        if (add != nullptr) {
-          const float4 a = *reinterpret_cast<const float4*>(add + o + c);
-          v.x += a.x;
-          v.y += a.y;
-          v.z += a.z;
-          v.w += a.w;
-        }
-        *reinterpret_cast<float4*>(dst + o + c) = v;
-      }
-    }
-  });
-}
-
 // blockIdx.y 0: g_ctx = g_pre Wg, g_pre = g where y > 0 (written to gpre);
 // 1: sm = X M; over the list's tile blockIdx.x (a block past the count
 // returns)
@@ -193,11 +81,11 @@ gctx_sm_kernel(const float* __restrict__ g, const float* __restrict__ y,
   if ((long long)blockIdx.x * kMmaRows >= n_rows) return;
   init_weight_bars();
   if (blockIdx.y == 0) {
-    row_tile<true, float, true>(g, y, gpre, nullptr, gctx, rows, n_rows, row_at, gsplit, S, Ks,
-                                S8);
+    row_tile<true, float, true>(g, y, gpre, nullptr, nullptr, false, gctx, rows, n_rows, row_at,
+                                gsplit, S, Ks, S8);
   } else {
-    row_tile<sizeof(T) == 4, T, false>(x, nullptr, nullptr, nullptr, sm, rows, n_rows, row_at,
-                                       mtsplit, S, Ks, S8);
+    row_tile<sizeof(T) == 4, T, false>(x, nullptr, nullptr, nullptr, nullptr, false, sm, rows,
+                                       n_rows, row_at, mtsplit, S, Ks, S8);
   }
 }
 
@@ -210,13 +98,11 @@ g_kernel(const float* __restrict__ gsm, const float* __restrict__ gx, float* __r
   const int n_rows = *count;
   if ((long long)blockIdx.x * kMmaRows >= n_rows) return;
   init_weight_bars();
-  row_tile<true, float, false>(gsm, nullptr, nullptr, gx, g, rows, n_rows, row_at, msplit, S,
-                               Ks, S8);
+  row_tile<true, float, false>(gsm, nullptr, nullptr, nullptr, gx, false, g, rows, n_rows, row_at,
+                               msplit, S, Ks, S8);
 }
 
 // ---------------------------------------------------------------- edges
-// a batch's staged rows and tables: two blocks an SM
-constexpr int kEdgeBytes = 110 * 1024;
 constexpr int kKeys = 8;  // keys a query unit reduces together: 2 rows x 2 sums x 8 = 32
 
 // the rows a batch stages: per row X, sm, g_ctx (S floats each), its two
@@ -225,47 +111,6 @@ constexpr int kKeys = 8;  // keys a query unit reduces together: 2 rows x 2 sums
 __host__ __device__ inline int batch_rows(int N, int S) {
   return kEdgeBytes / 4 / (3 * S + 2 * N + 5);
 }
-
-// the lane's share of a row dot product (row_dot before its warp sum)
-__device__ __forceinline__ float row_part(const Row8& x, const Row8& y) {
-  return ((x.a.x * y.a.x + x.a.y * y.a.y) + (x.a.z * y.a.z + x.a.w * y.a.w)) +
-         ((x.b.x * y.b.x + x.b.y * y.b.y) + (x.b.z * y.b.z + x.b.w * y.b.w));
-}
-
-// One halving level of warp_sums and the levels after it: lanes whose bit
-// O is set keep the upper H of the live shares and send the lower H to
-// their partner (H and O compile-time, so p stays in registers).
-template <int H, int O>
-__device__ __forceinline__ void halve(float (&p)[32], int lane) {
-  if constexpr (H >= 1) {
-    const bool up = (lane & O) != 0;
-#pragma unroll
-    for (int i = 0; i < H; ++i) {
-      const float send = up ? p[i] : p[H + i];
-      p[i] = (up ? p[H + i] : p[i]) + __shfl_xor_sync(0xffffffffu, send, O);
-    }
-    halve<H / 2, O / 2>(p, lane);
-  }
-}
-
-// 32 lane shares p[0 .. 32) summed over the warp by recursive halving (31
-// shuffles, not 160): lane l ends with the sum of value l, in a fixed order
-__device__ __forceinline__ float warp_sums(float (&p)[32]) {
-  halve<16, 16>(p, threadIdx.x % 32);
-  return p[0];
-}
-
-// the rows of one operand of a pair: staged in shared memory (node b of the
-// pair at p + b S) or in device memory (at p + vidx[b] S)
-template <typename T, bool kStaged>
-struct PairRows {
-  const T* p;
-  const int* vidx;
-  int S;
-  __device__ __forceinline__ Row8 operator()(int b) const {
-    return load_row(p + (size_t)(kStaged ? b : vidx[b]) * S, S);
-  }
-};
 
 // A unit of one or two query rows of a pair (rows a and a + 1 of it when
 // `two`), by one warp, sharing each key row's reads: the edge rows over the
@@ -402,12 +247,10 @@ __device__ __forceinline__ void key_rows(const FR& SM, const FR& GC, const float
   }
 }
 
-// The edges of whole pairs in batches of staged rows: block b takes pairs
-// bounds[b] .. bounds[b + 1] - 1 (the wrapper balances their n (n + 4)) in
-// order and stages as many whole pairs as fit (their
-// rows are contiguous in the list, pair q at pstart[q]), then one warp a
-// unit of two query rows of a pair, the column sums, and one warp a unit
-// of two key rows.  ctx, g_sm, col and gx are written at the rows.  Every
+// The edges of whole pairs in batches of staged X, sm and g_ctx rows
+// (sgr_rows.cuh's next_batch; the plan balances the ranges' n (n + 4)),
+// then one warp a unit of two query rows of a pair, the column sums, and
+// one warp a unit of two key rows.  ctx, g_sm, col and gx are written at the rows.  Every
 // pair's N rows fit a batch.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -433,17 +276,8 @@ edge_kernel(const T* __restrict__ x, const int* __restrict__ rows,
   const int p0 = bounds[blockIdx.x], p1 = bounds[blockIdx.x + 1];
   const Row8 vr = load_row(v, S);
   for (int q0 = p0; q0 < p1;) {
-    const int r0 = pstart[q0];
-    int q1 = q0 + 1;
-    while (q1 < p1 && pstart[q1 + 1] - r0 <= cap) ++q1;
-    const int R = pstart[q1] - r0;
-    for (int q = q0 + tid; q < q1; q += kThreads) {
-      const int a = pstart[q] - r0, n = pstart[q + 1] - pstart[q];
-      for (int j = 0; j < n; ++j) {
-        kst[a + j] = a;
-        kn[a + j] = n;
-      }
-    }
+    const Batch bt = next_batch(q0, p1, pstart, cap, kst, kn);
+    const int r0 = bt.r0, R = bt.R;
     const int vecs = S / 4;
     for (int idx = tid; idx < R * vecs; idx += kThreads) {
       const int r = idx / vecs, c = 4 * (idx % vecs);
@@ -455,18 +289,7 @@ edge_kernel(const T* __restrict__ x, const int* __restrict__ rows,
     asm volatile("cp.async.commit_group;\n" ::);
     asm volatile("cp.async.wait_group 0;\n" ::);
     __syncthreads();
-    // the units: rows 0, 2, 4, .. of each pair, in order (warp 0)
-    if (warp == 0) {
-      int nu = 0;
-      for (int rb = 0; rb < R; rb += 32) {
-        const int r = rb + lane;
-        const bool lead = r < R && (r - kst[r]) % 2 == 0;
-        const unsigned bal = __ballot_sync(0xffffffffu, lead);
-        if (lead) units[nu + __popc(bal & ((1u << lane) - 1u))] = r;
-        nu += __popc(bal);
-      }
-      if (lane == 0) n_units = nu;
-    }
+    if (warp == 0) pair_units(kst, R, units, &n_units);
     for (int r = warp; r < R; r += kWarps) {
       const float e = row_dot(load_row(xs + r * S, S), vr);
       if (lane == 0) sv[r] = e;
@@ -514,7 +337,7 @@ edge_kernel(const T* __restrict__ x, const int* __restrict__ rows,
       }
     }
     __syncthreads();  // the next batch restages the rows
-    q0 = q1;
+    q0 = bt.q1;
   }
 }
 

@@ -1,8 +1,7 @@
 // The alignment nodes of SGRAF's kernels: their assembly, shared by the
 // evaluation kernels (sgraf_eval_saf.cu, sgraf_eval_sgr.cu) and the training
-// alignment kernels (sgraf_align.cu, sgraf_align_bwd.cu), and the fp32
-// 64-row tile product of the SGR forward's rows (sgr_rows.cuh).  For
-// caption c (L words, mask m) and image i (36 regions):
+// alignment kernels (sgraf_align.cu, sgraf_align_bwd.cu).  For caption c
+// (L words, mask m) and image i (36 regions):
 //   A[r, l]  = img_ir . cap_cl                              (fp32 accumulation)
 //   h        = leaky_relu(A, 0.1) * m_l
 //   s[l, :]  = softmax_r(9 h[l, :] / (sqrt(max(sum_l h^2, 1e-16)) + 1e-8))
@@ -18,13 +17,8 @@
 // the softmax weights over the A tile with the context norm from the Gram, and
 // lists the valid (image, word) rows, then the pairs' global rows.  Every
 // kernel that forms nodes projects those rows with the split-bf16
-// tensor-core products of sgraf_nodes_mma.cuh.  `tile_product` is the fp32
-// FMA product of 64 rows by a (K, S) weight that sgr_rows.cuh still takes:
-// over slabs of 32 of the depth, the block stages the slab of the weight by
-// cp.async (the next slab's copy running during this slab's product) and the
-// transposed slab of the rows' operand in shared memory, and accumulates in
-// registers, a 32 x 2 corner of the 64 x S tile per thread.  Padded words,
-// ragged captions and a group past Nc are masked, not padded.
+// tensor-core products of sgraf_nodes_mma.cuh.  Padded words, ragged
+// captions and a group past Nc are masked, not padded.
 
 #pragma once
 
@@ -35,41 +29,21 @@ namespace itrx_sgraf {
 using namespace itrx_xattn;
 
 constexpr int kMaxS = 256;                  // sim_dim at most (the published 256)
-constexpr int kTileRows = 64;               // rows of one projection tile
-constexpr int kKS = 32;                     // slab of the depth
-constexpr int kLdD = kTileRows + 4;         // row stride of the transposed operand slab
 constexpr int kMaxPairs = kImgs * kMaxCaps;
 constexpr int kMaxRows = kImgs * kCols + kMaxPairs;
 constexpr float kLambda = 9.0f;
 
 // dynamic shared memory, in floats: the A / softmax tiles (and the product's
-// staging), then the chain's Grams and norm inverses; tile_product's two
-// weight slab buffers and transposed operand slab
+// staging), then the chain's scratch (its Grams and norm inverses)
 constexpr int kTileRegion = kSmemF32 / 4;
-constexpr int kWSlab = kKS * kMaxS;
-constexpr int kXFloats = 2 * kWSlab;
-constexpr int kDiffFloats = kKS * kLdD;
+constexpr int kXFloats = 2 * 32 * kMaxS;
 static_assert(kSmemBf16 <= kSmemF32, "the bf16 product's stages fit the tile region");
 static_assert(kImgs * kR * kR + kImgs * kR * kMaxCaps <= kXFloats, "chain scratch fits");
-static_assert(kThreads == 4 * kTileRows && kThreads == 2 * (kMaxS / 2), "thread maps");
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// slab [k0, k0 + kKS) of the (K, S) weight into w_s [kKS][kMaxS] by cp.async,
-// rows past K zero; one commit group.  S % 4 == 0.
-__device__ __forceinline__ void stage_w(float* w_s, const float* __restrict__ wmat, int k0,
-                                        int K, int S) {
-  const int vecs = S / 4;
-  for (int idx = threadIdx.x; idx < kKS * vecs; idx += kThreads) {
-    const int k = idx / vecs, v = idx % vecs;
-    const bool ok = k0 + k < K;
-    cp_async16(w_s + k * kMaxS + 4 * v, ok ? wmat + (size_t)(k0 + k) * S + 4 * v : wmat, ok);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
 }
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -86,16 +60,14 @@ __device__ __forceinline__ bool word_valid(int p, int col, int i0, int c0, int n
 // arrays of the chain, and the row counts.
 struct Nodes {
   float* tile;    // [kImgs * kRPad][kLdA]: A, then the softmax weights
-  float* xbuf;    // the chain's scratch, or tile_product's two weight slabs [kKS][kMaxS]
-  float* diff_t;  // [kKS][kLdD] tile_product's transposed operand slab
+  float* xbuf;    // the chain's scratch
   float* cinv;    // [kImgs * kCols] inverse context norms
   int* rows;      // [kMaxRows] row codes
   int* n_rows;    // [2] (valid words, valid pairs), set by assemble
 };
 
 __device__ __forceinline__ Nodes node_smem(float* smem, float* cinv, int* rows, int* n_rows) {
-  // diff_t is set by tile_product's callers, which lay out their own (sgr_rows.cuh)
-  return Nodes{smem, smem + kTileRegion, nullptr, cinv, rows, n_rows};
+  return Nodes{smem, smem + kTileRegion, cinv, rows, n_rows};
 }
 
 // The pair of row code `code`: p * kMaxCaps + cc
@@ -214,64 +186,6 @@ __device__ void assemble(const Nodes& nd, const T* __restrict__ cap,
     }
   }
   __syncthreads();
-}
-
-// acc (rows 32h .. 32h+31 x columns 2cp, 2cp+1 of a 64 x S tile, h = tid / 128,
-// cp = tid % 128) = operand (64 x K) . wmat (K x S, row-major fp32, 16-byte
-// aligned).  stage(k0) runs on every thread before the slab's barrier (to
-// stage shared data); row(k0, dk, dv) gives this thread's row tid % 64 at
-// columns k0 + dk .. k0 + dk + 7 of the operand (zero past the tile's rows or
-// K).  half_active: the tile has rows in this thread's half.  Starts with a
-// barrier, so the previous tile's readers of xbuf and diff_t are done.
-template <typename Stage, typename Row>
-__device__ __forceinline__ void tile_product(float (&acc)[32][2], const float* __restrict__ wmat,
-                                             int K, int S, const Nodes& nd, bool half_active,
-                                             Stage stage, Row row) {
-  const int tid = threadIdx.x;
-  const int drow = tid % kTileRows, dk = (tid / kTileRows) * 8;
-  const int h = tid / (kThreads / 2), cp = tid % (kThreads / 2);
-  const bool col_ok = 2 * cp < S;
-#pragma unroll
-  for (int r = 0; r < 32; ++r) acc[r][0] = acc[r][1] = 0.0f;
-  __syncthreads();
-  stage_w(nd.xbuf, wmat, 0, K, S);
-  for (int k0 = 0, si = 0; k0 < K; k0 += kKS, ++si) {
-    __syncthreads();  // the previous slab's readers are done
-    const float* w_s = nd.xbuf + (si & 1) * kWSlab;
-    if (k0 + kKS < K) {
-      stage_w(nd.xbuf + ((si + 1) & 1) * kWSlab, wmat, k0 + kKS, K, S);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    stage(k0);
-    __syncthreads();
-    float dv[8];
-    row(k0, dk, dv);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) nd.diff_t[(dk + j) * kLdD + drow] = dv[j];
-    __syncthreads();
-    // y[rows of half h][2cp, 2cp+1] += operand . W over the slab
-    if (half_active && col_ok) {
-#pragma unroll 4
-      for (int k = 0; k < kKS; ++k) {
-        const float2 w = *reinterpret_cast<const float2*>(w_s + k * kMaxS + 2 * cp);
-        const float4* d4 = reinterpret_cast<const float4*>(nd.diff_t + k * kLdD + 32 * h);
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const float4 d = d4[q];
-          acc[4 * q][0] = fmaf(d.x, w.x, acc[4 * q][0]);
-          acc[4 * q][1] = fmaf(d.x, w.y, acc[4 * q][1]);
-          acc[4 * q + 1][0] = fmaf(d.y, w.x, acc[4 * q + 1][0]);
-          acc[4 * q + 1][1] = fmaf(d.y, w.y, acc[4 * q + 1][1]);
-          acc[4 * q + 2][0] = fmaf(d.z, w.x, acc[4 * q + 2][0]);
-          acc[4 * q + 2][1] = fmaf(d.z, w.y, acc[4 * q + 2][1]);
-          acc[4 * q + 3][0] = fmaf(d.w, w.x, acc[4 * q + 3][0]);
-          acc[4 * q + 3][1] = fmaf(d.w, w.y, acc[4 * q + 3][1]);
-        }
-      }
-    }
-  }
 }
 
 }  // namespace itrx_sgraf

@@ -25,13 +25,18 @@ constant).
 
 What bounds them on an H100: the S x S products (X M and ctx Wg^T in the
 forward, five of them in the backward) over the valid nodes, then the
-n x n x S edges and contexts of each pair.  The forward runs its products
-on fp32 FMAs.  The backward runs its five on the tensor cores as split-bf16
-products (three bf16 passes, a_hi b_lo + a_lo b_hi + a_hi b_hi, fp32
-accumulation; two where the operand is bf16 nodes), on weights split once
-a call here (`bwd_weights`), over a list of the valid rows formed on the
-card (`row_list`: nothing is read back).  Both keep the chain's other
-arithmetic in fp32 whatever the nodes' dtype; the saves are fp32.
+n x n x S edges and contexts of each pair; at the training chunk the
+forward's bound is the bytes of its saves.  Both run their products on the
+tensor cores as split-bf16 products (three bf16 passes, a_hi b_lo + a_lo
+b_hi + a_hi b_hi, fp32 accumulation; two where the operand is bf16 nodes),
+on weights split once a call here (`fwd_weights`, `bwd_weights`), over a
+list of the valid rows and the edge passes' pair ranges formed on the card
+by two small kernels (csrc/sgr_rows.cuh::plan_kernel and plan_rows_kernel,
+once a call; `row_list` and `edge_bounds` are their plain version): nothing
+is read back.  Both keep the chain's
+other arithmetic in fp32 whatever the nodes' dtype; the saves are fp32,
+and the forward's kernels write every row of them (zeros at masked nodes),
+so they are allocated without a memset.
 
 Arguments are the port's layouts: the stacked steps' Linears as torch stores
 them, wq, wk, wg (steps, S, S) (out, in) and bq, bk, bg (steps, S).  A CPU
@@ -57,8 +62,9 @@ NEG_INF = -1e18
 # (at S 256, 2 x 2 x 32 blocks of 128 x 256 on 132 SMs), summed in order (no
 # atomics, so two calls give identical gradients)
 W_SPLITS = 32
-# the backward's edge pass: a persistent grid of this many blocks an SM
-# (csrc/sgr_bwd.cu::edge_kernel, 110 KB of shared memory a block)
+# the edge passes: a persistent grid of this many blocks an SM (the
+# edge_kernel of csrc/sgr.cu and of csrc/sgr_bwd.cu, 110 KB of shared memory
+# a block)
 EDGE_BLOCKS_PER_SM = 2
 
 
@@ -183,17 +189,13 @@ def _nodes(name, s0):
     return s0
 
 
-def _rows(mask):
-    """The valid rows p * N + j of the (B, N) mask, in order, int32."""
-    return torch.nonzero(mask.reshape(-1) > 0).reshape(-1).to(torch.int32).contiguous()
-
-
 def row_list(mask):
-    """The backward's valid rows p * N + j of the (B, N) mask, formed on the
-    device (nothing is read back): (rows (B N,) int32, the valid rows in
-    order, then the masked rows; pstart (B + 1,) int32, each pair's first
-    row in that list, then the number of valid rows).  A permutation, so
-    every entry is written once."""
+    """The plain version of the plan kernels' row list (`card_plan`): the
+    kernels' valid rows p * N + j of the (B, N) mask, formed without a host
+    read: (rows (B N,) int32, the valid rows in order, then the masked
+    rows; pstart (B + 1,) int32, each pair's first row in that list, then
+    the number of valid rows).  A permutation, so every entry is written
+    once."""
     valid = mask > 0
     v = valid.reshape(-1).to(torch.int32)
     pos = torch.cumsum(v, 0, dtype=torch.int32) - v
@@ -205,10 +207,11 @@ def row_list(mask):
 
 
 def edge_bounds(pstart, blocks: int):
-    """The edge pass's pair ranges: block b takes pairs bounds[b] ..
-    bounds[b + 1] - 1, cut so that each range's sum of n (n + 4) over its
-    pairs' n valid nodes (the edges ~ n^2, the staging ~ n) is about equal;
-    formed on the device from pstart (B + 1,).  (blocks + 1,) int32."""
+    """The plain version of the plan kernels' pair ranges (`card_plan`): edge
+    block b takes pairs bounds[b] .. bounds[b + 1] - 1, cut so that each
+    range's sum of n (n + 4) over its pairs' n valid nodes (the edges ~ n^2,
+    the staging ~ n) is about equal; from pstart (B + 1,) without a host
+    read.  (blocks + 1,) int32."""
     n = (pstart[1:] - pstart[:-1]).to(torch.int64)
     cost = torch.cumsum(n * (n + 4), 0)
     prefix = torch.cat([cost.new_zeros(1), cost])
@@ -220,6 +223,22 @@ def edge_bounds(pstart, blocks: int):
                       last]).to(torch.int32)
 
 
+def edge_blocks(b: int, dev) -> int:
+    """The edge passes' persistent grid: EDGE_BLOCKS_PER_SM blocks an SM, at
+    most one a pair, at least one."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return max(1, min(b, EDGE_BLOCKS_PER_SM * sms))
+
+
+def fwd_weights(mm, wg):
+    """The forward's two S x S products' weights, per step, split once a
+    call for the tensor cores (`split_weight`, output column first, both in
+    one split): M^T for q = X M + v, and sim_graph_w Wg (steps, S, S) as
+    torch stores it, (out, in), for ctx Wg^T.  Two views of one tensor."""
+    both = split_weight(torch.cat([mm.transpose(1, 2), wg.float()]))
+    return both[:mm.shape[0]], both[mm.shape[0]:]
+
+
 def bwd_weights(mm, wg):
     """The backward's three S x S products' weights, per step, split once a
     call for the tensor cores (`split_weight`, output column first): M^T
@@ -229,6 +248,30 @@ def bwd_weights(mm, wg):
             split_weight(wg.transpose(1, 2)))
 
 
+def plan_size(b: int, n: int, blocks: int) -> int:
+    """int32 entries of a plan workspace (csrc/sgr_rows.cuh,
+    `plan_of`): the edge costs' prefix (B + 1 int64), the row list, each
+    pair's first row and the edge ranges."""
+    return 2 * (b + 1) + b * n + (b + 1) + (blocks + 1)
+
+
+def card_plan(mask, blocks: int):
+    """(rows, pstart, bounds) as the plan kernels form them on the card for
+    a CUDA mask (B, N) and `blocks` edge blocks (the backward's plan; the
+    forward forms its own in its first launches): `row_list` and
+    `edge_bounds` (their plain versions) of one call."""
+    b, n = mask.shape
+    plan = torch.empty(plan_size(b, n, blocks), dtype=torch.int32, device=mask.device)
+    lib = load("sgr")
+    fn = lib.itrx_sgr_plan
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    maskf = _f32(mask)
+    check(lib, "sgr_plan_kernels", fn(ptr(maskf), ptr(plan), b, n, blocks, mask.device.index,
+                                     current_stream(mask.device)))
+    return plan[2 * (b + 1):].split([b * n, b + 1, blocks + 1])
+
+
 def _launch_fwd(s0, mask, wq, bq, wk, bk, wg, bg):
     """(final nodes in s0's dtype, fp32 saves (steps, B, N, S))."""
     name = "sgr_reason_fused"
@@ -236,20 +279,22 @@ def _launch_fwd(s0, mask, wq, bq, wk, bk, wg, bg):
     b, n, s = s0.shape
     steps = wq.shape[0]
     dev = s0.device
-    outs = torch.zeros(steps, b, n, s, dtype=torch.float32, device=dev)
-    ws_sm = torch.empty(b * n, s, dtype=torch.float32, device=dev)
-    ws_ctx = torch.empty_like(ws_sm)
+    # every row of every step is written by the kernels: no memset
+    outs = torch.empty(steps, b, n, s, dtype=torch.float32, device=dev)
+    blocks = edge_blocks(b, dev)
+    plan = torch.empty(plan_size(b, n, blocks), dtype=torch.int32, device=dev)
     lib = load("sgr")
     fn = lib.itrx_sgr_fwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     # every temporary is held by a name until the launches have been queued
-    maskf, rows = _f32(mask), _rows(mask)
+    maskf = _f32(mask)
     mm, vv = (t.contiguous() for t in fold_sgr_qk(wq.detach(), bq.detach(), wk.detach()))
-    wgt, bgf = _f32(wg).transpose(1, 2).contiguous(), _f32(bg)
-    code = fn(ptr(s0), ptr(maskf), ptr(rows), ptr(mm), ptr(vv), ptr(wgt), ptr(bgf), ptr(outs),
-              ptr(ws_sm), ptr(ws_ctx), b, n, s, steps, rows.numel(),
-              int(s0.dtype == torch.bfloat16), dev.index, current_stream(dev))
+    mts, gws = fwd_weights(mm, wg.detach())
+    bgf = _f32(bg)
+    code = fn(ptr(s0), ptr(maskf), ptr(plan), ptr(mts), ptr(vv), ptr(gws), ptr(bgf), ptr(outs),
+              b, n, s, steps, blocks, int(s0.dtype == torch.bfloat16), dev.index,
+              current_stream(dev))
     check(lib, "sgr_fwd_kernels", code)
     sgr_reason_fused.launches += 1
     return outs[-1].to(s0.dtype), outs
@@ -280,10 +325,8 @@ def _launch_bwd(s0, mask, wq, bq, wk, bk, wg, bg, outs, g):
     fn.restype = ctypes.c_int
     # every temporary is held by a name until the launches have been queued
     maskf, saves = _f32(mask), outs.detach().contiguous()
-    rows, pstart = row_list(mask)
-    blocks = max(1, min(b, EDGE_BLOCKS_PER_SM
-                        * torch.cuda.get_device_properties(dev).multi_processor_count))
-    bounds = edge_bounds(pstart, blocks)
+    rows, pstart, bounds = card_plan(mask, edge_blocks(b, dev))
+    blocks = bounds.numel() - 1
     mm, vv = (t.contiguous() for t in fold_sgr_qk(wq.detach(), bq.detach(), wk.detach()))
     mts, ms, gs = bwd_weights(mm, wg.detach())
     code = fn(ptr(s0), ptr(saves), ptr(maskf), ptr(rows), ptr(pstart), ptr(bounds), ptr(mts),
@@ -296,11 +339,28 @@ def _launch_bwd(s0, mask, wq, bq, wk, bk, wg, bg, outs, g):
     return gx.to(s0.dtype), dwq, dbq, dwk, torch.zeros_like(dbq), dwg, dbg
 
 
+def _fwd(dev: str, args) -> tuple:
+    """The forward on the device `_guard` named, without a gradient."""
+    with torch.no_grad():
+        return sgr_reason_plain(*args) if dev == "cpu" else _launch_fwd(*args)
+
+
+def sgr_reason_fwd_fused(s0, mask, wq, bq, wk, bk, wg, bg):
+    """The forward with the saves the backward reads: (the final nodes in
+    s0's dtype, every step's fp32 output (steps, B, N, S)), zero at masked
+    nodes, without a gradient.  A CPU tensor takes `sgr_reason_plain`; a
+    CUDA tensor launches the forward kernels (counted on `sgr_reason_fused`,
+    once a call); any other device raises."""
+    args = (s0, mask, wq, bq, wk, bk, wg, bg)
+    return _fwd(_guard("sgr_reason_fwd_fused", *args), args)
+
+
 def sgr_reason_bwd_fused(s0, mask, wq, bq, wk, bk, wg, bg, outs, g):
     """The backward: (g_s0, dWq, dbq, dWk, dbk = 0, dWg, dbg) for the final
     nodes' cotangent g, from the forward's input and fp32 saves.  A CPU
     tensor takes `sgr_reason_bwd_plain`; a CUDA tensor launches the backward
-    kernels (one count per call); any other device raises."""
+    kernels (one count per call) on the plan of this mask that `card_plan`
+    forms; any other device raises."""
     args = (s0, mask, wq, bq, wk, bk, wg, bg, outs, g)
     if _guard("sgr_reason_bwd_fused", *args) == "cpu":
         return sgr_reason_bwd_plain(*args)
@@ -315,10 +375,8 @@ class _SGRReason(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, s0, mask, wq, bq, wk, bk, wg, bg):
-        if s0.device.type == "cpu":
-            out, outs = sgr_reason_plain(s0, mask, wq, bq, wk, bk, wg, bg)
-        else:
-            out, outs = _launch_fwd(s0, mask, wq, bq, wk, bk, wg, bg)
+        args = (s0, mask, wq, bq, wk, bk, wg, bg)
+        out, outs = sgr_reason_plain(*args) if s0.device.type == "cpu" else _launch_fwd(*args)
         ctx.save_for_backward(s0, mask, wq, bq, wk, bk, wg, bg, outs)
         return out
 
@@ -346,10 +404,7 @@ def sgr_reason_fused(s0, mask, wq, bq, wk, bk, wg, bg):
     dev = _guard("sgr_reason_fused", *args)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _SGRReason.apply(*args)
-    with torch.no_grad():
-        if dev == "cpu":
-            return sgr_reason_plain(*args)[0]
-        return _launch_fwd(*args)[0]
+    return _fwd(dev, args)[0]
 
 
 # kernel launches since the last reset (each wrapper counts once per call)

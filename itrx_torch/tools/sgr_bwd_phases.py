@@ -21,6 +21,7 @@ import json
 import math
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
@@ -64,35 +65,49 @@ MARKS = (
 )
 
 
-def build() -> ctypes.CDLL:
-    """csrc/sgr_bwd.cu with the timers, compiled as the port compiles it."""
-    src = (kernels.CSRC / "sgr_bwd.cu").read_text()
+def build(source: str = "sgr_bwd.cu", marks=MARKS, out: Path = OUT) -> ctypes.CDLL:
+    """csrc/<source> with the timers put in after each marker of `marks`,
+    compiled as the port compiles it into `out`; the library's
+    itrx_phases(buf, zero) zeroes the timers (zero != 0) or copies them out."""
+    src = (kernels.CSRC / source).read_text()
     for name in ("sgr_rows.cuh", "sgraf_nodes_mma.cuh"):
         src = src.replace(f'#include "{name}"', f'#include "{kernels.CSRC / name}"', 1)
     src = src.replace("namespace {\n", TIMER + "\nnamespace {\n", 1)
-    for old, add in MARKS:
+    for old, add in marks:
         if src.count(old) != 1:
-            raise RuntimeError(f"sgr_bwd.cu changed: no phase marker {old[:60]!r}")
+            raise RuntimeError(f"{source} changed: no phase marker {old[:60]!r}")
         src = src.replace(old, old + add, 1)
-    src = src.replace('extern "C" {', 'extern "C" {\nint itrx_sgr_bwd_phases(void* out, int zero) {\n'
+    src = src.replace('extern "C" {', 'extern "C" {\nint itrx_phases(void* out, int zero) {\n'
                       '  if (zero) {\n'
                       '    static unsigned long long z[%d][8];\n'
                       '    return (int)cudaMemcpyToSymbol(g_phase_ns, z, sizeof(z));\n'
                       '  }\n'
                       '  return (int)cudaMemcpyFromSymbol(out, g_phase_ns, sizeof(g_phase_ns));\n'
                       '}\n' % MAX_BLOCKS, 1)
-    OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / "sgr_bwd.cu").write_text(src)
-    lib = OUT / "sgr_bwd.so"
+    out.mkdir(parents=True, exist_ok=True)
+    stem = source.removesuffix(".cu")
+    (out / source).write_text(src)
+    lib = out / f"{stem}.so"
     proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib),
-                           str(OUT / "sgr_bwd.cu")], capture_output=True, text=True)
-    (OUT / "sgr_bwd.log").write_text(proc.stdout + proc.stderr)
+                           str(out / source)], capture_output=True, text=True)
+    (out / f"{stem}.log").write_text(proc.stdout + proc.stderr)
     if proc.returncode:
-        raise RuntimeError(f"nvcc failed for the timed sgr_bwd.cu:\n{proc.stderr}")
-    out = ctypes.CDLL(str(lib))
-    out.itrx_cuda_error_string.argtypes = [ctypes.c_int]
-    out.itrx_cuda_error_string.restype = ctypes.c_char_p
-    return out
+        raise RuntimeError(f"nvcc failed for the timed {source}:\n{proc.stderr}")
+    so = ctypes.CDLL(str(lib))
+    so.itrx_cuda_error_string.argtypes = [ctypes.c_int]
+    so.itrx_cuda_error_string.restype = ctypes.c_char_p
+    return so
+
+
+def read_timers(lib, run) -> list:
+    """The timers of one call of `run` (zeroed before it): per block, its
+    eight slots."""
+    buf = (ctypes.c_ulonglong * (MAX_BLOCKS * 8))()
+    kernels.check(lib, "itrx_phases", lib.itrx_phases(None, 1))
+    run()
+    torch.cuda.synchronize()
+    kernels.check(lib, "itrx_phases", lib.itrx_phases(ctypes.byref(buf), 0))
+    return [buf[8 * b:8 * b + 8] for b in range(MAX_BLOCKS)]
 
 
 def inputs(dev, pairs=4096, words=24, steps=3, s=256, seed=0):
@@ -114,24 +129,25 @@ def inputs(dev, pairs=4096, words=24, steps=3, s=256, seed=0):
     return {k: v.to(dev) for k, v in x.items()}, cot.to(dev)
 
 
-def main() -> None:
+def card_name() -> str:
     if not torch.cuda.is_available():
-        sys.exit("sgr_bwd_phases: needs a CUDA card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        sys.exit(f"{sys.argv[0]}: needs a CUDA card")
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    print(f"card: {card}", flush=True)
+
+
+def main() -> None:
+    print(f"card: {card_name()}", flush=True)
     lib = build()
-    ks.load = lambda name: lib  # the wrapper launches the timed copy
+    # the wrapper launches the timed copy of sgr_bwd.cu (the port's own build
+    # of the rest)
+    ks.load = lambda name: lib if name == "sgr_bwd" else kernels.load(name)
     dev = torch.device("cuda", 0)
     x, cot = inputs(dev)
     _, outs = ks.sgr_reason_plain(**x)
     ks.sgr_reason_bwd_fused(**x, outs=outs, g=cot)
-    buf = (ctypes.c_ulonglong * (MAX_BLOCKS * 8))()
-    kernels.check(lib, "itrx_sgr_bwd_phases", lib.itrx_sgr_bwd_phases(None, 1))
-    ks.sgr_reason_bwd_fused(**x, outs=outs, g=cot)
-    torch.cuda.synchronize()
-    kernels.check(lib, "itrx_sgr_bwd_phases", lib.itrx_sgr_bwd_phases(ctypes.byref(buf), 0))
-    blocks = [buf[8 * b:8 * b + 8] for b in range(MAX_BLOCKS) if buf[8 * b + 5]]
+    blocks = [b for b in read_timers(lib, lambda: ks.sgr_reason_bwd_fused(**x, outs=outs, g=cot))
+              if b[5]]
     n = len(blocks)
     us = [sum(b[i] for b in blocks) / n / 1e3 for i in range(len(PHASES))]
     print(json.dumps({"kernel": "edge_kernel", "shape": [4096, 25, 256, 3], "mode": "float32",

@@ -6,6 +6,7 @@ and its kernel sources and build directory are where the wrappers and
 .gitignore say."""
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -616,12 +617,15 @@ def _reason_args(dev="cpu", b=3, n=4, s=8, steps=2):
 
 
 def test_sgr_wrappers_raise_off_cpu():
-    """The reasoning wrappers (forward and backward) raise on a device that
-    is neither the CPU nor CUDA, without counting, grad or no grad."""
+    """The reasoning wrappers (forward, the forward with its saves, and
+    backward) raise on a device that is neither the CPU nor CUDA, without
+    counting, grad or no grad."""
     before = (sgr.sgr_reason_fused.launches, sgr.sgr_reason_bwd_fused.launches)
     args = _reason_args("meta")
     with pytest.raises(ValueError, match="no kernel"):
         sgr.sgr_reason_fused(**args)
+    with pytest.raises(ValueError, match="no kernel"):
+        sgr.sgr_reason_fwd_fused(**args)
     args["wg"].requires_grad_()
     with pytest.raises(ValueError, match="no kernel"):
         sgr.sgr_reason_fused(**args)
@@ -634,17 +638,23 @@ def test_sgr_wrappers_raise_off_cpu():
 
 def test_sgr_sources_are_built_and_hashed(tmp_path, monkeypatch):
     """The forward and backward kernels exist with their C interfaces, both
-    include the listed-row helpers (which include the node tile product),
-    the backward the split tensor-core products and no longer the fp32-FMA
-    tile product of gemm_tile.cuh, and both library names change when
-    their source or a header they include changes."""
+    include the listed-row helpers (the split tensor-core row tiles, the
+    plan kernel) and the split tensor-core products; no source keeps an
+    fp32-FMA tile product (gemm_tile.cuh, tile_product, the SGR forward's
+    rows_kernel); and
+    both library names change when their source or a header they include
+    changes."""
     fwd, bwd = (kernels.CSRC / n for n in (sgr.SOURCE, sgr.BWD_SOURCE))
     assert "int itrx_sgr_fwd(" in fwd.read_text()
+    assert "int itrx_sgr_plan(" in fwd.read_text()
     assert "int itrx_sgr_bwd(" in bwd.read_text()
     for src in (fwd, bwd):
         assert '#include "sgr_rows.cuh"' in src.read_text()
-    assert '#include "sgraf_nodes_mma.cuh"' in bwd.read_text()
-    assert '#include "gemm_tile.cuh"' not in bwd.read_text()
+        assert '#include "sgraf_nodes_mma.cuh"' in src.read_text()
+        assert '#include "gemm_tile.cuh"' not in src.read_text()
+    assert all("tile_product" not in src.read_text() for src in kernels.CSRC.iterdir())
+    assert not any(re.search(r"\brows_kernel\b", (kernels.CSRC / n).read_text())
+                   for n in (sgr.SOURCE, sgr.BWD_SOURCE, "sgr_rows.cuh"))
     assert '#include "sgraf_nodes.cuh"' in (kernels.CSRC / "sgr_rows.cuh").read_text()
     headers = ("sgr_rows.cuh", "sgraf_nodes_mma.cuh", "sgraf_nodes.cuh", "xattn_product.cuh")
     for name in (sgr.SOURCE, sgr.BWD_SOURCE) + headers:
