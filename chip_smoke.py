@@ -20,8 +20,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    blocks, shared memory), its time a step, cuDNN's and its bound; a grid
    that cannot be co-resident must raise.  The GRU adjoint is held to
    autograd through the plain GRU (all five gradients, both directions) and
-   to gru_bwd_plain at GRU_BWD_SHAPES, two calls bit-identical; the
-   SGRAF-SAF and SGRAF-SGR score
+   to gru_bwd_plain at GRU_BWD_SHAPES, two calls bit-identical; the SCAN
+   t2i and i2t score kernels to `xattn_t2i_plain` / `xattn_i2t_plain` at
+   XATTN_SHAPES (64 x 320 and 37 x 211 at L 24, L 128, L 21 and 2, padded
+   by the wrapper to multiples of 8), both aggregations, bf16 and fp32, two
+   calls bit-identical, timed (medians of 5) beside the earlier design and
+   cuBLAS's A product alone; the SGRAF-SAF and SGRAF-SGR score
    kernels to `sgraf_eval_saf_plain` and `sgraf_eval_sgr_plain` at D 1024,
    S 256 (SGR at sgr_step 3, and 1 at the ragged shape), bf16 and fp32,
    SAF also at L 4, at a 128-word caption and at S 128, SGR at the last two
@@ -922,9 +926,13 @@ def _xattn_inputs(g, ni, nc, l, d=1024, single_word=True):
 def xattn_bound(img, cap, mask, direction: str) -> dict:
     """The bound of one score grid: images, captions and mask read once, the
     fp32 grid written once; the A product over the valid words (bf16 tensor
-    cores for bf16 inputs) and the chain after it by fp32 FMAs (t2i: the
-    36 x 36 region Gram per word; i2t: the L x L word Gram per region, plus
-    some ten operations per (region, word) either way)."""
+    cores for bf16 inputs; for fp32 inputs at the TF32 tensor-core peak, as
+    the SGRAF and VSRN bounds count fp32 products, the
+    operations counted once; the kernel itself runs them on the fp64 tensor
+    cores, 67 TFLOP/s) and the chain after it by fp32 FMAs (t2i: the 36 x 36
+    region Gram per word; i2t: the L x L word Gram per region, plus some ten
+    operations per (region, word) either way).  `bound_ms_fp32_peak`: the
+    fp32 bound with A at the fp32 FMA peak, as the earlier design stated it."""
     ni, r, d = img.shape
     lengths = mask.sum(dim=1).double()
     a_ops = 2.0 * ni * r * d * float(lengths.sum())
@@ -932,85 +940,106 @@ def xattn_bound(img, cap, mask, direction: str) -> dict:
         chain = ni * float(lengths.sum()) * (2 * r * r + 10 * r)
     else:
         chain = ni * r * float((2 * lengths ** 2 + 10 * lengths).sum())
+    n_bytes = nbytes(img, cap, mask) + 4 * ni * cap.shape[0]
     if img.dtype == torch.bfloat16:
-        ops = {"bf16": a_ops, "fp32": chain}
-    else:
-        ops = {"fp32": a_ops + chain}
-    return bound(nbytes(img, cap, mask) + 4 * ni * cap.shape[0], ops)
+        return bound(n_bytes, {"bf16": a_ops, "fp32": chain})
+    res = bound(n_bytes, {"tf32": a_ops, "fp32": chain})
+    res["bound_ms_fp32_peak"] = bound(n_bytes, {"fp32": a_ops + chain})["bound_ms"]
+    return res
+
+
+# the SCAN kernels' earlier design (wmma / fp32 FMA A product, two
+# images a block), PERF.md section 6: (bf16, fp32) ms at 64 x 320 x 36 x 24
+XATTN_FMA_MS = {"xattn": (0.605, 3.805), "xattn_i2t": (0.872, 4.384)}
+# the checked shapes (Ni, Nc, L): the timed one; Ni not a multiple of the
+# tile's 6 or 4 images; L 128 (one caption a tile); L not a multiple of 8
+# (padded by the wrapper); two words (padded to 8).  Each phase draws the
+# shapes the earlier design's phase checked from the script's generator, in
+# their old order (so that every later phase sees the draws it saw before),
+# the others from its own.
+XATTN_SHAPES = ((64, 320, 24), (37, 211, 24), (5, 7, 128), (13, 50, 21), (7, 9, 2))
+XATTN_OLD_SHAPES = {"xattn": XATTN_SHAPES[:2], "xattn_i2t": XATTN_SHAPES[:3]}
+
+
+def median_ms(fn, runs: int = 5) -> tuple:
+    """(median, min, max) of `runs` cuda_ms readings of fn."""
+    t = sorted(cuda_ms(fn) for _ in range(runs))
+    return t[len(t) // 2], t[0], t[-1]
+
+
+def cublas_a_ms(img, cap) -> float:
+    """The A product alone as one cuBLAS call, (Ni 36, D) x (D, Nc L): a
+    yardstick for the kernels' product part (no PyTorch call computes the
+    grid; the port never calls this)."""
+    a, b = img.reshape(-1, img.shape[-1]), cap.reshape(-1, cap.shape[-1]).t()
+    return median_ms(lambda: torch.matmul(a, b))[0]
+
+
+def _xattn_phase(g, name: str, fused, plain, kws: dict, timed_agg: str) -> dict:
+    """Both aggregations at every XATTN_SHAPES shape, bf16 and fp32, against
+    the plain version on the same values (XATTN_BF16_ATOL, XATTN_FP32_ATOL);
+    two calls bit-identical; then timed at 64 x 320 x 36 x 24 x 1024 in
+    `timed_agg` (medians of 5 readings, with their spread) beside the plain
+    version, the earlier design, cuBLAS's A product and the bound."""
+    own = torch.Generator().manual_seed(21)
+    res = {}
+    for ni, nc, l in XATTN_SHAPES:
+        img, cap, mask = _xattn_inputs(g if (ni, nc, l) in XATTN_OLD_SHAPES[name] else own,
+                                       ni, nc, l)
+        img16, cap16 = img.to(torch.bfloat16), cap.to(torch.bfloat16)
+        for agg, k in kws.items():
+            tag = f"{name} {ni}x{nc}x36x{l} {agg}"
+            e16 = check(f"{tag} bf16", fused(img16, cap16, mask, **k),
+                        plain(img16.float(), cap16.float(), mask, **k), XATTN_BF16_ATOL)
+            check(f"{tag} fp32", fused(img, cap, mask, **k), plain(img, cap, mask, **k),
+                  XATTN_FP32_ATOL)
+            if (ni, agg) == (64, timed_agg):
+                res["max_abs_err"] = e16
+    img, cap, mask = _xattn_inputs(g, 64, 320, 24)
+    img16, cap16 = img.to(torch.bfloat16), cap.to(torch.bfloat16)
+    k = kws[timed_agg]
+    for x, c in ((img16, cap16), (img, cap)):
+        check_bit_identical(f"{name} 64x320x36x24 {str(x.dtype)[6:]}", [fused(x, c, mask, **k)],
+                            [fused(x, c, mask, **k)])
+    ms16, ms32 = median_ms(lambda: fused(img16, cap16, mask, **k)), median_ms(
+        lambda: fused(img, cap, mask, **k))
+    res["ms"], res["ms_spread"], res["ms_fp32"], res["ms_fp32_spread"] = (
+        ms16[0], ms16[1:], ms32[0], ms32[1:])
+    res["plain_ms"] = cuda_ms(lambda: plain(img16, cap16, mask, **k))
+    res["plain_ms_fp32"] = cuda_ms(lambda: plain(img, cap, mask, **k))
+    res["cublas_a_ms"], res["cublas_a_ms_fp32"] = cublas_a_ms(img16, cap16), cublas_a_ms(img, cap)
+    res.update(xattn_bound(img16, cap16, mask, "t2i" if name == "xattn" else "i2t"))
+    b32 = xattn_bound(img, cap, mask, "t2i" if name == "xattn" else "i2t")
+    res["bound_ms_fp32"], res["bound_ms_fp32_peak"] = b32["bound_ms"], b32["bound_ms_fp32_peak"]
+    # no single PyTorch call computes the stacked cross-attention score grid
+    res["library_ms"] = None
+    was16, was32 = XATTN_FMA_MS[name]
+    log(f"  time 64x320x36x24x1024 {timed_agg} bf16: kernel {ms16[0]:.4f} ms "
+        f"({ms16[1]:.4f}-{ms16[2]:.4f}; earlier design {was16:.3f}), plain {res['plain_ms']:.3f} ms, "
+        f"cuBLAS A alone {res['cublas_a_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}), {100 * res['bound_ms'] / ms16[0]:.1f}% of it")
+    log(f"  fp32: kernel {ms32[0]:.4f} ms ({ms32[1]:.4f}-{ms32[2]:.4f}; earlier design {was32:.3f}), "
+        f"plain {res['plain_ms_fp32']:.3f} ms, cuBLAS A alone {res['cublas_a_ms_fp32']:.4f} ms, "
+        f"bound {b32['bound_ms']:.4f} ms at the TF32 peak ({b32['bound_by']}), "
+        f"{100 * b32['bound_ms'] / ms32[0]:.1f}% of it; {b32['bound_ms_fp32_peak']:.4f} ms "
+        f"at the fp32 peak")
+    return res
 
 
 def phase_xattn(g) -> dict:
     log("xattn t2i kernel vs plain (clipped_l2norm; R=36, D=1024)")
-    res = {}
-    for ni, nc, l in ((64, 320, 24), (37, 211, 24)):
-        img, cap, mask = _xattn_inputs(g, ni, nc, l)
-        for agg in ("LogSumExp", "Mean"):
-            img16, cap16 = img.to(torch.bfloat16), cap.to(torch.bfloat16)
-            got = xattn_t2i_fused(img16, cap16, mask, agg_func=agg)
-            want = xattn_t2i_plain(img16.float(), cap16.float(), mask, agg_func=agg)
-            e16 = check(f"xattn {ni}x{nc}x36x{l} {agg} bf16", got, want, XATTN_BF16_ATOL)
-            got = xattn_t2i_fused(img, cap, mask, agg_func=agg)
-            want = xattn_t2i_plain(img, cap, mask, agg_func=agg)
-            check(f"xattn {ni}x{nc}x36x{l} {agg} fp32", got, want, XATTN_FP32_ATOL)
-            if (ni, agg) == (64, "LogSumExp"):
-                res["max_abs_err"] = e16
-    img, cap, mask = _xattn_inputs(g, 64, 320, 24)
-    img16, cap16 = img.to(torch.bfloat16), cap.to(torch.bfloat16)
-    res["ms"] = cuda_ms(lambda: xattn_t2i_fused(img16, cap16, mask))
-    res["plain_ms"] = cuda_ms(lambda: xattn_t2i_plain(img16, cap16, mask))
-    res["ms_fp32"] = cuda_ms(lambda: xattn_t2i_fused(img, cap, mask))
-    res["plain_ms_fp32"] = cuda_ms(lambda: xattn_t2i_plain(img, cap, mask))
-    res.update(xattn_bound(img16, cap16, mask, "t2i"))
-    # no single PyTorch call computes the stacked cross-attention score grid
-    res["library_ms"] = None
-    log(f"  time 64x320x36x24x1024 LSE bf16: kernel {res['ms']:.3f} ms, plain "
-        f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
-        f"fp32: kernel {res['ms_fp32']:.3f} ms, plain {res['plain_ms_fp32']:.3f} ms")
-    return res
+    kws = {"LogSumExp": dict(agg_func="LogSumExp"), "Mean": dict(agg_func="Mean")}
+    return _xattn_phase(g, "xattn", xattn_t2i_fused, xattn_t2i_plain, kws, "LogSumExp")
 
 
 def phase_xattn_i2t(g) -> dict:
     log(f"xattn i2t kernel vs plain (clipped_l2norm; R=36, D=1024, lambda_softmax "
         f"{I2T_SOFTMAX:g}, LogSumExp at lambda_lse {I2T_LSE:g})")
-    res = {}
-    kw = {"LogSumExp": dict(agg_func="LogSumExp", lambda_lse=I2T_LSE,
-                            lambda_softmax=I2T_SOFTMAX),
-          "Mean": dict(agg_func="Mean", lambda_softmax=I2T_SOFTMAX)}
-    for ni, nc, l in ((64, 320, 24), (37, 211, 24)):
-        img, cap, mask = _xattn_inputs(g, ni, nc, l)
-        img16, cap16 = img.to(torch.bfloat16), cap.to(torch.bfloat16)
-        for agg, k in kw.items():
-            got = xattn_i2t_fused(img16, cap16, mask, **k)
-            want = xattn_i2t_plain(img16.float(), cap16.float(), mask, **k)
-            e16 = check(f"xattn_i2t {ni}x{nc}x36x{l} {agg} bf16", got, want, XATTN_BF16_ATOL)
-            got = xattn_i2t_fused(img, cap, mask, **k)
-            want = xattn_i2t_plain(img, cap, mask, **k)
-            check(f"xattn_i2t {ni}x{nc}x36x{l} {agg} fp32", got, want, XATTN_FP32_ATOL)
-            if (ni, agg) == (64, "Mean"):
-                res["max_abs_err"] = e16
-    # a caption as long as the kernel takes (one caption per block, its
-    # 64 KB Gram in shared memory)
-    img, cap, mask = _xattn_inputs(g, 5, 7, 128)
-    check("xattn_i2t 5x7x36x128 Mean bf16", xattn_i2t_fused(
-        img.to(torch.bfloat16), cap.to(torch.bfloat16), mask, **kw["Mean"]),
-        xattn_i2t_plain(img.to(torch.bfloat16).float(), cap.to(torch.bfloat16).float(),
-                        mask, **kw["Mean"]), XATTN_BF16_ATOL)
+    kws = {"LogSumExp": dict(agg_func="LogSumExp", lambda_lse=I2T_LSE,
+                             lambda_softmax=I2T_SOFTMAX),
+           "Mean": dict(agg_func="Mean", lambda_softmax=I2T_SOFTMAX)}
     # the main path's mode: i-t AVG, bf16
-    img, cap, mask = _xattn_inputs(g, 64, 320, 24)
-    img16, cap16 = img.to(torch.bfloat16), cap.to(torch.bfloat16)
-    res["ms"] = cuda_ms(lambda: xattn_i2t_fused(img16, cap16, mask, **kw["Mean"]))
-    res["plain_ms"] = cuda_ms(lambda: xattn_i2t_plain(img16, cap16, mask, **kw["Mean"]))
-    res["ms_fp32"] = cuda_ms(lambda: xattn_i2t_fused(img, cap, mask, **kw["Mean"]))
-    res["plain_ms_fp32"] = cuda_ms(lambda: xattn_i2t_plain(img, cap, mask, **kw["Mean"]))
-    res["ms_t2i_same_inputs"] = cuda_ms(lambda: xattn_t2i_fused(img16, cap16, mask))
-    res.update(xattn_bound(img16, cap16, mask, "i2t"))
-    # no single PyTorch call computes the stacked cross-attention score grid
-    res["library_ms"] = None
-    log(f"  time 64x320x36x24x1024 Mean bf16: kernel {res['ms']:.3f} ms (the t2i kernel "
-        f"on the same inputs {res['ms_t2i_same_inputs']:.3f} ms), plain "
-        f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
-        f"fp32: kernel {res['ms_fp32']:.3f} ms, plain {res['plain_ms_fp32']:.3f} ms")
-    return res
+    return _xattn_phase(g, "xattn_i2t", xattn_i2t_fused, xattn_i2t_plain, kws, "Mean")
 
 
 def _saf_inputs(g, ni, nc, l, d=1024, s=256):

@@ -114,7 +114,7 @@ def base_config() -> dict:
         cap_chunk=32,        # SGRAF caption chunking
         eval_img_tile=256,   # eval sim-matrix tiling (images per tile)
         eval_cap_tile=1024,  # eval sim-matrix tiling (captions per tile)
-        use_fused_eval=True,   # Pallas fused SCAN eval kernels (engage on TPU bf16 eval)
+        use_fused_eval=True,   # SCAN eval grid on the CUDA kernels (False: the plain grid)
         eval_bf16=False,     # bf16 embeddings in the eval sim grid (fp32 accum)
         train_bf16=False,    # bf16 mixed-precision training (fp32 master state)
         sim_bf16=False,      # SGRAF: bf16 alignment chain in the sim tower

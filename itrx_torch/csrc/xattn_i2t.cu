@@ -15,163 +15,251 @@
 //
 // What bounds it here: as for t2i, forming A (2 * 36 * L * D flops per pair,
 // about 1.8 Mflop at L = 24, D = 1024) dominates; the chain after it costs
-// 36 * L * (L + a few) flops per pair (the context norm's s . G_c is 36 L^2,
-// under 3% of A at L = 24), and the A tensor (Ni x Nc x 36 x L) must never
-// reach device memory.
-// Design: the tiling, block order and A product of the t2i kernel
-// (xattn_product.cuh): one block per (pair of images, group of whole
-// captions), two 36 x 128 tiles of A in shared memory.  The chain then runs
-// in three steps: one thread per (image, word column) takes the l2norm over
-// the 36 region rows; one thread per (image, region, caption) takes the
-// softmax over that caption's words (local, since the block owns whole
-// captions), the numerator and the context norm against the caption's Gram,
-// staged in shared memory for the group; one thread per (image, caption)
-// aggregates over the regions.  As in the TPU kernel, the word softmax needs
-// no max subtraction (|attn| <= 1, so exp is bounded by e^lambda_softmax)
-// and pad words leave it by a multiply with the mask; the LogSumExp over
-// regions has none either.  The chain is fp32 for both input types.  The
-// per-caption Grams (fp32), the region norms and the masked captions come
-// from the wrapper, as in the TPU wrapper.
-#include "xattn_product.cuh"
+// 36 * L * (2 L + a few) fp32 flops per pair (the context's quadratic form),
+// and the A tensor (Ni x Nc x 36 x L) must never reach device memory.
+// Design: the tiles, ring and product of the t2i kernel (xattn_wgmma.cuh:
+// up to 128 word rows of whole captions x K images from a TMA ring, bf16 on
+// wgmma, fp32 as exact fp64 products, a persistent grid).  A loop over the
+// tile's images (on a copy of the image's column groups, take_block) runs
+// the chain in three steps an image.  On the accumulators, within each
+// quad: the clipped l2norm over the image's 36 regions of each word row,
+// and the softmax's numerators e = exp(lambda_softmax attn) mask_l (as in
+// the TPU kernel, no max subtraction: |attn| <= 1; pad words leave by the
+// mask), written with e A to shared memory.  Then one unit of 8 words x
+// three regions a thread (at most 16 units: one round): its words' sums of
+// e and e A, and e^T (G_c e) over the caption's words (G_c staged in shared
+// memory per tile, read as float4 broadcasts).  Then one warp a caption,
+// a lane a region: ctx = e^T G_c e / den^2, the row score, and the sum over
+// the 36 regions by a fixed shuffle tree.  fp32 throughout after A, in
+// fixed orders: repeats are bit-identical.  The per-caption Grams (fp32),
+// the region norms and the masked captions come from the wrapper, as in
+// the TPU wrapper.
+#include "xattn_wgmma.cuh"
 
 namespace {
 
-using namespace itrx_xattn;
+using namespace itrx_xwg;
 
-// dynamic shared memory below the staged word Grams: the product's staging
-// and A tiles
-template <typename T>
-__host__ __device__ constexpr int gram_offset_floats() {
-  return (std::is_same<T, __nv_bfloat16>::value ? kSmemBf16 : kSmemF32) / 4;
+// the epilogue's shared memory after the ring, in floats: fixed parts, then
+// the group's word Grams [cpb][L][L]
+struct Epi {
+  static constexpr int kE = 0;                        // [128 words][36] e
+  static constexpr int kEA = kE + kRows * kR;         // [128][36] e A
+  static constexpr int kDen = kEA + kRows * kR;       // [16 units][36] sums of e
+  static constexpr int kNum = kDen + 16 * kR;         // [16][36] sums of e A
+  static constexpr int kCtx = kNum + 16 * kR;         // [16][36] e^T G e
+  static constexpr int kMask = kCtx + 16 * kR;        // [128] the group's word mask
+  static constexpr int kImn = kMask + kRows;          // [6 * 36] the images' region norms
+  static constexpr int kGram = kImn + 6 * kR;         // [cpb][L][L]
+  static int floats(const Plan& pl) { return kGram + pl.cpb * pl.L * pl.L; }
+};
+
+__device__ __forceinline__ float sum_quad(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// One image's softmax numerators for this thread's two words (rows h = 0,
+// 1) on its block of the accumulators (take_block; parity Odd): the clipped
+// l2norm over the image's regions (within the quad), e = exp(lambda_softmax
+// attn) mask_l and e A, written to shared memory [word][region].
+template <int Odd>
+__device__ __forceinline__ void softmax_terms(const float (&blk)[5][4], int t, int rg0, int g,
+                                              const float (&m)[2], float lambda_softmax,
+                                              float* e_s, float* ea_s) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float ss = 0.0f;
+#pragma unroll
+    for (int il = 0; il < 5; ++il) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float hv = leaky(blk[il][2 * h + e]);
+        if (in_image<Odd>(il, e, t)) ss = fmaf(hv, hv, ss);
+      }
+    }
+    const float inv = 1.0f / (sqrtf(fmaxf(sum_quad(ss), 1e-16f)) + kEps);
+    const int row = 8 * (rg0 + h) + g;
+#pragma unroll
+    for (int il = 0; il < 5; ++il) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (in_image<Odd>(il, e, t)) {
+          const float a = blk[il][2 * h + e];
+          const float ev = expf(leaky(a) * inv * lambda_softmax) * m[h];
+          const int r = 8 * il + 2 * t + e - 4 * Odd;
+          e_s[row * kR + r] = ev;
+          ea_s[row * kR + r] = ev * a;
+        }
+      }
+    }
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-xattn_i2t_kernel(const T* __restrict__ img,        // (Ni, 36, D)
-                 const T* __restrict__ cap,        // (Nc, L, D), zero at padded words
+__global__ void __launch_bounds__(kThreads, 1)
+xattn_i2t_kernel(const __grid_constant__ CUtensorMap cap_map,
+                 const __grid_constant__ CUtensorMap img_map, const Plan pl,
                  const float* __restrict__ imn,    // (Ni, 36) region norms
                  const float* __restrict__ mask,   // (Nc, L)
                  const float* __restrict__ gram,   // (Nc, L, L) word Grams
                  float* __restrict__ out,          // (Ni, Nc)
-                 int Ni, int Nc, int L, int D, int caps_per_block, int n_groups,
                  float lambda_lse, float lambda_softmax, int agg_mean) {
-  // staged chunks of D during the product, then the fp32 A tiles
-  // [kImgs * kRPad][kLdA]; after them the group's word Grams
-  // [caps_per_block][L][L]
-  extern __shared__ __align__(128) float smem[];
-  float* tile = smem;
-  float* gram_s = smem + gram_offset_floats<T>();
-  __shared__ float inv_rden[kImgs][kCols];
-  __shared__ float row_sim[kImgs][kR][kMaxCaps];
+  constexpr int K = Mode<T>::K, NG = kNG<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Bars bars;
+  float* ep;
+  Ring rg = setup<T>(smem, pl, bars, &cap_map, &img_map, &ep);
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int rg0 = 2 * (threadIdx.x / 32);  // this warp's first 8-row group
+  const int L = pl.L, g8 = L / 8, LL = L * L;
+  float* const e_s = ep + Epi::kE;
+  float* const ea_s = ep + Epi::kEA;
+  float* const den_s = ep + Epi::kDen;
+  float* const num_s = ep + Epi::kNum;
+  float* const ctx_s = ep + Epi::kCtx;
+  const float* const mask_s = ep + Epi::kMask;
+  const float* const imn_s = ep + Epi::kImn;
+  const float* const gram_s = ep + Epi::kGram;
 
-  const int tid = threadIdx.x;
-  int i0, c0;
-  block_origin(Ni, caps_per_block, n_groups, &i0, &c0);
-  const int ncols = caps_per_block * L;
-  const int gram_len = L * L;
+  for (int item = blockIdx.x; item < pl.n_items; item += gridDim.x) {
+    int ig, cg;
+    tile_origin(item, pl, &ig, &cg);
+    const int i0 = ig * K, c0 = cg * pl.cpb, ncols = pl.cpb * L, units = ncols / 8;
+    stage_floats(ep + Epi::kGram, gram + (size_t)c0 * LL, pl.cpb * LL, (pl.Nc - c0) * LL);
+    stage_floats(ep + Epi::kMask, mask + (size_t)c0 * L, ncols, (pl.Nc - c0) * L);
+    stage_floats(ep + Epi::kImn, imn + (size_t)i0 * kR, K * kR, (pl.Ni - i0) * kR);
+    staged_commit();
 
-  product(img, i0, Ni, cap, c0, ncols, Nc, L, D, tile);
-  for (int idx = tid; idx < caps_per_block * gram_len; idx += kThreads) {
-    const int c = c0 + idx / gram_len;
-    gram_s[idx] = c < Nc ? gram[(size_t)c0 * gram_len + idx] : 0.0f;
-  }
-  __syncthreads();
-
-  // clipped l2norm over the regions: one (image, word column) per thread
-  {
-    const int p = tid / kCols, col = tid % kCols;
-    const float* a_col = tile + p * kRPad * kLdA + col;
-    float ss = 0.0f;
+    float d[NG][4];
+    product<T>(d, pl, rg);
+    staged_wait();
+    tile_sync();
+#ifdef ITRX_XATTN_PRODUCT_ONLY
+    // phase timer build: the product alone, every accumulator kept live
+    {
+      float keep = 0.0f;
 #pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      const float a = a_col[r * kLdA];
-      const float h = a > 0.0f ? a : 0.1f * a;
-      ss = fmaf(h, h, ss);
+      for (int i = 0; i < NG; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) keep += d[i][q];
+      if (keep == 1.0f) out[(size_t)i0 * pl.Nc + c0] = keep;
     }
-    inv_rden[p][col] = 1.0f / (sqrtf(fmaxf(ss, 1e-16f)) + kEps);
-  }
-  __syncthreads();
+    tile_sync();
+    continue;
+#endif
 
-  // one (image, region, caption) per thread: the softmax over the caption's
-  // words, the numerator and the context norm.  The thread owns the row
-  // segment A[r, caption's words] and overwrites it with s.
-  for (int idx = tid; idx < kImgs * kR * caps_per_block; idx += kThreads) {
-    const int p = idx / (kR * caps_per_block);
-    const int cc = idx / kR % caps_per_block, r = idx % kR, c = c0 + cc;
-    if (c >= Nc || i0 + p >= Ni) continue;
-    float* a_row = tile + (p * kRPad + r) * kLdA + cc * L;
-    const float* m = mask + (size_t)c * L;
-    const float* inv = inv_rden[p] + cc * L;
-    float den = 0.0f, num = 0.0f;
-    for (int l = 0; l < L; ++l) {
-      const float a = a_row[l];
-      const float h = a > 0.0f ? a : 0.1f * a;
-      const float e = expf(h * inv[l] * lambda_softmax) * m[l];
-      den += e;
-      num = fmaf(e, a, num);
-      a_row[l] = e;
+    float m[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 8 * (rg0 + h) + g;
+      m[h] = row < ncols && c0 + row / L < pl.Nc ? mask_s[row] : 0.0f;
     }
-    const float inv_sum = 1.0f / fmaxf(den, 1e-30f);
-    for (int l = 0; l < L; ++l) a_row[l] *= inv_sum;
-    // ctx = s^T G_c s
-    const float* g = gram_s + cc * gram_len;
-    float ctx = 0.0f;
-    for (int l = 0; l < L; ++l) {
-      float y = 0.0f;
-      for (int k = 0; k < L; ++k) y = fmaf(g[l * L + k], a_row[k], y);
-      ctx = fmaf(a_row[l], y, ctx);
-    }
-    row_sim[p][r][cc] = num * inv_sum /
-        fmaxf(sqrtf(fmaxf(ctx, 1e-16f)) * imn[(size_t)(i0 + p) * kR + r], kEps);
-  }
-  __syncthreads();
 
-  // aggregate each (image, caption) over the 36 regions
-  if (tid < kImgs * caps_per_block) {
-    const int p = tid / caps_per_block, cc = tid % caps_per_block, c = c0 + cc;
-    if (c < Nc && i0 + p < Ni) {
-      float acc = 0.0f;
-      for (int r = 0; r < kR; ++r) {
-        const float v = row_sim[p][r][cc];
-        acc += agg_mean ? v : expf(v * lambda_lse);
+#pragma unroll 1
+    for (int p = 0; p < K; ++p) {
+      float blk[5][4];
+      image_block(d, p, blk);
+      if (p & 1) {
+        softmax_terms<1>(blk, t, rg0, g, m, lambda_softmax, e_s, ea_s);
+      } else {
+        softmax_terms<0>(blk, t, rg0, g, m, lambda_softmax, e_s, ea_s);
       }
-      out[(size_t)(i0 + p) * Nc + c] = agg_mean ? acc / kR : logf(acc) / lambda_lse;
+      tile_sync();
+
+      // one unit of 8 words x three regions (r, r + 12, r + 24) a thread
+      // (at most 16 units: one round): sums of e and e A, and e^T (G_c e)
+      // over those 8 words (G_c symmetric: its row m, columns of the
+      // unit's words, read once for the three regions)
+      constexpr int kThird = kR / 3;
+      for (int it = threadIdx.x; it < units * kThird; it += kThreads) {
+        const int u = it / kThird, r = it % kThird, c = u / g8, w0 = c * L, l0 = (u % g8) * 8;
+        const float* gc = gram_s + c * LL + l0;
+        float y[3][8];
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) y[k][j] = 0.0f;
+#pragma unroll 2
+        for (int mw = 0; mw < L; ++mw) {
+          const float* em = e_s + (w0 + mw) * kR + r;
+          const float ev[3] = {em[0], em[kThird], em[2 * kThird]};
+          const float4 ga = *reinterpret_cast<const float4*>(gc + mw * L);
+          const float4 gb = *reinterpret_cast<const float4*>(gc + mw * L + 4);
+          const float gv[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int k = 0; k < 3; ++k) y[k][j] = fmaf(gv[j], ev[k], y[k][j]);
+        }
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          float den = 0.0f, num = 0.0f, ctx = 0.0f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int w = (w0 + l0 + j) * kR + r + k * kThird;
+            den += e_s[w];
+            num += ea_s[w];
+            ctx = fmaf(e_s[w], y[k][j], ctx);
+          }
+          den_s[u * kR + r + k * kThird] = den;
+          num_s[u * kR + r + k * kThird] = num;
+          ctx_s[u * kR + r + k * kThird] = ctx;
+        }
+      }
+      tile_sync();
+
+      // one warp a caption, a lane a region (and lanes 0-3 a second):
+      // its units' sums, the row score, then the sum over the 36 regions
+      // (a fixed shuffle tree)
+      for (int c = threadIdx.x / 32; c < pl.cpb; c += kThreads / 32) {
+        float acc = 0.0f;
+        for (int r = lane; r < kR; r += 32) {
+          float den = 0.0f, num = 0.0f, ctx = 0.0f;
+          for (int j = 0; j < g8; ++j) {
+            const int w = (c * g8 + j) * kR + r;
+            den += den_s[w];
+            num += num_s[w];
+            ctx += ctx_s[w];
+          }
+          const float inv_sum = 1.0f / fmaxf(den, 1e-30f);
+          const float rs = num * inv_sum /
+              fmaxf(sqrtf(fmaxf(ctx * inv_sum * inv_sum, 1e-16f)) * imn_s[p * kR + r], kEps);
+          acc += agg_mean ? rs : expf(rs * lambda_lse);
+        }
+#ifndef ITRX_XATTN_NO_AGG  // the phase timer's cut: no sum over the regions
+#pragma unroll
+        for (int o = 16; o > 0; o /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+#endif
+        if (lane == 0 && c0 + c < pl.Nc && i0 + p < pl.Ni) {
+          out[(size_t)(i0 + p) * pl.Nc + c0 + c] = agg_mean ? acc / kR : logf(acc) / lambda_lse;
+        }
+      }
     }
+    tile_sync();
   }
 }
 
 template <typename T>
-int run(const void* img, const void* cap, const void* imn, const void* mask,
-        const void* gram, void* out, int Ni, int Nc, int L, int D,
-        float lambda_lse, float lambda_softmax, int agg_mean, cudaStream_t stream) {
-  if (L < 1 || L > kCols) return (int)cudaErrorInvalidValue;
-  if (std::is_same<T, __nv_bfloat16>::value && D % 8 != 0) return (int)cudaErrorInvalidValue;
-  const int cpb = caps_per_block(L);
-  const int n_groups = (Nc + cpb - 1) / cpb;
-  const long long n_blocks = (long long)n_groups * ((Ni + kImgs - 1) / kImgs);
-  if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  // the Grams of a group: cpb * L^2 <= 128 L floats, 64 KB at L = 128
-  const int smem = (gram_offset_floats<T>() + cpb * L * L) * 4;
-  const cudaError_t err = cudaFuncSetAttribute(
-      xattn_i2t_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  xattn_i2t_kernel<T><<<(unsigned)n_blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(img), static_cast<const T*>(cap),
-      static_cast<const float*>(imn), static_cast<const float*>(mask),
-      static_cast<const float*>(gram), static_cast<float*>(out), Ni, Nc, L, D, cpb,
-      n_groups, lambda_lse, lambda_softmax, agg_mean);
-  return (int)cudaGetLastError();
+int run(const void* img, const void* cap, const void* imn, const void* mask, const void* gram,
+        void* out, int Ni, int Nc, int L, int D, float lambda_lse, float lambda_softmax,
+        int agg_mean, int device, cudaStream_t stream) {
+  return launch<T>(xattn_i2t_kernel<T>, [](const Plan& pl) { return Epi::floats(pl) * 4; }, img, cap, Ni, Nc, L,
+                   D, device, stream, static_cast<const float*>(imn),
+                   static_cast<const float*>(mask), static_cast<const float*>(gram),
+                   static_cast<float*>(out), lambda_lse, lambda_softmax, agg_mean);
 }
 
 }  // namespace
 
 extern "C" {
 
-// img (Ni, 36, D) and cap (Nc, L, D) both fp32 or both bf16 (bf16 != 0; then
-// D % 8 == 0 and both 16-byte aligned), captions zero at padded words; imn
-// (Ni, 36) fp32 region norms; mask (Nc, L) fp32; gram (Nc, L, L) fp32 word
-// Grams of the zeroed captions; out (Ni, Nc) fp32.  One launch on `stream` of
-// CUDA device `device`; returns cudaGetLastError().  1 <= L <= 128.
+// bf16 != 0: img (Ni, 36, D) and cap (Nc, L, D) bf16; else both fp64 copies
+// of the fp32 embeddings.  Rows 16-byte strided and aligned, captions zero
+// at padded words, L a multiple of 8 in [8, 128]; imn (Ni, 36) fp32 region norms;
+// mask (Nc, L) fp32; gram (Nc, L, L) fp32 word Grams of the zeroed captions;
+// out (Ni, Nc) fp32.  One launch on `stream` of CUDA device `device`;
+// returns a CUDA error code (cudaGetLastError() after the launch).
 int itrx_xattn_i2t(const void* img, const void* cap, const void* imn, const void* mask,
                    const void* gram, void* out, int Ni, int Nc, int L, int D, int bf16,
                    float lambda_lse, float lambda_softmax, int agg_mean, int device,
@@ -181,10 +269,10 @@ int itrx_xattn_i2t(const void* img, const void* cap, const void* imn, const void
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     return run<__nv_bfloat16>(img, cap, imn, mask, gram, out, Ni, Nc, L, D, lambda_lse,
-                              lambda_softmax, agg_mean, s);
+                              lambda_softmax, agg_mean, device, s);
   }
-  return run<float>(img, cap, imn, mask, gram, out, Ni, Nc, L, D, lambda_lse,
-                    lambda_softmax, agg_mean, s);
+  return run<float>(img, cap, imn, mask, gram, out, Ni, Nc, L, D, lambda_lse, lambda_softmax,
+                    agg_mean, device, s);
 }
 
 const char* itrx_cuda_error_string(int code) {

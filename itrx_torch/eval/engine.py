@@ -102,26 +102,32 @@ def length_buckets(cap_mask: torch.Tensor, max_len: int):
     return buckets
 
 
-def _cal_sims_tiled(model, img_embs, cap_embs):
+def _cal_sims_tiled(model, img_embs, cap_embs, img_tile: int | None = None,
+                    cap_tile: int | None = None):
     """The (Ni, Nc) fp32 grid of `model.similarity` on sentence-level
-    embeddings (no mask), over tiles of IMG_TILE images x CAP_TILE captions:
-    the unbucketed path of itrx/eval/engine.py::_cal_sims_tiled."""
+    embeddings (no mask), over tiles of `img_tile` images x `cap_tile`
+    captions (IMG_TILE and CAP_TILE when None): the unbucketed path of
+    itrx/eval/engine.py::_cal_sims_tiled."""
+    img_tile = img_tile or IMG_TILE
+    cap_tile = cap_tile or CAP_TILE
     ni, nc = img_embs.shape[0], cap_embs.shape[0]
     sims = torch.zeros(ni, nc, dtype=torch.float32, device=img_embs.device)
-    for i0 in range(0, ni, IMG_TILE):
-        for j0 in range(0, nc, CAP_TILE):
-            sims[i0:i0 + IMG_TILE, j0:j0 + CAP_TILE] = model.similarity(
-                img_embs[i0:i0 + IMG_TILE], cap_embs[j0:j0 + CAP_TILE], None, train=False)
+    for i0 in range(0, ni, img_tile):
+        for j0 in range(0, nc, cap_tile):
+            sims[i0:i0 + img_tile, j0:j0 + cap_tile] = model.similarity(
+                img_embs[i0:i0 + img_tile], cap_embs[j0:j0 + cap_tile], None, train=False)
     return sims
 
 
 @torch.no_grad()
 def cal_sims(model, img_embs, cap_embs, cap_mask=None,
-             compute_dtype: torch.dtype | None = None, verbose: bool = True):
+             compute_dtype: torch.dtype | None = None, verbose: bool = True,
+             img_tile: int | None = None, cap_tile: int | None = None):
     """The (Ni, Nc) fp32 similarity grid.
 
     Sentence-level (2-D) caption embeddings (VSRN; no mask) go through
-    `_cal_sims_tiled`.  Per-word (3-D) captions are sorted into length
+    `_cal_sims_tiled` with tiles of `img_tile` x `cap_tile` (a config's
+    `eval_img_tile` / `eval_cap_tile`).  Per-word (3-D) captions are sorted into length
     buckets, each trimmed to its own word bound (the similarity cost is
     linear in it), scored, and scattered back to their columns.  With fewer than 64 captions everything is one bucket
     at full length.  On the kernel path each bucket is one launch; on the
@@ -133,7 +139,7 @@ def cal_sims(model, img_embs, cap_embs, cap_mask=None,
         img_embs = img_embs.to(compute_dtype)
         cap_embs = cap_embs.to(compute_dtype)
     if cap_embs.dim() != 3:
-        sims = _cal_sims_tiled(model, img_embs, cap_embs)
+        sims = _cal_sims_tiled(model, img_embs, cap_embs, img_tile, cap_tile)
         _report(sims, t0, verbose)
         return sims
     ni, r = img_embs.shape[:2]
@@ -183,7 +189,9 @@ def _grid(model, enc: dict, config: dict, im_div: int, sl: slice = slice(None)):
     im_div-th image row against every caption."""
     mask = enc["cap_mask"][sl] if "cap_mask" in enc else None
     return cal_sims(model, enc["img"][sl][::im_div], enc["cap"][sl], mask,
-                    compute_dtype=_eval_dtypes(config)[1])
+                    compute_dtype=_eval_dtypes(config)[1],
+                    img_tile=config.get("eval_img_tile"),
+                    cap_tile=config.get("eval_cap_tile"))
 
 
 def _fold5(grid_of) -> dict:

@@ -93,6 +93,7 @@ def get_model(config: dict, device=None, generator: torch.Generator | None = Non
         lambda_softmax=config["lambda_softmax"],
         margin=config["margin"],
         max_violation=config["max_violation"],
+        use_fused_eval=config.get("use_fused_eval", True),
         generator=generator,
     )
     return model.to(device).eval()

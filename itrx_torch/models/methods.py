@@ -34,7 +34,7 @@ class SCAN(nn.Module):
                  raw_feature_norm: str = "clipped_l2norm", agg_func: str = "LogSumExp",
                  lambda_lse: float = 6.0, lambda_softmax: float = 9.0,
                  margin: float = 0.2, max_violation: bool = False,
-                 generator: torch.Generator | None = None):
+                 use_fused_eval: bool = True, generator: torch.Generator | None = None):
         super().__init__()
         if cross_attn not in ("t2i", "i2t"):
             raise ValueError(f"SCAN cross_attn must be 't2i' or 'i2t', got {cross_attn!r}")
@@ -45,6 +45,7 @@ class SCAN(nn.Module):
         self.lambda_softmax = lambda_softmax
         self.margin = margin
         self.max_violation = max_violation
+        self.use_fused_eval = use_fused_eval
         self.img_enc = EncoderImagePrecomp(img_dim, embed_size, no_imgnorm, generator)
         self.txt_enc = EncoderText(vocab_size, word_dim, embed_size,
                                    use_bi_gru=bi_gru, no_txtnorm=no_txtnorm,
@@ -62,10 +63,12 @@ class SCAN(nn.Module):
         """True when `similarity` on tensors of `device` runs a CUDA kernel:
         evaluation (`not train`; the kernels have no backward) of the
         published t2i and i2t variants (clipped_l2norm with LogSumExp or
-        Mean) on a CUDA device.  Other variants, and training, take the plain path, as
-        the JAX package sends them to its XLA path."""
+        Mean) on a CUDA device, unless `use_fused_eval` is off.  Other
+        variants, and training, take the plain path, as the JAX package sends
+        them to its XLA path."""
         return (
-            not train
+            self.use_fused_eval
+            and not train
             and torch.device(device).type == "cuda"
             and self.raw_feature_norm == "clipped_l2norm"
             and self.agg_func in ("LogSumExp", "Mean")

@@ -7,17 +7,20 @@ Replace the TPU kernels itrx/ops/pallas/xattn.py::_kernel and ::_kernel_i2t
 with LogSumExp or Mean, the published SCAN t-i and i-t variants.  What
 bounds them on an H100: the raw dot product A = img . cap^T (36 x L x D
 multiply-adds per pair) dominates, and the (Ni, Nc, 36, L) A tensor must
-never reach device memory.  Both kernels form the A tiles of two images
-against a group of whole captions in shared memory (on the tensor cores for
-bf16 inputs, with fp32 FMAs for fp32 inputs) and run the whole chain there
-in fp32 (see the headers of the sources).
+never reach device memory.  Both kernels form A for tiles of up to 128
+words of whole captions x 6 (bf16) or 4 (fp32) whole images from a TMA
+ring, in a persistent grid (csrc/xattn_wgmma.cuh: bf16 on wgmma, fp32 as
+exact fp64 tensor-core products of the fp32 values), and run the chain on
+the accumulators in fp32 (see the headers of the sources).
 
 As in the TPU wrappers, small things are precomputed here: for t2i the
 per-image region Gram (fp32), the fp32 word norms and the masked captions;
 for i2t the per-caption (L, L) word Gram of the masked captions (fp32), the
-fp32 region norms and the masked captions.  The TPU layout workarounds
-(block-diagonal Grams, 36 -> 40 region pad, 0/1 group matrices, padded
-captions) are not carried over: the kernels mask their own ragged edges.
+fp32 region norms and the masked captions.  Here too: captions padded to a
+multiple of 8 words (masked zero words, which change no score), and for
+fp32 inputs fp64 copies of both embeddings (exact).  The TPU
+layout workarounds (block-diagonal Grams, 36 -> 40 region pad, 0/1 group
+matrices) are not carried over: the kernels mask their own ragged edges.
 The plain versions are `xattn_t2i_plain` / `xattn_i2t_plain`; they run only
 for CPU tensors.
 """
@@ -25,6 +28,7 @@ for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -48,28 +52,50 @@ def xattn_t2i_plain(images, captions, cap_mask, *, lambda_lse: float = 6.0,
 
 
 def _launch(direction: str, counted, images, capz, norm, mask, gram, lambda_lse,
-            lambda_softmax, agg_mean: bool):
+            lambda_softmax, agg_mean: bool, defines: tuple = ()):
     """Launch `itrx_xattn_{direction}` of library `xattn` (t2i) or
     `xattn_i2t` (i2t) and add one to `counted.launches`.  `norm` is the fp32
     word norms (t2i) or region norms (i2t); `gram` the fp32 region Grams
-    (t2i) or word Grams (i2t)."""
+    (t2i) or word Grams (i2t); the word axis a multiple of 8.  `defines`
+    builds a variant of the kernel (the phase timer's cuts)."""
     ni, _, d = images.shape
     nc, l, _ = capz.shape
-    lib = load("xattn" if direction == "t2i" else "xattn_i2t")
-    fn = getattr(lib, f"itrx_xattn_{direction}")
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
-        + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    bf16 = images.dtype == torch.bfloat16
+    if not bf16:  # fp32 embeddings: the fp64 tensor-core product reads fp64 copies
+        images, capz = images.double(), capz.double()
+    lib = load("xattn" if direction == "t2i" else "xattn_i2t", tuple(defines))
+    fn = _entry(lib, f"itrx_xattn_{direction}")
     out = torch.empty(ni, nc, dtype=torch.float32, device=images.device)
     code = fn(
-        ptr(images), ptr(capz), ptr(norm), ptr(mask), ptr(gram), ptr(out),
-        ni, nc, l, d, int(images.dtype == torch.bfloat16),
+        ptr(images), ptr(capz), ptr(norm), ptr(mask), ptr(gram), ptr(out), ni, nc, l, d,
+        int(bf16),
         float(lambda_lse), float(lambda_softmax), int(agg_mean),
         images.device.index, current_stream(images.device),
     )
     check(lib, f"xattn_{direction}_kernel", code)
     counted.launches += 1
     return out
+
+
+@functools.cache
+def _entry(lib: ctypes.CDLL, name: str):
+    """The C entry `name` of a loaded library, its argument types set once."""
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+        + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def plan(ni: int, nc: int, l: int, dtype) -> dict:
+    """The kernels' work units at a shape, as csrc/xattn_wgmma.cuh cuts
+    them: `units` (tiles of whole captions, at most 128 words of the word
+    axis padded to a multiple of 8, x 6 images for bf16 or 4 for fp32) and
+    `slots` (tiles in flight at once: one block an SM, persistent)."""
+    l8 = -(-l // 8) * 8
+    k = 6 if dtype == torch.bfloat16 else 4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"units": -(-nc // (128 // l8)) * -(-ni // k), "slots": sms}
 
 
 def _guard(name: str, images, captions, cap_mask, agg_func: str) -> str:
@@ -105,14 +131,24 @@ def _guard(name: str, images, captions, cap_mask, agg_func: str) -> str:
         raise ValueError(f"{name}: all tensors must be on one device")
     if images.dtype == torch.bfloat16 and d % 8:
         raise ValueError(f"{name}: bf16 inputs need D % 8 == 0, got {d}")
+    if images.dtype == torch.float32 and d % 2:
+        raise ValueError(f"{name}: fp32 inputs need D % 2 == 0 (the kernel's fp64 rows "
+                         f"must be 16-byte strided for TMA), got {d}")
     return "cuda"
 
 
 def _masked(images, captions, cap_mask):
     """(contiguous images, captions zeroed at pads, fp32 mask), 16-byte
-    aligned as the kernels read them."""
-    mask = cap_mask.float().contiguous()
-    capz = (captions * mask[..., None].to(captions.dtype)).contiguous()
+    aligned as the kernels read them, the word axis padded with masked zero
+    words to a multiple of 8 (a tile holds whole 8-row groups of a
+    caption)."""
+    pad = -captions.shape[1] % 8
+    mask = cap_mask.float()
+    capz = captions * mask[..., None].to(captions.dtype)
+    if pad:
+        mask = torch.nn.functional.pad(mask, (0, pad))
+        capz = torch.nn.functional.pad(capz, (0, 0, 0, pad))
+    mask, capz = mask.contiguous(), capz.contiguous()
     images = images.contiguous()
     if images.data_ptr() % 16 or capz.data_ptr() % 16:
         raise ValueError("xattn: inputs must be 16-byte aligned")
@@ -132,14 +168,18 @@ def xattn_t2i_fused(images, captions, cap_mask, *, lambda_lse: float = 6.0,
             images, captions, cap_mask, lambda_lse=lambda_lse,
             lambda_softmax=lambda_softmax, agg_func=agg_func,
         )
+    return _launch("t2i", xattn_t2i_fused, *t2i_operands(images, captions, cap_mask),
+                   lambda_lse, lambda_softmax, agg_func == "Mean")
+
+
+def t2i_operands(images, captions, cap_mask) -> tuple:
+    """What the t2i kernel reads: (images, masked captions, fp32 word norms,
+    fp32 mask, fp32 region Grams (Ni, 36, 36))."""
     images, capz, mask = _masked(images, captions, cap_mask)
-    cap_norm = torch.sqrt(torch.sum(capz.float() ** 2, dim=-1)).contiguous()
+    cap_norm = torch.linalg.vector_norm(capz, dim=-1, dtype=torch.float32)
     im32 = images.float()
     gram = torch.matmul(im32, im32.transpose(1, 2)).contiguous()  # (Ni, 36, 36)
-    return _launch(
-        "t2i", xattn_t2i_fused, images, capz, cap_norm, mask, gram, lambda_lse,
-        lambda_softmax, agg_func == "Mean",
-    )
+    return images, capz, cap_norm, mask, gram
 
 
 def xattn_i2t_plain(images, captions, cap_mask, *, lambda_lse: float = 6.0,
@@ -165,14 +205,18 @@ def xattn_i2t_fused(images, captions, cap_mask, *, lambda_lse: float = 6.0,
             images, captions, cap_mask, lambda_lse=lambda_lse,
             lambda_softmax=lambda_softmax, agg_func=agg_func,
         )
+    return _launch("i2t", xattn_i2t_fused, *i2t_operands(images, captions, cap_mask),
+                   lambda_lse, lambda_softmax, agg_func == "Mean")
+
+
+def i2t_operands(images, captions, cap_mask) -> tuple:
+    """What the i2t kernel reads: (images, masked captions, fp32 region
+    norms, fp32 mask, fp32 word Grams (Nc, L, L))."""
     images, capz, mask = _masked(images, captions, cap_mask)
-    im_norm = torch.sqrt(torch.sum(images.float() ** 2, dim=-1)).contiguous()  # (Ni, 36)
+    im_norm = torch.linalg.vector_norm(images, dim=-1, dtype=torch.float32)  # (Ni, 36)
     cap32 = capz.float()
     gram = torch.matmul(cap32, cap32.transpose(1, 2)).contiguous()  # (Nc, L, L)
-    return _launch(
-        "i2t", xattn_i2t_fused, images, capz, im_norm, mask, gram, lambda_lse,
-        lambda_softmax, agg_func == "Mean",
-    )
+    return images, capz, im_norm, mask, gram
 
 
 # kernel launches since the last reset

@@ -274,21 +274,46 @@ def test_agsa_attn_bwd_source_exists():
 
 
 def test_xattn_i2t_source_exists():
+    """Both SCAN kernels include the wgmma product (xattn_wgmma.cuh), not
+    the SGRAF kernels' older A product, and neither keeps wmma or the fp32
+    FMA product loop."""
     src = kernels.CSRC / xattn.I2T_SOURCE
     assert "int itrx_xattn_i2t(" in src.read_text()
-    assert '#include "xattn_product.cuh"' in src.read_text()
+    for name in (xattn.SOURCE, xattn.I2T_SOURCE):
+        text = (kernels.CSRC / name).read_text()
+        assert '#include "xattn_wgmma.cuh"' in text
+        assert "xattn_product.cuh" not in text
+    header = (kernels.CSRC / "xattn_wgmma.cuh").read_text()
+    assert "wgmma.mma_async" in header and "cp.async.bulk.tensor" in header
+    assert "wmma::" not in header and "product_fma" not in header
 
 
 def test_kernel_build_tracks_the_shared_header(tmp_path, monkeypatch):
     """The library name hashes the shared headers too, so an edited header
     rebuilds both xattn kernels."""
-    for name in ("xattn.cu", "xattn_i2t.cu", "xattn_product.cuh"):
+    for name in ("xattn.cu", "xattn_i2t.cu", "xattn_wgmma.cuh"):
         (tmp_path / name).write_text((kernels.CSRC / name).read_text())
     monkeypatch.setattr(kernels, "CSRC", tmp_path)
     before = [kernels.library_path(n) for n in ("xattn", "xattn_i2t")]
-    (tmp_path / "xattn_product.cuh").write_text("// edited\n")
+    (tmp_path / "xattn_wgmma.cuh").write_text("// edited\n")
     after = [kernels.library_path(n) for n in ("xattn", "xattn_i2t")]
     assert all(a != b for a, b in zip(before, after))
+
+
+@pytest.mark.parametrize("direction", ["t2i", "i2t"])
+def test_xattn_guard_refuses_fp32_rows_tma_cannot_stride(direction):
+    """The kernels read their rows by TMA (16-byte strides), fp32 inputs as
+    fp64 copies: an fp32 call with an odd D raises in the guard, without a
+    launch; an even D and any word count in [1, 128] (padded to a multiple
+    of 8) pass it."""
+    fused = xattn.xattn_t2i_fused if direction == "t2i" else xattn.xattn_i2t_fused
+    before = fused.launches
+    with pytest.raises(ValueError, match="D % 2"):
+        fused(_CudaStandIn(2, 36, 9), _CudaStandIn(3, 5, 9), _CudaStandIn(3, 5))
+    assert fused.launches == before
+    for l in (1, 21, 128):
+        assert xattn._guard("xattn", _CudaStandIn(2, 36, 10), _CudaStandIn(3, l, 10),
+                            _CudaStandIn(3, l), "Mean") == "cuda"
 
 
 def _saf_args(dev="cpu", ni=2, nc=3, l=5, d=8, s=4, **kw):
@@ -981,3 +1006,46 @@ def test_camera_evaluation_reaches_the_agsa_wrapper_in_both_towers(monkeypatch, 
         plain = layer(x)
     assert calls == [False, False, False]
     torch.testing.assert_close(plain, want, rtol=1e-5, atol=1e-6)
+
+
+def test_use_fused_eval_off_sends_scan_evaluation_to_the_plain_grid():
+    """`use_fused_eval=False` reaches SCAN through get_model and keeps CUDA
+    evaluation off the kernels, in both directions, as itrx's SCAN does."""
+    for direction in ("t2i", "i2t"):
+        assert _scan(cross_attn=direction, agg_func="Mean").use_fused_eval
+        off = _scan(cross_attn=direction, agg_func="Mean", use_fused_eval=False)
+        assert off.use_fused_eval is False
+        assert not off.fused_eval_active(torch.device("cuda", 0))
+        assert not off.fused_eval_active("cuda", train=False)
+
+
+class _SentenceModel:
+    """A sentence-level model for the engine's tiled grid: counts its
+    `similarity` calls, each one image tile x one caption tile."""
+
+    def __init__(self):
+        self.calls = []
+
+    def fused_eval_active(self, device, train=False):
+        return False
+
+    def similarity(self, img, cap, cap_mask, train=False):
+        self.calls.append((img.shape[0], cap.shape[0]))
+        return img @ cap.t()
+
+
+def test_eval_tile_keys_reach_the_tiled_grid():
+    """A config's eval_img_tile / eval_cap_tile set the tiles of
+    `_cal_sims_tiled` through `_grid` (as itrx's cal_sims reads them), and
+    the grid equals the one of the default tiles."""
+    g = torch.Generator().manual_seed(3)
+    # small integers: every sum exact, whatever order a tile's product takes
+    enc = {k: torch.randint(-4, 5, (14, 6), generator=g).float() for k in ("img", "cap")}
+    default = _SentenceModel()
+    want = engine._grid(default, enc, {}, 1)
+    assert default.calls == [(14, 14)]
+    tiled = _SentenceModel()
+    got = engine._grid(tiled, enc, {"eval_img_tile": 4, "eval_cap_tile": 5}, 1)
+    assert len(tiled.calls) == 4 * 3
+    assert max(tiled.calls) == (4, 5) and min(tiled.calls) == (2, 4)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
