@@ -62,10 +62,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    of the bound, and one call of each under
    torch.cuda.set_sync_debug_mode("error"); CAMERA's AGSA gated attention kernels to
    `agsa_attention_plain` and `agsa_attention_bwd_plain` (all eleven
-   cotangents, two backward calls bit-identical) at both towers' calls on
-   the evaluation and training paths (128 x 64 heads x 36 regions or 32
-   BERT slots x d_k 32), at a ragged odd shape and at the largest shape
-   their limits allow (N 64, d_k 128), bf16 and fp32; and the GRU kernels
+   cotangents, two forward and two backward calls bit-identical) at both
+   towers' calls on the evaluation and training paths (128 x 64 heads x 36
+   regions or 32 BERT slots x d_k 32), at B 129 (not a multiple of the
+   kernels' persistent grid), at a ragged odd shape and at the largest shape
+   their limits allow (N 64, d_k 128), bf16 and fp32, with each launch plan
+   and SDPA on the gated image-tower qm, km as a yardstick of the attention
+   half alone; and the GRU kernels
    at VSRN's text width (H 2048, 61 steps, fp32: the streamed route)
    against autograd through the plain GRU, timed beside cuDNN;
 4. the evaluation slices at full width on an f30k-1K-shaped synthetic split
@@ -185,8 +188,10 @@ from itrx_torch.ops.kernels import gru as kgru
 from itrx_torch.ops.kernels.gru import gru_bwd_fused, gru_scan_fused
 from itrx_torch.ops.kernels import sgraf_eval as ksgraf_eval
 from itrx_torch.ops.kernels import vsrn_dec as kvsrn
+from itrx_torch.ops.kernels.agsa_attn import _chain as agsa_chain
 from itrx_torch.ops.kernels.agsa_attn import (agsa_attention_bwd_fused, agsa_attention_bwd_plain,
                                               agsa_attention_fused, agsa_attention_plain)
+from itrx_torch.ops.kernels.agsa_attn import plan as agsa_plan
 from itrx_torch.ops.kernels.sgr import (card_plan, edge_blocks, edge_bounds, row_list,
                                         sgr_reason_bwd_fused, sgr_reason_bwd_plain,
                                         sgr_reason_fused, sgr_reason_fwd_fused,
@@ -367,6 +372,14 @@ AGSA_BWD_NAMES = ("dq", "dk", "dv", "dWq", "dbq", "dWk", "dbk", "dWg1", "dbg1", 
 # BERT slots, embed 2048), a ragged odd shape and the largest shape the
 # limits allow
 AGSA_SHAPES = ((128, 64, 36, 32), (128, 64, 32, 32), (5, 3, 7, 8), (4, 2, 64, 128))
+# the image tower's call at a batch whose heads (129 x 64) are not a multiple
+# of the kernels' persistent grid (a block walks heads grid apart)
+AGSA_RAGGED_GRID = (129, 64, 36, 32)
+# the PR 11-12 designs (fp32 FMAs, one output element a thread; the
+# backward three launches with a 75 MB workspace) at the towers' calls, ms
+# image / text (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+AGSA_FMA_MS = {"fwd_bfloat16": (0.882, 0.728), "fwd_float32": (1.015, 0.771),
+               "bwd_float32": (2.674, 2.087), "bwd_bfloat16": (2.845, 2.258)}
 # the CAMERA slice's first witness: an fp32 encode through the kernel vs the
 # same encode through agsa_attention_plain on the card (unit-norm
 # embeddings; the two differ by fp32 summation order in the attention)
@@ -2458,34 +2471,37 @@ def _agsa_inputs(g, b, h, n, dk):
     return [t.to(DEV) for t in qkv + [w for _ in range(4) for w in (u(dk, dk), u(dk))]]
 
 
-def agsa_bound(args) -> dict:
+def agsa_bound(args, fma: bool = False) -> dict:
     """The bound of one call: q, k, v, the weights and biases read once and
     the output written once, against the products (four (N, d_k) x (d_k,
     d_k) gate products and the two (N, N, d_k) attention products a head) at
-    the peak of the inputs' type."""
+    the tensor-core peak of the inputs' type (fp32 products at the TF32
+    peak, as the kernels run them; `fma`: at the fp32 FMA peak, the PR 11-12
+    convention)."""
     q = args[0]
     b, n, d = q.shape
     dk = args[3].shape[0]
     heads = b * d // dk
     ops = heads * (8 * n * dk * dk + 4 * n * n * dk)
-    kind = "bf16" if q.dtype == torch.bfloat16 else "fp32"
+    kind = "bf16" if q.dtype == torch.bfloat16 else "fp32" if fma else "tf32"
     return bound(nbytes(*args) + nbytes(q), {kind: ops})
 
 
-def agsa_bwd_bound(args, g_out) -> dict:
+def agsa_bwd_bound(args, g_out, fma: bool = False) -> dict:
     """The bound of one backward call: q, k, v, g_out, the weights and
     biases read once, dq, dk, dv and the eight weight cotangents written
     once, against the recomputed forward up to the scores (the four gate
     products and q k^T: 8 N d_k^2 + 2 N^2 d_k a head; the backward needs no
     p v) and the adjoints (the four (N, N, d_k) attention products, the two
     gate products g W, the two dq / dk products and the four weight sums:
-    16 N d_k^2 + 8 N^2 d_k a head) at the peak of the inputs' type."""
+    16 N d_k^2 + 8 N^2 d_k a head) at the tensor-core peak of the inputs'
+    type (fp32 at the TF32 peak; `fma`: at the fp32 FMA peak)."""
     q = args[0]
     b, n, d = q.shape
     dk = args[3].shape[0]
     heads = b * d // dk
     ops = heads * (24 * n * dk * dk + 10 * n * n * dk)
-    kind = "bf16" if q.dtype == torch.bfloat16 else "fp32"
+    kind = "bf16" if q.dtype == torch.bfloat16 else "fp32" if fma else "tf32"
     return bound(nbytes(*args, g_out) + 3 * nbytes(q) + 4 * (4 * dk * dk + 4 * dk), {kind: ops})
 
 
@@ -2520,15 +2536,52 @@ def _agsa_bwd_check(tag, args, g_out, h, limit) -> tuple:
     return max(rels), max(abss), got
 
 
+def cuda_ms_spread(fn, runs: int = 5, reps: int = 20) -> tuple:
+    """(median, least, most) mean milliseconds a call over `runs` runs of
+    `reps` calls each (CUDA events), after one warm-up run."""
+    times = [cuda_ms(fn, reps=reps, warmup=3 if i == 0 else 0) for i in range(runs)]
+    return statistics.median(times), min(times), max(times)
+
+
+def _agsa_check(tag, args, g_out, h, limit, bwd_limit) -> tuple:
+    """The forward kernel vs agsa_attention_plain within `limit` of scale,
+    two forward calls bit-identical and the plain output with fc_g's halves
+    swapped outside the limit; then the backward (`_agsa_bwd_check`).
+    Returns (the forward's relative error, its largest absolute error, the
+    backward's relative and absolute errors)."""
+    dt = args[0].dtype
+    with torch.no_grad():
+        got = agsa_attention_fused(*args, h)
+        again = agsa_attention_fused(*args, h)
+        want = agsa_attention_plain(*args, h)
+        swapped = args[:7] + [args[9], args[10], args[7], args[8]]
+        wrong = rel_err(agsa_attention_plain(*swapped, h).float(), want.float())
+    if got.dtype != dt:
+        raise AssertionError(f"{tag}: output dtype {got.dtype}")
+    err = check_rel(tag, got, want, limit)
+    if not torch.equal(got, again):
+        raise AssertionError(f"{tag}: two forward calls differ")
+    log(f"  {tag}: two forward calls bit-identical; the plain output with fc_g's halves "
+        f"swapped: {wrong:.3e}")
+    if not wrong > limit:
+        raise AssertionError(f"the limit {limit} does not separate swapped gate halves ({wrong})")
+    bwd_tag = tag.replace("agsa_attn", "agsa_attn_bwd")
+    bwd_rel, bwd_abs, _ = _agsa_bwd_check(bwd_tag, args, g_out, h, bwd_limit)
+    return err, float((got.float() - want.float()).abs().max()), bwd_rel, bwd_abs
+
+
 def phase_agsa(g) -> dict:
     """CAMERA's gated attention kernels (forward, and backward) vs
     agsa_attention_plain and agsa_attention_bwd_plain on the card, fp32 and
     bf16: the image and text towers' calls (128 x 64 heads x 36 or 32 x
-    d_k 32), a ragged odd shape and the largest the limits allow; then the
-    times and bounds at the towers' shapes."""
+    d_k 32), the image tower's at B 129, a ragged odd shape and the largest
+    the limits allow; then the plans, times (median of 5 with the spread)
+    and bounds at the towers' shapes, and SDPA on the image tower's gated
+    qm, km and v as a yardstick of the attention half alone."""
     log("agsa_attn gated attention kernels (forward and backward) vs plain (fp32 and bf16)")
     res = {}
-    for b, h, n, dk in AGSA_SHAPES:
+    shapes = AGSA_SHAPES[:1] + (AGSA_RAGGED_GRID,) + AGSA_SHAPES[1:]
+    for b, h, n, dk in shapes:
         x32 = _agsa_inputs(g, b, h, n, dk)
         g32 = torch.randn(b, n, h * dk, generator=g).to(DEV)
         for dt, limit, bwd_limit in ((torch.float32, AGSA_FP32_REL, AGSA_BWD_REL),
@@ -2537,43 +2590,54 @@ def phase_agsa(g) -> dict:
             # parameters (the wrappers read the biases in fp32)
             args = [t.to(dt) for t in x32]
             g_out = g32.to(dt)
-            tag = f"agsa_attn B {b} x h {h} x N {n} x d_k {dk} {str(dt)[6:]}"
+            mode = str(dt)[6:]
+            tag = f"agsa_attn B {b} x h {h} x N {n} x d_k {dk} {mode}"
+            err, abs_err, bwd_rel, bwd_abs = _agsa_check(tag, args, g_out, h, limit, bwd_limit)
+            if (b, h, n, dk) not in AGSA_SHAPES[:2]:
+                continue
+            tower = "img" if n == AGSA_SHAPES[0][2] else "txt"
+            key = f"{tower}_{mode}"
+            bf16 = dt == torch.bfloat16
+            # the forward and the bf16 backward keep the PR 11-12 design
+            # (csrc/agsa_attn_bwd.cu says why)
+            plans = {"fwd": "the PR 11 design",
+                     "bwd": "the PR 12 design" if bf16 else agsa_plan(b, n, h, dk, DEV.index)}
             with torch.no_grad():
-                got = agsa_attention_fused(*args, h)
-                want = agsa_attention_plain(*args, h)
-                swapped = args[:7] + [args[9], args[10], args[7], args[8]]
-                wrong = rel_err(agsa_attention_plain(*swapped, h).float(), want.float())
-            if got.dtype != dt:
-                raise AssertionError(f"{tag}: output dtype {got.dtype}")
-            err = check_rel(tag, got, want, limit)
-            log(f"  {tag}: the plain output with fc_g's halves swapped: {wrong:.3e}")
-            if not wrong > limit:
-                raise AssertionError(f"the limit {limit} does not separate swapped gate "
-                                     f"halves ({wrong})")
-            bwd_tag = tag.replace("agsa_attn", "agsa_attn_bwd")
-            bwd_rel, bwd_abs, _ = _agsa_bwd_check(bwd_tag, args, g_out, h, bwd_limit)
-            if (b, h, n, dk) in AGSA_SHAPES[:2]:
-                key = ("img" if n == AGSA_SHAPES[0][2] else "txt") + "_" + str(dt)[6:]
+                fwd = cuda_ms_spread(lambda: agsa_attention_fused(*args, h))
+                res[f"{key}_plain_ms"] = cuda_ms(lambda: agsa_attention_plain(*args, h), reps=5)
+                bwd = cuda_ms_spread(lambda: agsa_attention_bwd_fused(*args, g_out, h))
+                res[f"{key}_bwd_plain_ms"] = cuda_ms(
+                    lambda: agsa_attention_bwd_plain(*args, g_out, h), reps=5)
+            res[f"{key}_ms"], res[f"{key}_bwd_ms"] = fwd[0], bwd[0]
+            for pre, bd, old in (("", agsa_bound(args), agsa_bound(args, fma=True)),
+                                 ("bwd_", agsa_bwd_bound(args, g_out),
+                                  agsa_bwd_bound(args, g_out, fma=True))):
+                res[f"{key}_{pre}bound_ms"] = bd["bound_ms"]
+                res[f"{key}_{pre}bound_by"] = bd["bound_by"]
+                res[f"{key}_{pre}bound_fma_ms"] = old["bound_ms"]
+            res[f"{key}_max_abs_err"], res[f"{key}_rel_err"] = abs_err, err
+            res[f"{key}_bwd_max_abs_err"], res[f"{key}_bwd_rel_err"] = bwd_abs, bwd_rel
+            i = 0 if tower == "img" else 1
+            for pre, name, t in (("", "agsa_attn", fwd), ("bwd_", "agsa_attn_bwd", bwd)):
+                d = "fwd" if not pre else "bwd"
+                log(f"  time {tag.replace('agsa_attn', name)}: kernel{'s' if pre else ''} "
+                    f"{t[0]:.4f} ms ({t[1]:.4f}-{t[2]:.4f}; PR 11-12: "
+                    f"{AGSA_FMA_MS[f'{d}_{mode}'][i]:.3f}), plain "
+                    f"{res[f'{key}_{pre}plain_ms']:.4f} ms, bound "
+                    f"{res[f'{key}_{pre}bound_ms']:.4f} ms ({res[f'{key}_{pre}bound_by']}, "
+                    f"fp32 products at the TF32 peak; {res[f'{key}_{pre}bound_fma_ms']:.4f} at "
+                    f"the fp32 FMA peak), {100 * res[f'{key}_{pre}bound_ms'] / t[0]:.1f}% of it; "
+                    f"plan {plans[d]}")
+            if tower == "img":
+                # the attention half alone, on the gated qm and km the chain
+                # computes: the yardstick no call of the port makes
+                c = agsa_chain(*args, h)
+                qm, km, v = (c[x].to(dt) for x in ("qm", "km", "vh"))
+                sdpa = torch.nn.functional.scaled_dot_product_attention
                 with torch.no_grad():
-                    res[f"{key}_ms"] = cuda_ms(lambda: agsa_attention_fused(*args, h))
-                    res[f"{key}_plain_ms"] = cuda_ms(lambda: agsa_attention_plain(*args, h),
-                                                     reps=5)
-                    res[f"{key}_bwd_ms"] = cuda_ms(
-                        lambda: agsa_attention_bwd_fused(*args, g_out, h))
-                    res[f"{key}_bwd_plain_ms"] = cuda_ms(
-                        lambda: agsa_attention_bwd_plain(*args, g_out, h), reps=5)
-                for pre, bd in (("", agsa_bound(args)), ("bwd_", agsa_bwd_bound(args, g_out))):
-                    res[f"{key}_{pre}bound_ms"] = bd["bound_ms"]
-                    res[f"{key}_{pre}bound_by"] = bd["bound_by"]
-                res[f"{key}_max_abs_err"] = float((got.float() - want.float()).abs().max())
-                res[f"{key}_rel_err"] = err
-                res[f"{key}_bwd_max_abs_err"], res[f"{key}_bwd_rel_err"] = bwd_abs, bwd_rel
-                log(f"  time {tag}: kernel {res[f'{key}_ms']:.4f} ms, plain "
-                    f"{res[f'{key}_plain_ms']:.4f} ms, bound {res[f'{key}_bound_ms']:.4f} ms "
-                    f"({res[f'{key}_bound_by']})")
-                log(f"  time {bwd_tag}: kernels {res[f'{key}_bwd_ms']:.4f} ms, plain "
-                    f"{res[f'{key}_bwd_plain_ms']:.4f} ms, bound "
-                    f"{res[f'{key}_bwd_bound_ms']:.4f} ms ({res[f'{key}_bwd_bound_by']})")
+                    res[f"{key}_sdpa_ms"] = cuda_ms(lambda: sdpa(qm, km, v, scale=1.0))
+                log(f"  SDPA on the gated qm, km, v of {tag}: {res[f'{key}_sdpa_ms']:.4f} ms "
+                    f"(the attention half alone; not the gated function)")
     # the forward's row of the kernels line: the image tower's call in bf16,
     # the encode_bf16 main path's; the backward's: fp32, the training path's
     key = "img_bfloat16"

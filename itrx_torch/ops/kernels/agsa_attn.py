@@ -31,12 +31,18 @@ kernel.
 
 A CPU tensor takes the plain pair; a CUDA tensor (fp32 or bf16) launches
 the kernels or raises.  `itrx` sends only bf16 to its kernel; the port
-sends every CUDA call to it, fp32 too.
+sends every CUDA call to it, fp32 too.  The forward (both dtypes) and the
+bf16 backward are the PR 11-12 FMA design, whose forward agrees with
+agsa_attention_plain bit for bit; the fp32 backward (every CAMERA training
+step) runs every product on the tensor cores as three TF32 passes, one
+pass over the heads and an ordered reduction (csrc/agsa_attn_bwd.cu says
+why the forward stays).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -47,8 +53,8 @@ SOURCE = "agsa_attn.cu"
 BWD_SOURCE = "agsa_attn_bwd.cu"
 MAX_N = 64
 MAX_DK = 128
-# the most blocks of the backward's gate pass an SM holds: 2048 threads over
-# its 256-thread blocks
+# the most blocks of the bf16 backward's gate pass an SM holds: 2048 threads
+# over its 256-thread blocks
 SLOTS_PER_SM = 8
 
 
@@ -191,11 +197,32 @@ def _guard(name, q, k, v, weights, heads: int, g_out=None) -> str:
     return "cuda"
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data does not start on 16 bytes (the
+    kernels stage rows with 16-byte copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _kernel_weights(weights, dt):
     """Weights in the activation dtype, biases fp32, as the TPU wrapper passes
     them."""
-    return [w.detach().to(dt).contiguous() if i % 2 == 0 else w.detach().float().contiguous()
-            for i, w in enumerate(weights)]
+    return [_aligned(w.detach().to(dt).contiguous() if i % 2 == 0
+                     else w.detach().float().contiguous()) for i, w in enumerate(weights)]
+
+
+@functools.cache
+def plan(b: int, n: int, heads: int, d_k: int, device: int, defines: tuple = ()) -> dict:
+    """The launch the fp32 backward's head pass makes for these sizes, as
+    the kernel plans it: the persistent grid (also the number of slots of
+    weight-sum partials it writes), the staging ring's stages (1 or 2), the
+    blocks an SM holds and the shared bytes a block uses."""
+    lib = load("agsa_attn_bwd", defines)
+    fn = lib.itrx_agsa_bwd_plan
+    out = (ctypes.c_int * 4)()
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    check(lib, "agsa_attn_bwd plan", fn(b, n, heads, d_k, 1 << 30, device, out))
+    return dict(zip(("grid", "stages", "blocks_per_sm", "smem_bytes"), out))
 
 
 def _launch_fwd(q, k, v, weights, heads: int):
@@ -216,31 +243,37 @@ def _launch_fwd(q, k, v, weights, heads: int):
     return out
 
 
-def _launch_bwd(q, k, v, weights, g_out, heads: int):
+def _launch_bwd(q, k, v, weights, g_out, heads: int, defines: tuple = ()):
     b, n, d = q.shape
     d_k = d // heads
     dt, dev = q.dtype, q.device
-    lib = load("agsa_attn_bwd")
+    bf16 = dt == torch.bfloat16
+    lib = load("agsa_attn_bwd", defines)
     # every temporary is held by a name until the launches are queued
-    ins = [t.detach().contiguous() for t in (q, k, v, g_out)]
+    ins = [_aligned(t.detach().contiguous()) for t in (q, k, v, g_out)]
     ws = _kernel_weights(weights, dt)
     grads = [torch.empty(b, n, d, dtype=dt, device=dev) for _ in range(3)]
     f32 = dict(dtype=torch.float32, device=dev)
-    # dWq, dWk, dWg1, dWg2 (d_k, d_k) then dbq, dbk, dbg1, dbg2 (d_k), fp32
+    # dWq, dWk, dWg1, dWg2 (d_k, d_k) then dbq, dbk, dbg1, dbg2 (d_k), fp32;
+    # one slot of their partial sums per block, summed in order by the last
+    # launch.  fp32: a slot per block of the head pass.  bf16 (the PR 12
+    # design): g_qm and g_km (B, N, h d_k) fp32 between its passes, and slots
+    # for the most gate-pass blocks the SMs hold
     dw = torch.empty(4 * d_k * d_k + 4 * d_k, **f32)
-    # g_qm and g_km (B, N, h d_k) fp32 between the passes; one partial of the
-    # weight sums per block of the gate pass, summed in order by the last.
-    # The gate pass keeps one wave of blocks resident, so slots for the most
-    # an SM can hold (SLOTS_PER_SM) never limit it
-    work = torch.empty(2, b, n, d, **f32)
-    slots = torch.cuda.get_device_properties(dev).multi_processor_count * SLOTS_PER_SM
+    if bf16:
+        work = torch.empty(2, b, n, d, **f32)
+        slots = torch.cuda.get_device_properties(dev).multi_processor_count * SLOTS_PER_SM
+        gqm, gkm = ptr(work[0]), ptr(work[1])
+    else:
+        slots = plan(b, n, heads, d_k, dev.index, defines)["grid"]
+        gqm = gkm = ctypes.c_void_p(None)
     part = torch.empty(slots, dw.numel(), **f32)
     fn = lib.itrx_agsa_bwd
     fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     code = fn(*(ptr(t) for t in ins), *(ptr(w) for w in ws), *(ptr(t) for t in grads),
-              ptr(dw), ptr(work[0]), ptr(work[1]), ptr(part), b, n, heads, d_k, slots,
-              int(dt == torch.bfloat16), dev.index, current_stream(dev))
+              ptr(dw), ptr(part), gqm, gkm, b, n, heads, d_k, slots, int(bf16), dev.index,
+              current_stream(dev))
     check(lib, "agsa_attn_bwd kernels", code)
     agsa_attention_bwd_fused.launches += 1
     sq = d_k * d_k
