@@ -66,8 +66,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    towers' calls on the evaluation and training paths (128 x 64 heads x 36
    regions or 32 BERT slots x d_k 32), at B 129 (not a multiple of the
    kernels' persistent grid), at a ragged odd shape and at the largest shape
-   their limits allow (N 64, d_k 128), bf16 and fp32, with each launch plan
-   and SDPA on the gated image-tower qm, km as a yardstick of the attention
+   their limits allow (N 64, d_k 128), bf16 and fp32 (the forward equal to
+   the plain one bit for bit at the towers' calls and at B 129, the count
+   of differing elements printed everywhere), with each launch plan and
+   SDPA on the gated image-tower qm, km as a yardstick of the attention
    half alone; and the GRU kernels
    at VSRN's text width (H 2048, 61 steps, fp32: the streamed route)
    against autograd through the plain GRU, timed beside cuDNN;
@@ -191,6 +193,7 @@ from itrx_torch.ops.kernels import vsrn_dec as kvsrn
 from itrx_torch.ops.kernels.agsa_attn import _chain as agsa_chain
 from itrx_torch.ops.kernels.agsa_attn import (agsa_attention_bwd_fused, agsa_attention_bwd_plain,
                                               agsa_attention_fused, agsa_attention_plain)
+from itrx_torch.ops.kernels.agsa_attn import fwd_plan as agsa_fwd_plan
 from itrx_torch.ops.kernels.agsa_attn import plan as agsa_plan
 from itrx_torch.ops.kernels.sgr import (card_plan, edge_blocks, edge_bounds, row_list,
                                         sgr_reason_bwd_fused, sgr_reason_bwd_plain,
@@ -375,9 +378,15 @@ AGSA_SHAPES = ((128, 64, 36, 32), (128, 64, 32, 32), (5, 3, 7, 8), (4, 2, 64, 12
 # the image tower's call at a batch whose heads (129 x 64) are not a multiple
 # of the kernels' persistent grid (a block walks heads grid apart)
 AGSA_RAGGED_GRID = (129, 64, 36, 32)
+# the forward keeps the plain version's order of operations element by
+# element (csrc/agsa_attn.cu), so at these calls (the towers' and the B 129
+# grid), both dtypes, it must equal agsa_attention_plain bit for bit, beside
+# the limits above; elsewhere the differing elements are printed
+AGSA_EXACT_SHAPES = AGSA_SHAPES[:2] + (AGSA_RAGGED_GRID,)
 # the PR 11-12 designs (fp32 FMAs, one output element a thread; the
 # backward three launches with a 75 MB workspace) at the towers' calls, ms
-# image / text (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+# image / text (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's:
+# the earlier column of both kernels
 AGSA_FMA_MS = {"fwd_bfloat16": (0.882, 0.728), "fwd_float32": (1.015, 0.771),
                "bwd_float32": (2.674, 2.087), "bwd_bfloat16": (2.845, 2.258)}
 # the CAMERA slice's first witness: an fp32 encode through the kernel vs the
@@ -2543,12 +2552,14 @@ def cuda_ms_spread(fn, runs: int = 5, reps: int = 20) -> tuple:
     return statistics.median(times), min(times), max(times)
 
 
-def _agsa_check(tag, args, g_out, h, limit, bwd_limit) -> tuple:
-    """The forward kernel vs agsa_attention_plain within `limit` of scale,
-    two forward calls bit-identical and the plain output with fc_g's halves
-    swapped outside the limit; then the backward (`_agsa_bwd_check`).
-    Returns (the forward's relative error, its largest absolute error, the
-    backward's relative and absolute errors)."""
+def _agsa_check(tag, args, g_out, h, limit, bwd_limit, exact: bool) -> tuple:
+    """The forward kernel vs agsa_attention_plain within `limit` of scale
+    (and, where `exact`, equal to it bit for bit), two forward calls
+    bit-identical and the plain output with fc_g's halves swapped outside
+    the limit; then the backward (`_agsa_bwd_check`).  Returns (the
+    forward's relative error, its largest absolute error, the count of its
+    elements that differ from the plain output, the backward's relative and
+    absolute errors)."""
     dt = args[0].dtype
     with torch.no_grad():
         got = agsa_attention_fused(*args, h)
@@ -2559,6 +2570,12 @@ def _agsa_check(tag, args, g_out, h, limit, bwd_limit) -> tuple:
     if got.dtype != dt:
         raise AssertionError(f"{tag}: output dtype {got.dtype}")
     err = check_rel(tag, got, want, limit)
+    differ = int((got != want).sum())
+    log(f"  {tag}: {differ} of {got.numel()} elements differ from the plain output"
+        f"{' (must be 0)' if exact else ''}")
+    if exact and differ:
+        raise AssertionError(f"{tag}: the forward is not bit-identical to agsa_attention_plain "
+                             f"({differ} elements differ)")
     if not torch.equal(got, again):
         raise AssertionError(f"{tag}: two forward calls differ")
     log(f"  {tag}: two forward calls bit-identical; the plain output with fc_g's halves "
@@ -2567,7 +2584,7 @@ def _agsa_check(tag, args, g_out, h, limit, bwd_limit) -> tuple:
         raise AssertionError(f"the limit {limit} does not separate swapped gate halves ({wrong})")
     bwd_tag = tag.replace("agsa_attn", "agsa_attn_bwd")
     bwd_rel, bwd_abs, _ = _agsa_bwd_check(bwd_tag, args, g_out, h, bwd_limit)
-    return err, float((got.float() - want.float()).abs().max()), bwd_rel, bwd_abs
+    return err, float((got.float() - want.float()).abs().max()), differ, bwd_rel, bwd_abs
 
 
 def phase_agsa(g) -> dict:
@@ -2592,15 +2609,17 @@ def phase_agsa(g) -> dict:
             g_out = g32.to(dt)
             mode = str(dt)[6:]
             tag = f"agsa_attn B {b} x h {h} x N {n} x d_k {dk} {mode}"
-            err, abs_err, bwd_rel, bwd_abs = _agsa_check(tag, args, g_out, h, limit, bwd_limit)
+            exact = (b, h, n, dk) in AGSA_EXACT_SHAPES
+            err, abs_err, differ, bwd_rel, bwd_abs = _agsa_check(tag, args, g_out, h, limit,
+                                                                 bwd_limit, exact)
+            res[f"B{b}_N{n}_dk{dk}_{mode}_differ"] = differ
             if (b, h, n, dk) not in AGSA_SHAPES[:2]:
                 continue
             tower = "img" if n == AGSA_SHAPES[0][2] else "txt"
             key = f"{tower}_{mode}"
             bf16 = dt == torch.bfloat16
-            # the forward and the bf16 backward keep the PR 11-12 design
-            # (csrc/agsa_attn_bwd.cu says why)
-            plans = {"fwd": "the PR 11 design",
+            # the bf16 backward keeps its first design (csrc/agsa_attn_bwd.cu)
+            plans = {"fwd": agsa_fwd_plan(b, n, h, dk, bf16, DEV.index),
                      "bwd": "the PR 12 design" if bf16 else agsa_plan(b, n, h, dk, DEV.index)}
             with torch.no_grad():
                 fwd = cuda_ms_spread(lambda: agsa_attention_fused(*args, h))
@@ -2621,12 +2640,13 @@ def phase_agsa(g) -> dict:
             for pre, name, t in (("", "agsa_attn", fwd), ("bwd_", "agsa_attn_bwd", bwd)):
                 d = "fwd" if not pre else "bwd"
                 log(f"  time {tag.replace('agsa_attn', name)}: kernel{'s' if pre else ''} "
-                    f"{t[0]:.4f} ms ({t[1]:.4f}-{t[2]:.4f}; PR 11-12: "
+                    f"{t[0]:.4f} ms ({t[1]:.4f}-{t[2]:.4f}; first design: "
                     f"{AGSA_FMA_MS[f'{d}_{mode}'][i]:.3f}), plain "
                     f"{res[f'{key}_{pre}plain_ms']:.4f} ms, bound "
                     f"{res[f'{key}_{pre}bound_ms']:.4f} ms ({res[f'{key}_{pre}bound_by']}, "
                     f"fp32 products at the TF32 peak; {res[f'{key}_{pre}bound_fma_ms']:.4f} at "
-                    f"the fp32 FMA peak), {100 * res[f'{key}_{pre}bound_ms'] / t[0]:.1f}% of it; "
+                    f"the fp32 FMA peak), {100 * res[f'{key}_{pre}bound_ms'] / t[0]:.1f}% of it "
+                    f"({100 * res[f'{key}_{pre}bound_fma_ms'] / t[0]:.1f}% of the FMA-peak one); "
                     f"plan {plans[d]}")
             if tower == "img":
                 # the attention half alone, on the gated qm and km the chain

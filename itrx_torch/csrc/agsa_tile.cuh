@@ -1,6 +1,11 @@
-// The tensor-core pieces of CAMERA's AGSA backward in fp32
-// (csrc/agsa_attn_bwd.cu): the head's rows staged by cp.async, the products
-// of one warp's 16-row tile, and the gate chain.
+// What CAMERA's two AGSA kernels share, and the tensor-core pieces of the
+// backward in fp32.  Both kernels (csrc/agsa_attn.cu, the forward, and
+// csrc/agsa_attn_bwd.cu) take the conversions and rounding points (to_f,
+// from_f, rnd), the sigmoid, a head's rows staged by 16-byte cp.async
+// (stage_rows, head_base, row_ld), the gate weights' pointers (Gates) and the
+// launch-plan cache from here; the forward runs on fp32 FMAs and uses none
+// of the products below.  The backward's fp32 pieces: the products of one
+// warp's 16-row tile and the gate chain.
 //
 // A warp owns 16 rows of one head (rows r0 .. r0 + 15; a head of N rows has
 // ceil(N / 16) such tiles, one warp each).  Its values live in registers in
@@ -563,8 +568,9 @@ AGSA_UNROLL_COLS
   }
 }
 
-// A launch plan, {grid, stages, blocks an SM, shared bytes}, remembered by
-// its sizes: the occupancy queries behind it cost more host time than a
+// A launch plan, four ints (the backward's {grid, stages, blocks an SM,
+// shared bytes}, the forward's {grid, G, stages, blocks an SM}), remembered
+// by its sizes: the occupancy queries behind it cost more host time than a
 // launch, and a model calls the same few sizes over and over
 struct PlanCache {
   static constexpr int kEntries = 16;

@@ -31,12 +31,14 @@ kernel.
 
 A CPU tensor takes the plain pair; a CUDA tensor (fp32 or bf16) launches
 the kernels or raises.  `itrx` sends only bf16 to its kernel; the port
-sends every CUDA call to it, fp32 too.  The forward (both dtypes) and the
-bf16 backward are the PR 11-12 FMA design, whose forward agrees with
-agsa_attention_plain bit for bit; the fp32 backward (every CAMERA training
-step) runs every product on the tensor cores as three TF32 passes, one
-pass over the heads and an ordered reduction (csrc/agsa_attn_bwd.cu says
-why the forward stays).
+sends every CUDA call to it, fp32 too.  The forward (both dtypes) runs fp32
+FMAs in the plain version's order of operations, element by element, and
+agrees with agsa_attention_plain bit for bit: a persistent grid over units
+of heads, rows staged by cp.async, register tiles (`fwd_plan`;
+csrc/agsa_attn.cu says why the order is kept).  The bf16 backward keeps
+its first FMA design; the fp32 backward (every CAMERA training step) runs every
+product on the tensor cores as three TF32 passes, one pass over the heads
+and an ordered reduction.
 """
 
 from __future__ import annotations
@@ -225,14 +227,34 @@ def plan(b: int, n: int, heads: int, d_k: int, device: int, defines: tuple = ())
     return dict(zip(("grid", "stages", "blocks_per_sm", "smem_bytes"), out))
 
 
-def _launch_fwd(q, k, v, weights, heads: int):
+@functools.cache
+def fwd_plan(b: int, n: int, heads: int, d_k: int, bf16: bool, device: int) -> dict:
+    """The launch the forward makes for these sizes, as the kernel plans it:
+    the persistent grid, G (heads a unit), the staging ring's stages (1 or
+    2), the blocks an SM holds, the shared bytes and the warps a block
+    uses."""
+    lib = load("agsa_attn")
+    fn = lib.itrx_agsa_fwd_plan
+    out = (ctypes.c_int * 6)()
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    check(lib, "agsa_attn plan", fn(b, n, heads, d_k, int(bf16), device, out))
+    return dict(zip(("grid", "G", "stages", "blocks_per_sm", "smem_bytes", "warps"), out))
+
+
+def _launch_fwd(q, k, v, weights, heads: int, lib=None):
+    """One launch of the forward kernel (`lib`: csrc/agsa_attn.cu's library
+    as the port builds it, or a build of the same C entry that a tool
+    passes)."""
     b, n, d = q.shape
     dt, dev = q.dtype, q.device
-    # every temporary is held by a name until the launch is queued
-    ins = [t.detach().contiguous() for t in (q, k, v)]
+    # every temporary is held by a name until the launch is queued; the
+    # kernel stages rows with 16-byte copies
+    ins = [_aligned(t.detach().contiguous()) for t in (q, k, v)]
     ws = _kernel_weights(weights, dt)
     out = torch.empty(b, n, d, dtype=dt, device=dev)
-    lib = load("agsa_attn")
+    if lib is None:
+        lib = load("agsa_attn")
     fn = lib.itrx_agsa_fwd
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int

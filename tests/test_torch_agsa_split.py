@@ -262,9 +262,10 @@ def test_agsa_backward_shares_the_tile_header():
     three TF32 passes on mma.sync) and none of the other kernels' product
     headers; outside its bf16 section (the PR 12 FMA design, kept for bf16)
     it has no fp32-FMA product loop and no g_qm / g_km workspace: two
-    launches, the head pass and the ordered reduction.  The forward keeps
-    the PR 11 design (its checks on the card presume the plain version's
-    summation order) and includes no product header."""
+    launches, the head pass and the ordered reduction.  The forward runs
+    fp32 FMAs in the plain version's order (its checks on the card presume
+    it): it shares the tile header's staging and helpers and includes no
+    other kernel's product header."""
     from itrx_torch.ops import kernels
 
     header = (kernels.CSRC / "agsa_tile.cuh").read_text()
@@ -277,4 +278,6 @@ def test_agsa_backward_shares_the_tile_header():
     bwd = _outside_fma(src)
     assert "fmaf(" not in bwd
     assert bwd.count("<<<") == 2 and "float* __restrict__ gqm" not in bwd
-    assert ".cuh" not in (kernels.CSRC / agsa_attn.SOURCE).read_text()
+    fwd = (kernels.CSRC / agsa_attn.SOURCE).read_text()
+    assert [line for line in fwd.splitlines() if ".cuh" in line and "#include" in line] == [
+        '#include "agsa_tile.cuh"']

@@ -165,11 +165,14 @@ def _port_weights(w, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("b,h,n,dk", [(6, 4, 9, 16), (7, 4, 36, 16), (5, 64, 32, 8),
-                                      (3, 2, 36, 32)])
+                                      (3, 2, 36, 32), (2, 2, 64, 128), (2, 3, 1, 64),
+                                      (3, 2, 33, 32)])
 def test_plain_kernel_matches_pallas_kernel_and_xla_chain(b, h, n, dk):
     """agsa_attention_plain vs `itrx`'s agsa_attention in interpret mode and
     its XLA chain, fp32: N 9, 36 (regions) and 32 (BERT slots), B not a
-    multiple of the Pallas batch block (256 // h rows)."""
+    multiple of the Pallas batch block (256 // h rows); and at the CUDA
+    forward's plan boundaries: the widest class (N 64, d_k 128), one key
+    (N 1, d_k 64) and a second key a lane for one key only (N 33)."""
     rng = np.random.default_rng(b * 100 + n)
     (q, k, v), w = _kernel_data(rng, b, h, n, dk)
     jq, jk, jv = (jnp.asarray(_heads(x, h)) for x in (q, k, v))
