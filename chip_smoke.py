@@ -15,9 +15,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    version's, its bound (bytes or operations at the H100's data-sheet
    rates) and, for the GRU kernels, cuDNN's GRU (CUDA events, after
    warm-up).  The GRU forward is held to gru_scan at every shape of
-   GRU_FWD_SHAPES (H 512, 1024, 2048 and a ragged 1036; B 128, 8 and 1),
-   bf16 and fp32, both directions, each printed with its plan (route,
-   blocks, shared memory), its time a step, cuDNN's and its bound; a grid
+   GRU_FWD_SHAPES (H 256, 512, 1024, 2048 and a ragged 1036; B 128, 8
+   and 1; D 300, and SAEM's 768 and 2048), bf16 and fp32, both
+   directions, each printed with its plan (route, blocks, shared memory),
+   its time a step, cuDNN's and its bound; a grid
    that cannot be co-resident must raise.  The GRU adjoint is held to
    autograd through the plain GRU (all five gradients, both directions) and
    to gru_bwd_plain at GRU_BWD_SHAPES, two calls bit-identical; the SCAN
@@ -99,7 +100,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    embed every caption alike: _vsrn_text_memory): the counters show gru and
    no other kernel; its witness is the grid of the same encode with the GRU
    swapped for its plain pair on the card (top-1 agreement >= 0.95, >= 2
-   distinct top-1 images, the largest embedding difference reported);
+   distinct top-1 images, embeddings within 2^-7).
+   Then the SAEM slices (the SAEM() overlay: final_dims 256, the cnn text
+   head over BERT-base with the split's tiny vocabulary, the trans image
+   branch from the port's trans_cfg, max_words 32, BERT's word embeddings
+   scaled by 10 so that random weights do not embed every caption alike:
+   _saem_word_scale; no kernel; its witness the bf16 grid against an fp32
+   encode and grid of the same model, top-1 agreement >= 0.95, the fp32
+   top-1 among the bf16 top 5 on >= 0.99) and again with both rnn heads
+   (bi_gru: the GRU kernel over BERT's last layer at H 1024 and over the
+   regions at H 256, 160 launches; the witness also against the same
+   encode through the plain GRU), and the VSE++ slice (the VSE_PP() overlay over a flat split,
+   1000 images x one 4096-d vector, its word embeddings scaled by 10 so
+   that random weights do not embed every caption alike:
+   _vsepp_word_scale; the GRU kernel at H 1024 in bf16, 40 launches; the
+   witness against the plain GRU's encode);
 5. the ensembles: a t2i LSE and an i-t AVG checkpoint with random weights
    through evalrank_ensemble, whose ranks must be cal_recall of the two
    averaged grids; SGRAF's published protocol, the SGR and SAF slices'
@@ -154,7 +169,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    text BatchNorms' statistics match a CPU copy, every gradient matches a
    float64 copy of the step on the CPU that takes the card's ReLU
    decisions, and all of them match the same step on the card with the
-   AGSA kernels swapped for their plain pair.
+   AGSA kernels swapped for their plain pair;
+11. the VSE++ training slice: VSE++'s f30k_precomp command (max_violation,
+   batch 128, lr 2e-4, embed 1024, word_dim 300, fp32) over a flat split,
+   one 25-step epoch through fit with validation at step 15 and the end:
+   the counters show the GRU forward once a step and once a validation
+   batch and the adjoint once a step, and no other kernel; the first step
+   matches a CPU copy;
+12. the SAEM training slice: the SAEM() overlay (batch 64, lr 1e-4), fp32,
+   one 25-step epoch: no kernel; BERT leaves fit as the seed drew it, with
+   no Adam state; the first step (every dropout at 0, the angular loss at
+   epoch 0's weight) matches a CPU copy.  Each new slice's encode, eval,
+   pairs/s and step seconds are printed with the card's name and power
+   limit.
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -184,7 +211,7 @@ from itrx_torch.eval import engine, metrics
 from itrx_torch.models import get_model
 from itrx_torch.models import agsa as agsa_model
 from itrx_torch.models import sgraf as sgraf_model
-from itrx_torch.models.layers import TorchBatchNorm
+from itrx_torch.models.layers import SeededDropout, TorchBatchNorm
 from itrx_torch.ops import kernels
 from itrx_torch.ops.kernels import gru as kgru
 from itrx_torch.ops.kernels.gru import gru_bwd_fused, gru_scan_fused
@@ -215,6 +242,18 @@ from itrx_torch.utils.checkpoint import load_checkpoint, load_state_list, save_c
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEV = torch.device("cuda", 0)
 TOP1_MIN = 0.95
+# A bf16 encode through the GRU kernel against the same encode through its
+# plain pair: the unit-norm embeddings' entries lie below 1, where a bf16 ulp
+# is at most 2^-8, and the two routes differ by rounding flips of the carry
+# that move an entry by an ulp or two (read 4.9e-4 to 2.0e-3 on the H100 in
+# the VSRN, VSE++ and SAEM rnn slices); a wrong row is off by the entries'
+# own size, ~width^-1/2 >= 2.2e-2 at the widest embedding (2048)
+GRU_EMBED_BF16_ATOL = 2.0 ** -7
+# SAEM's bf16 encode runs BERT-base's twelve layers in bf16 (caption
+# embeddings ~1% off the fp32 encode's), so its top-1 flips between images
+# tied to that; the fp32 top-1 image must stay among the bf16 grid's top 5
+# (read on every caption on the card: 1.0)
+SAEM_TOP5_MIN = 0.99
 # Kernel vs plain tolerances.  Each plain side computes on the very values
 # the kernel reads (bf16 inputs upcast; for the GRU's bf16 mode, the carry
 # rounded to bf16 before the recurrent product as the kernel rounds it), so
@@ -279,7 +318,10 @@ ZERO_GRADS = ("sim_enc.v_global_w.embedding_global.0.bias",
     # alike (softmax rows sum to 1), as fc2's does, before a train-mode
     # BatchNorm
     "img_enc.agsa.att_layers.0.linears.2.bias", "txt_enc.agsa.att_layers.0.linears.2.bias",
-    "txt_enc.fc2.bias")
+    "txt_enc.fc2.bias",
+    # SAEM: a transformer block's key bias adds one constant to each query's
+    # scores, which the softmax takes out
+    "img_enc.layer.attention.self.key.bias", "txt_enc.layer.attention.self.key.bias")
 ZERO_GRAD_REL = 1e-4
 TRAIN_STEPS = 50  # one epoch of the synthetic train split at batch 128
 TRAIN_VAL_STEP = 30  # one validation + checkpoint mid-epoch, one at the end
@@ -488,17 +530,23 @@ SAF_VARIANTS = (SAF_NO_POOL, SAF_NO_PROJECT)
 # NVIDIA H100 80GB HBM3, 700 W; printed beside this run's
 GRU_PER_STEP_FWD_MS = (2.342, 2.381)
 GRU_PER_STEP_BWD_MS = (9.870, 16.295)
-# (B, L, H) the GRU forward is held and timed at, bf16 and fp32, both
-# directions, D 300, ragged lengths: encode's batch (SCAN and SGRAF H 1024),
+# (B, L, D, H) the GRU forward is held and timed at, bf16 and fp32, both
+# directions, ragged lengths: encode's batch (SCAN, SGRAF and VSE++ H 1024),
 # the last batch of encode's 128-row batches over 5000 captions, one row,
 # VSRN's decoder-side GRU (H 512, 36 regions), VSRN's text and region width
-# (H 2048: bf16 resident, fp32 streamed) and an H that is not a multiple of
-# the unit group
-GRU_FWD_SHAPES = ((128, 24, 1024), (8, 24, 1024), (1, 24, 1024), (128, 36, 512),
-                  (128, 36, 2048), (37, 21, 1036))
+# (H 2048: bf16 resident, fp32 streamed), SAEM's rnn heads at encode's batch
+# (the regions: D 2048, H final_dims 256, 36 steps; BERT's last layer: D 768,
+# H embed_size 1024, its 32 slots) and an H that is not a multiple of the
+# unit group
+GRU_FWD_SHAPES = ((128, 24, 300, 1024), (8, 24, 300, 1024), (1, 24, 300, 1024),
+                  (128, 36, 300, 512), (128, 36, 300, 2048), (128, 36, 2048, 256),
+                  (128, 32, 768, 1024), (37, 21, 300, 1036))
 # (B, L, H) the adjoint is held at besides phase_gru_bwd's timed shapes, both
-# directions
-GRU_BWD_SHAPES = ((8, 48, 1024), (1, 48, 1024), (128, 36, 512), (37, 21, 1036))
+# directions: the ragged tails and one row at H 1024, VSRN's decoder-side
+# width, SAEM's rnn heads at its training batch of 64 (H 1024 over BERT's 32
+# slots, H 256 over 36 regions) and the ragged H
+GRU_BWD_SHAPES = ((8, 48, 1024), (1, 48, 1024), (128, 36, 512), (64, 32, 1024),
+                  (64, 36, 256), (37, 21, 1036))
 # a slice grid slower than this is timed once, not best of 3
 ONE_TIMING_S = 5.0
 # SCAN's published i-t settings (kuanghuei/SCAN README): i-t AVG (the eval
@@ -761,8 +809,8 @@ def gru_fwd_shapes(g) -> list:
     paths call it) beside its recurrence alone a step, cuDNN and its
     bound."""
     rows = []
-    for b, l, h in GRU_FWD_SHAPES:
-        x, mask, w_ih, w_hh, b_ih, b_hh = _gru_inputs(g, b, l, 300, h)
+    for b, l, d, h in GRU_FWD_SHAPES:
+        x, mask, w_ih, w_hh, b_ih, b_hh = _gru_inputs(g, b, l, d, h)
         for mode, dt, atol in (("bf16", torch.bfloat16, GRU_BF16_ATOL),
                                ("fp32", torch.float32, GRU_FP32_ATOL)):
             w_k = w_hh.to(dt)
@@ -770,7 +818,7 @@ def gru_fwd_shapes(g) -> list:
             for reverse in (False, True):
                 got = gru_scan_fused(x, mask, w_ih, w_k, b_ih, b_hh, reverse=reverse)
                 want = gru_scan(x, mask, w_ih, w_k, b_ih, b_hh, reverse=reverse, dot_dtype=dt)
-                tag = f"gru B={b} L={l} H={h} {mode} {'reverse' if reverse else 'forward'}"
+                tag = f"gru B={b} L={l} D={d} H={h} {mode} {'reverse' if reverse else 'forward'}"
                 errs += [check(f"{tag} outputs", got[0], want[0], atol),
                          check(f"{tag} final", got[1], want[1], atol)]
             xs, wis, whs, bis, bhs = (t.to(dt) for t in (x, w_ih, w_hh, b_ih, b_hh))
@@ -782,10 +830,10 @@ def gru_fwd_shapes(g) -> list:
                 lib_ms = cuda_ms(lambda: lib(xs))
             bd = gru_fwd_bound(xs, mask, wis, whs, bis, bhs, xs.element_size(),
                                "bf16" if dt == torch.bfloat16 else "fp32")
-            row = {"b": b, "l": l, "h": h, "mode": mode, "route": gru_route(b, h, dt),
+            row = {"b": b, "l": l, "d": d, "h": h, "mode": mode, "route": gru_route(b, h, dt),
                    "max_abs_err": max(errs), "ms": ms, "recurrence_ms": rec_ms,
                    "us_a_step": rec_ms / l * 1e3, "library_ms": lib_ms, **bd}
-            log(f"  gru B={b} L={l} H={h} {mode}: {row['route']}; {ms:.3f} ms with the "
+            log(f"  gru B={b} L={l} D={d} H={h} {mode}: {row['route']}; {ms:.3f} ms with the "
                 f"projection, recurrence {rec_ms:.3f} ms = {row['us_a_step']:.2f} us a step; "
                 f"cuDNN {lib_ms:.3f} ms; bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
             rows.append(row)
@@ -1928,16 +1976,52 @@ def _vsrn_text_memory(model) -> None:
         rnn.bias_hh_l0[2 * h:] = 0.0
 
 
-def vsrn_witness(model, dataset, cfg, enc, sims, launches) -> tuple:
-    """VSRN's witness (its GRUs run inside encode, bf16, H 2048): the main
-    path's bf16 grid against the grid of the same bf16 encode with the GRU
-    swapped for its plain pair on the card (_gru_plain_route), top-1
-    agreement >= TOP1_MIN with >= 2 distinct top-1 images; the largest
-    embedding and grid differences are reported.  Returns (the fields it
-    measured, the failed checks)."""
-    problems = []
-    if tuple(enc["img"].shape) != (len(dataset), cfg["embed_size"]):
-        problems.append(f"unexpected image embeddings {tuple(enc['img'].shape)}")
+def _sentence_shape_problems(dataset, cfg, enc) -> list:
+    """One (width,) embedding an image row and a caption: the embed width
+    (final_dims for SAEM)."""
+    width = cfg["final_dims"] if cfg["name"] == "SAEM" else cfg["embed_size"]
+    return [f"unexpected {k} embeddings {tuple(enc[k].shape)}" for k in ("img", "cap")
+            if tuple(enc[k].shape) != (len(dataset), width)]
+
+
+def _vsepp_word_scale(model) -> None:
+    """VSE++'s word embeddings scaled by 10.  With the reference's U(-0.1,
+    0.1) init a word moves a gate of the H 1024 GRU by ~2e-2 against biases
+    of ~3e-2, so every caption's last state is mostly the biases': on a CPU
+    run at the slice's widths over 100 images and 500 captions the captions'
+    mean cosine was 0.94 and 3 images were top-1 for all of them; scaled,
+    the words set the state (0.76, 17 images), and the witness can tell a
+    right grid from a degenerate one (the slice prints its distinct top-1
+    images)."""
+    with torch.no_grad():
+        model.txt_enc.embed.weight.mul_(10.0)
+
+
+def _saem_word_scale(model) -> None:
+    """SAEM's BERT word embeddings scaled by 10.  BERT's embedding sums a
+    word's, a position's and a segment's rows, all drawn with std 0.02, and
+    normalizes the sum, so with random weights the position rows, which
+    every caption shares, set half of each slot, and the text head's max
+    over all 32 slots keeps a part common to every caption.  On the card at
+    the slice's widths (itrx_torch/tools/saem_word_scale.py) the captions'
+    mean cosine was 0.963 and 19 images were top-1 for all 5000 of them;
+    scaled, the words set each slot (0.916, 49 images; with the rnn heads
+    0.927 -> 0.778, 23 -> 64), and the witness can tell a right grid from a
+    degenerate one."""
+    with torch.no_grad():
+        model.txt_enc.bert.embeddings.word_embeddings.weight.mul_(10.0)
+
+
+def gru_witness(model, dataset, cfg, enc, sims, launches) -> tuple:
+    """The witness of a slice whose GRUs run inside encode, in bf16 (VSRN's
+    text and region GRUs at H 2048, VSE++'s text GRU at H 1024, SAEM's rnn
+    heads): the main path's bf16 grid against the grid of the same bf16
+    encode with the GRU swapped for its plain pair on the card
+    (_gru_plain_route), top-1 agreement >= TOP1_MIN with >= 2 distinct top-1
+    images, and the two encodes' embeddings within GRU_EMBED_BF16_ATOL; the
+    largest grid difference is reported.  Returns (the fields it measured,
+    the failed checks)."""
+    problems = _sentence_shape_problems(dataset, cfg, enc)
     with _gru_plain_route():
         t0 = time.perf_counter()
         plain = encode(model, dataset, cfg)
@@ -1958,6 +2042,50 @@ def vsrn_witness(model, dataset, cfg, enc, sims, launches) -> tuple:
     if not agree >= TOP1_MIN:
         problems.append(f"the bf16 grid through the GRU kernel agrees with the plain GRU's on "
                         f"only {agree:.4f} of top-1 images (< {TOP1_MIN})")
+    if not max(emb_err.values()) <= GRU_EMBED_BF16_ATOL:
+        problems.append(f"the bf16 embeddings through the GRU kernel differ from the plain "
+                        f"GRU's by {emb_err} (> {GRU_EMBED_BF16_ATOL})")
+    return out, problems
+
+
+def saem_witness(model, dataset, cfg, enc, sims, launches) -> tuple:
+    """SAEM's witness: the main path's bf16 grid against the grid of an
+    fp32 encode and an fp32 grid of the same model on the card, top-1
+    agreement >= TOP1_MIN with >= 2 distinct top-1 images, the fp32 top-1
+    among the bf16 top 5 on >= SAEM_TOP5_MIN of captions; with an rnn head,
+    also gru_witness (the GRU kernel against its plain pair).  Returns (the
+    fields it measured, the failed checks)."""
+    problems = _sentence_shape_problems(dataset, cfg, enc)
+    t0 = time.perf_counter()
+    enc32 = engine.encode_data(model, dataset, cfg["batch_size"], device=DEV)
+    sims32 = engine.cal_sims(model, enc32["img"][:: dataset.im_div], enc32["cap"],
+                             verbose=False)
+    torch.cuda.synchronize()
+    fp32_s = time.perf_counter() - t0
+    err, agree, distinct = _top1(sims, sims32)
+    top5 = sims.topk(5, dim=0).indices
+    in_top5 = float((top5 == sims32.argmax(dim=0)[None]).any(dim=0).float().mean())
+    out = {
+        "fp32_encode_and_grid_seconds": fp32_s,
+        "rsum_fp32": metrics.cal_recall(sims32, cap_ratio=dataset.im_div, verbose=False)["rsum"],
+        "grid_max_abs_diff_bf16_vs_fp32": err,
+        "top1_agreement_bf16_vs_fp32": agree,
+        "fp32_top1_in_bf16_top5": in_top5,
+        "distinct_top1_images_fp32": distinct,
+    }
+    if distinct < 2:
+        problems.append("every caption ranks the same image first in the fp32 grid: the "
+                        "witness cannot tell a right grid from a degenerate one")
+    if not agree >= TOP1_MIN:
+        problems.append(f"the bf16 grid agrees with the fp32 grid on only {agree:.4f} of "
+                        f"top-1 images (< {TOP1_MIN})")
+    if not in_top5 >= SAEM_TOP5_MIN:
+        problems.append(f"the fp32 top-1 image is among the bf16 grid's top 5 on only "
+                        f"{in_top5:.4f} of captions (< {SAEM_TOP5_MIN})")
+    if "rnn" in (cfg["txt_stru"], cfg.get("img_stru", "trans")):
+        seen, more = gru_witness(model, dataset, cfg, enc, sims, launches)
+        out.update(seen)
+        problems += more
     return out, problems
 
 
@@ -1985,13 +2113,37 @@ SLICES = {
     # the VSRN() overlay (embed 2048, RsGCN, text and region GRUs at H 2048,
     # cosine grid through the engine's 2-D tiles): the GRU kernel in bf16 at
     # H 2048 and TorchBatchNorm on bf16, no grid kernel
-    "vsrn": ("VSRN", ("gru",), (), vsrn_witness),
+    "vsrn": ("VSRN", ("gru",), (), gru_witness),
+    # VSE++ on precomputed features, the VSE_PP() overlay (fartashf/vsepp
+    # README: one 4096-d VGG vector an image, embed 1024, word_dim 300, the
+    # one-way GRU's output at the last word; cosine grid through the
+    # engine's 2-D tiles) over a flat split: the GRU kernel at H 1024 in bf16
+    "vsepp": ("VSE_PP", ("gru",), (), gru_witness),
+    # the SAEM() overlay (final_dims 256, the cnn text head over BERT-base
+    # with the split's tiny vocabulary, the trans image branch from the
+    # port's trans_cfg, max_words 32): no kernel
+    "saem": ("SAEM", (), ("bert_path={data_root}",), saem_witness),
+    # the same with both rnn heads (bi_gru): the GRU kernel over BERT's last
+    # layer (D 768, H embed_size 1024, both directions) and over the regions
+    # (D 2048, H final_dims 256, both directions)
+    "saem_rnn": ("SAEM", ("gru",),
+                 ("bert_path={data_root}", "txt_stru=rnn", "img_stru=rnn", "bi_gru=True"),
+                 saem_witness),
 }
 # a slice's random weights prepared before its main path (see each function)
-SLICE_PREPARE = {"vsrn": _vsrn_text_memory}
+SLICE_PREPARE = {"vsrn": _vsrn_text_memory, "vsepp": _vsepp_word_scale,
+                 "saem": _saem_word_scale, "saem_rnn": _saem_word_scale}
 
 
 def slice_detail(cfg: dict, model) -> str:
+    if cfg["name"] == "VSE_PP":
+        return (f"img_dim {cfg['img_dim']}, word_dim {cfg['word_dim']}, text GRU H "
+                f"{model.txt_enc.rnn.hidden_size}, {cfg['measure']} grid")
+    if cfg["name"] == "SAEM":
+        bert = model.txt_enc.bert.config
+        return (f"txt_stru {cfg['txt_stru']}, img_stru {cfg.get('img_stru', 'trans')}, bi_gru "
+                f"{cfg['bi_gru']}, final_dims {cfg['final_dims']}, max_words "
+                f"{cfg['max_words']}, BERT {bert.hidden_size} x {bert.num_hidden_layers} layers")
     if cfg["name"] == "VSRN":
         return (f"text and region GRUs H {model.txt_enc.rnn.hidden_size}, "
                 f"{cfg['measure']} grid")
@@ -2764,6 +2916,14 @@ def _vsrn_off_identity(model) -> None:
                 m.running_var.copy_(torch.empty(c).uniform_(0.5, 2.0, generator=g))
 
 
+def _no_dropout(model) -> None:
+    """Every dropout of the model at rate 0 (SAEM's witness: the two
+    devices' random streams differ)."""
+    for m in model.modules():
+        if isinstance(m, SeededDropout):
+            m.p = 0.0
+
+
 def _relu_decision(module, inputs, out, name, seen, pin):
     """A forward hook on a module whose output feeds a ReLU: records the
     ReLU's decisions (out > 0) of the module's first call in seen[name];
@@ -3033,6 +3193,21 @@ TRAIN_SLICES = {
                ("agsa_attn", "agsa_attn_bwd"), {"agsa_attn": (2, 2), "agsa_attn_bwd": (2, 0)},
                {}, {"exact": ("txt_enc.fc1", "img_enc.mvs.convs_dilate."),
                     "kernel_rel": CAMERA_KERNEL_GRAD_REL, "plain_route": _agsa_plain_route}),
+    # VSE++'s f30k_precomp command (fartashf/vsepp README: --max_violation,
+    # batch 128, lr 2e-4, embed 1024, word_dim 300) over a flat split (one
+    # 4096-d vector an image), fp32: the GRU kernels once a step each, the
+    # forward once a validation batch
+    "vsepp": ("VSE++ f30k_precomp training configuration",
+              ("VSE_PP", "max_violation=True", "batch_size=128", "learning_rate=2e-4",
+               "embed_size=1024", "word_dim=300"), SAF_TRAIN_STEPS, SAF_TRAIN_VAL_STEP, 7,
+              ("gru", "gru_bwd"), {"gru": (1, 1), "gru_bwd": (1, 0)}, {},
+              {"grad_rel": TRAIN_GRAD_REL}),
+    # the SAEM() overlay (batch 64, lr 1e-4, final_dims 256, the cnn text head
+    # and the trans image branch) with BERT-base, frozen, over the split's
+    # tiny vocabulary, fp32: no kernel.  The witness with every dropout at 0
+    "saem": ("SAEM f30k training configuration", ("SAEM", "bert_path={root}"),
+             SAF_TRAIN_STEPS, SAF_TRAIN_VAL_STEP, 8, (), {}, {},
+             {"grad_rel": TRAIN_GRAD_REL, "prepare": _no_dropout}),
 }
 
 
@@ -3060,6 +3235,21 @@ def _frozen_check(cfg: dict, state) -> dict:
     return {"frozen_tensors": len(frozen), "trained_tensors": len(trained)}
 
 
+def synthetic_split(root: str, n_images: int, img_dim: int, splits: tuple, seed: int,
+                    flat: bool = False) -> None:
+    """A synthetic f30k_precomp split under `root`: 36 regions of img_dim
+    features an image, or with `flat` one vector an image (VSE++'s
+    precomputed features), the mean of 12 regions, written as
+    {split}_ims.npy (as tests/test_e2e.py makes it)."""
+    d = os.path.join(root, "f30k_precomp")
+    generate(d, n_images=n_images, img_dim=img_dim, n_regions=12 if flat else 36,
+             splits=splits, seed=seed, n_concepts_range=(2, 10))
+    if flat:
+        for split in splits:
+            path = os.path.join(d, f"{split}_ims.npy")
+            np.save(path, np.load(path).mean(axis=1))
+
+
 def phase_train(root: str, card: str, name: str) -> dict:
     """A training slice at full width through fit: one epoch of a synthetic
     split, one validation and checkpoint mid-epoch and one at its end; the
@@ -3070,9 +3260,6 @@ def phase_train(root: str, card: str, name: str) -> dict:
      limits) = TRAIN_SLICES[name]
     log(f"training slice: {title} at full width")
     t0 = time.perf_counter()
-    generate(os.path.join(root, "f30k_precomp"), n_images=steps * 128 // 5, img_dim=2048,
-             splits=("train", "dev"), seed=data_seed, n_concepts_range=(2, 10))
-    write_tiny_bert_vocab(os.path.join(root, "vocab.txt"))  # CAMERA's BERT
     cfg = parse_cli(
         ["with", *(m.format(root=root) for m in method), "data_name=f30k_precomp",
          f"data_path={root}",
@@ -3080,6 +3267,9 @@ def phase_train(root: str, card: str, name: str) -> dict:
          "num_epochs=1", f"val_step={val_step}", "log_step=1", f"save_path={root}/runs",
          "seed=0"],
     )
+    synthetic_split(root, steps * cfg["batch_size"] // 5, cfg["img_dim"], ("train", "dev"),
+                    data_seed, flat=cfg["name"] == "VSE_PP")
+    write_tiny_bert_vocab(os.path.join(root, "vocab.txt"))  # CAMERA's and SAEM's BERT
     train_ds, val_ds, vocab_size = get_loaders(cfg)
     cfg["vocab_size"] = vocab_size
     log(f"  data set-up: {time.perf_counter() - t0:.1f} s ({len(train_ds)} train / "
@@ -3199,8 +3389,14 @@ def main():
         sgr, sgr_sims = phase_slice(data_root, card, "sgr")
         cam, _ = phase_slice(data_root, card, "camera")
         phase_slice(data_root, card, "vsrn")
+        new_slices = {"saem": phase_slice(data_root, card, "saem")[0],
+                      "saem_rnn": phase_slice(data_root, card, "saem_rnn")[0]}
         phase_ensemble(data_root, data_root, card)
         phase_sgraf_ensemble(data_root, data_root, card, {"sgr": sgr_sims, "saf": saf_sims})
+    with tempfile.TemporaryDirectory(prefix="itrx_smoke_vsepp_") as root:
+        # VSE++'s precomputed features: 1000 test images x one 4096-d vector
+        synthetic_split(root, 4000, 4096, ("test",), 0, flat=True)
+        new_slices["vsepp"] = phase_slice(root, card, "vsepp")[0]
     with tempfile.TemporaryDirectory(prefix="itrx_smoke_fold5_") as root:
         phase_fold5(root, card)
     with tempfile.TemporaryDirectory(prefix="itrx_smoke_train_") as root:
@@ -3213,6 +3409,20 @@ def main():
         tr_vsrn = phase_train(root, card, "vsrn")
     with tempfile.TemporaryDirectory(prefix="itrx_smoke_train_camera_") as root:
         tr_cam = phase_train(root, card, "camera")
+    new_train = {}
+    for name in ("vsepp", "saem"):
+        with tempfile.TemporaryDirectory(prefix=f"itrx_smoke_train_{name}_") as root:
+            new_train[name] = phase_train(root, card, name)
+    for name, r in new_slices.items():
+        log(f"{name} evaluation slice: encode {r['encode_seconds']:.4f} s, eval "
+            f"{r['eval_seconds']:.5f} s, {r['pairs_per_sec']:.4g} pairs/s, idle share of "
+            f"encode {r['profile_encode']['idle_share']}, gru launches "
+            f"{r['launches']['gru']} ({card})")
+    for name, r in new_train.items():
+        log(f"{name} training slice: step {r['step_seconds_median']:.5f} s (median), "
+            f"{r['samples_per_sec']:.1f} samples/s, fit {r['fit_seconds']:.2f} s, idle share "
+            f"{r['profile']['idle_share']}, gru / gru_bwd launches {r['launches']['gru']} / "
+            f"{r['launches']['gru_bwd']} ({card})")
     # launches: each kernel's count from the main path that runs it (SCAN's
     # training path for the GRU kernels and t2i validation, the i2t slice's
     # evaluate_split for xattn_i2t, the SAF and SGR slices' for their eval

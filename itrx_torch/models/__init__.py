@@ -6,15 +6,9 @@ import os
 
 import torch
 
+from ..data.precomp import RAW_DATASET_NAMES
 from ..utils.cli import default_device
-from . import bert, methods
-
-# methods not ported yet -> the ROADMAP item that ports each
-_NOT_PORTED = {
-    "VSE_PP": "ROADMAP queue 1 item 3 (VSE_PP)",
-    "VSE++": "ROADMAP queue 1 item 3 (VSE_PP)",
-    "SAEM": "ROADMAP queue 1 item 10 (SAEM)",
-}
+from . import bert, bert_methods, methods
 
 
 def get_model(config: dict, device=None, generator: torch.Generator | None = None):
@@ -25,8 +19,26 @@ def get_model(config: dict, device=None, generator: torch.Generator | None = Non
     (raising without a GPU), the CPU only when asked for."""
     device = default_device(device, "get_model")
     name = config["name"]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"{name} is not ported yet: {_NOT_PORTED[name]}")
+    if name in ("VSE_PP", "VSE++"):
+        if config.get("data_name", "f30k_precomp") in RAW_DATASET_NAMES:
+            raise NotImplementedError(
+                f"VSE++ on raw images ({config['data_name']}) is not ported yet: ROADMAP "
+                "queue 1 item 12 (the VGG19 / ResNet152 towers)")
+        model = methods.VSEPP(
+            vocab_size=config["vocab_size"],
+            img_dim=config["img_dim"],
+            embed_size=config["embed_size"],
+            word_dim=config["word_dim"],
+            measure=config["measure"],
+            use_abs=config["use_abs"],
+            no_imgnorm=config["no_imgnorm"],
+            margin=config.get("margin", 0.2),
+            max_violation=config.get("max_violation", False),
+            generator=generator,
+        )
+        return model.to(device).eval()
+    if name == "SAEM":
+        return _saem(config, generator).to(device).eval()
     if name == "CAMERA":
         return _camera(config, generator).to(device).eval()
     if name == "VSRN":
@@ -74,10 +86,6 @@ def get_model(config: dict, device=None, generator: torch.Generator | None = Non
         return model.to(device).eval()
     if name != "SCAN":
         raise ValueError(f"unknown method {name!r}")
-    if config.get("precomp_enc_type", "basic") != "basic":
-        raise NotImplementedError(
-            "precomp_enc_type='weight_norm' is not ported yet: ROADMAP queue 1 item 3"
-        )
     model = methods.SCAN(
         vocab_size=config["vocab_size"],
         img_dim=config["img_dim"],
@@ -94,9 +102,43 @@ def get_model(config: dict, device=None, generator: torch.Generator | None = Non
         margin=config["margin"],
         max_violation=config["max_violation"],
         use_fused_eval=config.get("use_fused_eval", True),
+        precomp_enc_type=config.get("precomp_enc_type", "basic"),
         generator=generator,
     )
     return model.to(device).eval()
+
+
+def _load_bert(config: dict, model) -> None:
+    """The frozen tower loaded from `init_checkpoint` when that file exists
+    (itrx's load_pretrained_weights)."""
+    path = config.get("init_checkpoint")
+    if path and os.path.exists(path):
+        bert.load_torch_bert(path, model.txt_enc.bert)
+        print(f"=> loaded pretrained BERT weights from {path}")
+
+
+def _saem(config: dict, generator: torch.Generator | None):
+    """SAEM with the config's BERT (`bert_config_file` when it exists, else
+    BERT-base with `vocab_size`) and transformer block
+    (bert_methods.trans_config_from), its frozen tower loaded from
+    `init_checkpoint` when that file exists (itrx's build_saem)."""
+    model = methods.SAEM(
+        bert.bert_config_from(config),
+        bert_methods.trans_config_from(config),
+        img_dim=config["img_dim"],
+        final_dims=config["final_dims"],
+        embed_size=config["embed_size"],
+        txt_stru=config["txt_stru"],
+        img_stru=config.get("img_stru", "trans"),
+        bi_gru=config["bi_gru"],
+        margin=config.get("margin", 0.2),
+        max_violation=config.get("max_violation", False),
+        measure=config["measure"],
+        dropout_seed=config.get("seed", 0),
+        generator=generator,
+    )
+    _load_bert(config, model)
+    return model
 
 
 def _camera(config: dict, generator: torch.Generator | None):
@@ -116,8 +158,5 @@ def _camera(config: dict, generator: torch.Generator | None):
         dropout_seed=config.get("seed", 0),
         generator=generator,
     )
-    path = config.get("init_checkpoint")
-    if path and os.path.exists(path):
-        bert.load_torch_bert(path, model.txt_enc.bert)
-        print(f"=> loaded pretrained BERT weights from {path}")
+    _load_bert(config, model)
     return model

@@ -8,8 +8,12 @@ reference's state-dict keys (`embeddings.word_embeddings.weight`,
 `encoder.layer.{i}.attention.self.query.weight`, ...,
 `pooler.dense.weight`), so a port checkpoint is the reference's.
 
-The tower runs as the reference's frozen, eval-mode BERT: it has no dropout.
-`load_torch_bert` reads a torch BERT checkpoint (bare or `bert.`-prefixed
+`BertLayer` drops the attention probabilities and both residual branches in
+train mode, at the config's `attention_probs_dropout_prob` and
+`hidden_dropout_prob`, its masks from a `DropoutRNG` (SAEM trains one such
+layer in each of its `trans` heads).  `BertModel` is the reference's frozen,
+eval-mode tower: it stays in eval mode whatever mode its parent is set to, so
+its layers never drop.  `load_torch_bert` reads a torch BERT checkpoint (bare or `bert.`-prefixed
 keys, LayerNorms as `gamma` / `beta` or `weight` / `bias`), as `itrx`'s
 `convert_bert_state_dict` accepts it.
 """
@@ -24,6 +28,8 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from .layers import DropoutRNG, SeededDropout
+
 
 def gelu_erf(x: torch.Tensor) -> torch.Tensor:
     return x * 0.5 * (1.0 + torch.erf(x / math.sqrt(2.0)))
@@ -36,14 +42,16 @@ class BertConfig:
     num_hidden_layers: int = 12
     num_attention_heads: int = 12
     intermediate_size: int = 3072
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
     max_position_embeddings: int = 512
     type_vocab_size: int = 16
     initializer_range: float = 0.02
 
     @classmethod
     def from_json_file(cls, path):
-        """The fields this tower reads; the file's others (hidden_act,
-        dropout rates) are left out."""
+        """The fields this tower reads; the file's others (hidden_act) are
+        left out."""
         with open(path) as f:
             d = json.load(f)
         return cls(**{k: v for k, v in d.items() if k in cls.__dataclass_fields__})
@@ -110,13 +118,14 @@ class BertEmbeddings(nn.Module):
 
 
 class BertSelfAttention(nn.Module):
-    def __init__(self, cfg: BertConfig, generator=None):
+    def __init__(self, cfg: BertConfig, generator=None, rng: DropoutRNG | None = None):
         super().__init__()
         h, std = cfg.hidden_size, cfg.initializer_range
         self.heads = cfg.num_attention_heads
         self.query = _dense(h, h, std, generator)
         self.key = _dense(h, h, std, generator)
         self.value = _dense(h, h, std, generator)
+        self.dropout = SeededDropout(cfg.attention_probs_dropout_prob, rng)
 
     def forward(self, hidden, attn_bias):
         b, n, h = hidden.shape
@@ -127,29 +136,31 @@ class BertSelfAttention(nn.Module):
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(dk)
         # the bias in the scores' dtype: an fp32 bias would promote a bf16
         # encode back to fp32 (-10000 is exact in bf16)
-        probs = torch.softmax(scores + attn_bias.to(scores.dtype), dim=-1)
+        probs = self.dropout(torch.softmax(scores + attn_bias.to(scores.dtype), dim=-1))
         return torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, n, h)
 
 
 class BertDenseNorm(nn.Module):
-    """dense -> residual -> LayerNorm (the reference's BERTSelfOutput and
-    BERTOutput)."""
+    """dense -> dropout -> residual -> LayerNorm (the reference's
+    BERTSelfOutput and BERTOutput)."""
 
-    def __init__(self, n_in: int, hidden: int, std: float, generator=None):
+    def __init__(self, n_in: int, hidden: int, std: float, generator=None, p: float = 0.0,
+                 rng: DropoutRNG | None = None):
         super().__init__()
         self.dense = _dense(n_in, hidden, std, generator)
         self.LayerNorm = BertLayerNorm(hidden)
+        self.dropout = SeededDropout(p, rng)
 
     def forward(self, x, residual):
-        return self.LayerNorm(residual + self.dense(x))
+        return self.LayerNorm(residual + self.dropout(self.dense(x)))
 
 
 class BertAttention(nn.Module):
-    def __init__(self, cfg: BertConfig, generator=None):
+    def __init__(self, cfg: BertConfig, generator=None, rng: DropoutRNG | None = None):
         super().__init__()
-        self.self = BertSelfAttention(cfg, generator)
+        self.self = BertSelfAttention(cfg, generator, rng)
         self.output = BertDenseNorm(cfg.hidden_size, cfg.hidden_size, cfg.initializer_range,
-                                    generator)
+                                    generator, cfg.hidden_dropout_prob, rng)
 
     def forward(self, hidden, attn_bias):
         return self.output(self.self(hidden, attn_bias), hidden)
@@ -166,14 +177,16 @@ class BertIntermediate(nn.Module):
 
 
 class BertLayer(nn.Module):
-    """One transformer block (ref BERTLayer, bert.py:262-273)."""
+    """One transformer block (ref BERTLayer, bert.py:262-273); in train mode
+    its three dropouts draw their masks from `rng`."""
 
-    def __init__(self, cfg: BertConfig, generator=None):
+    def __init__(self, cfg: BertConfig, generator=None, rng: DropoutRNG | None = None):
         super().__init__()
-        self.attention = BertAttention(cfg, generator)
+        self.attention = BertAttention(cfg, generator, rng)
         self.intermediate = BertIntermediate(cfg, generator)
         self.output = BertDenseNorm(cfg.intermediate_size, cfg.hidden_size,
-                                    cfg.initializer_range, generator)
+                                    cfg.initializer_range, generator, cfg.hidden_dropout_prob,
+                                    rng)
 
     def forward(self, hidden, attn_bias):
         hidden = self.attention(hidden, attn_bias)
@@ -205,7 +218,9 @@ class BertPooler(nn.Module):
 
 class BertModel(nn.Module):
     """Embeddings + encoder stack + pooler (ref BertModel, bert.py:305-358).
-    forward returns (every layer's output, the pooled output)."""
+    forward returns (every layer's output, the pooled output).  The tower is
+    frozen and stays in eval mode (no dropout) whatever mode its parent is
+    set to, as `itrx` calls it with train=False."""
 
     def __init__(self, cfg: BertConfig, generator: torch.Generator | None = None):
         super().__init__()
@@ -213,6 +228,10 @@ class BertModel(nn.Module):
         self.embeddings = BertEmbeddings(cfg, generator)
         self.encoder = BertEncoder(cfg, generator)
         self.pooler = BertPooler(cfg, generator)
+        self.eval()
+
+    def train(self, mode: bool = True):
+        return super().train(False)
 
     def forward(self, input_ids, token_type_ids, attention_mask):
         attn_bias = (1.0 - attention_mask[:, None, None, :].float()) * -10000.0

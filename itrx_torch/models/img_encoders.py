@@ -1,6 +1,7 @@
-"""Image encoders over precomputed region features (counterparts of
-itrx/models/img_encoders.py: EncoderImagePrecomp, the `basic` variant, and
-VSRN's EncoderImagePrecompAttn with its RsGCN blocks)."""
+"""Image encoders over precomputed features (counterparts of
+itrx/models/img_encoders.py: EncoderImagePrecomp, `basic` and
+`weight_norm`, and VSRN's EncoderImagePrecompAttn with its RsGCN
+blocks)."""
 
 from __future__ import annotations
 
@@ -12,23 +13,35 @@ from torch import nn
 
 from ..ops.norms import l2norm
 from ..ops.rnn import MaskedGRU
-from .layers import TorchBatchNorm, xavier_linear
+from .layers import TorchBatchNorm, WeightNormLinear, xavier_linear
 
 
 class EncoderImagePrecomp(nn.Module):
-    """Linear img_dim -> embed_size, then l2norm over the feature axis.
-    Works on (B, D) or (B, R, D) features."""
+    """Linear img_dim -> embed_size (`precomp_enc_type` "basic": a xavier
+    Linear; "weight_norm": WeightNormLinear), then l2norm over the feature
+    axis unless `no_imgnorm`, then the absolute value with `use_abs`.
+    Works on (B, D) (VSE++'s one vector an image) or (B, R, D) region
+    features alike."""
 
     def __init__(self, img_dim: int, embed_size: int, no_imgnorm: bool = False,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, *,
+                 precomp_enc_type: str = "basic", use_abs: bool = False):
         super().__init__()
         self.no_imgnorm = no_imgnorm
-        self.fc = xavier_linear(img_dim, embed_size, generator)
+        self.use_abs = use_abs
+        if precomp_enc_type == "basic":
+            self.fc = xavier_linear(img_dim, embed_size, generator)
+        elif precomp_enc_type == "weight_norm":
+            self.fc = WeightNormLinear(img_dim, embed_size, generator)
+        else:
+            raise ValueError(f"Unknown precomp_enc_type: {precomp_enc_type}")
 
     def forward(self, images):
         features = self.fc(images)
         if not self.no_imgnorm:
             features = l2norm(features, dim=-1)
+        if self.use_abs:
+            features = torch.abs(features)
         return features
 
 

@@ -1,8 +1,9 @@
 """Initializers of the reference, drawn from a torch.Generator, the
-BatchNorm of `itrx`'s TorchBatchNormCore over the last axis, and the dropout
-of the SGRAF, VSRN and CAMERA modules with its own random stream
-(counterparts of the parts of itrx/models/layers.py and flax's Dropout that
-SCAN, SGRAF, VSRN and CAMERA need)."""
+weight-normalized Linear of the `weight_norm` image encoder, the BatchNorm of
+`itrx`'s TorchBatchNormCore over the last axis, and the dropout of the SGRAF,
+VSRN, CAMERA and SAEM modules with its own random stream (counterparts of the
+parts of itrx/models/layers.py and flax's Dropout that the ported methods
+need)."""
 
 from __future__ import annotations
 
@@ -48,6 +49,29 @@ def torch_conv1d(in_channels: int, out_channels: int, kernel_size: int, dilation
         conv.weight.uniform_(-k, k, generator=generator)
         conv.bias.uniform_(-k, k, generator=generator)
     return conv
+
+
+class WeightNormLinear(nn.Module):
+    """torch's weight_norm(Linear, dim=None): w = g v / ||v||_F with a
+    scalar g, formed inside `forward` (`itrx`'s WeightNormLinear).  It owns
+    the reference's state-dict keys `weight_v` (out, in), `weight_g` (a
+    scalar) and `bias` as plain parameters, so a state dict and a swap of
+    parameters (encode_data's bf16 cast through functional_call) see them
+    as they are.  v and the bias start U(-k, k), k = 1 / sqrt(in), and g at
+    ||v||_F."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        k = 1.0 / math.sqrt(in_features)
+        v = torch.empty(out_features, in_features).uniform_(-k, k, generator=generator)
+        self.weight_v = nn.Parameter(v)
+        self.weight_g = nn.Parameter(torch.linalg.vector_norm(v))
+        self.bias = nn.Parameter(torch.empty(out_features).uniform_(-k, k, generator=generator))
+
+    def forward(self, x):
+        w = self.weight_g * self.weight_v / torch.linalg.vector_norm(self.weight_v)
+        return torch.nn.functional.linear(x, w, self.bias)
 
 
 def xavier_normal_linear(in_features: int, out_features: int,

@@ -1,8 +1,7 @@
-"""SCAN, VSRN, SGRAF and CAMERA (counterparts of
-itrx/models/methods.py::SCAN: `embed`, `similarity` and `loss`, t2i and
-i2t; ::VSRN: `embed`, `similarity` and `loss` with the caption decoder;
-::SGRAF with SGR or SAF: `embed`, `similarity` and `loss`; and
-itrx/models/bert_methods.py::CAMERA: `embed`, `similarity` and `loss`)."""
+"""The six methods (counterparts of itrx/models/methods.py::VSEPP on
+precomputed features; ::SCAN, t2i and i2t; ::VSRN with the caption decoder;
+::SGRAF with SGR or SAF; and itrx/models/bert_methods.py::SAEM and
+::CAMERA), each with `embed`, `similarity` and `loss`."""
 
 from __future__ import annotations
 
@@ -11,16 +10,72 @@ from torch import nn
 
 from ..ops import attention
 from ..ops.kernels.xattn import xattn_i2t_fused, xattn_t2i_fused
-from ..ops.losses import (contrastive_hinge, diversity_regularization, language_model_loss,
-                          triplet_loss)
-from ..ops.sim import cosine_sim, multi_view_matching, order_sim
+from ..ops.losses import (angular_loss, contrastive_hinge, diversity_regularization,
+                          language_model_loss, triplet_loss)
+from ..ops.sim import cosine_sim, multi_view_matching, order_sim, pdist, pdist_cos
 from .bert import BertConfig
-from .bert_methods import CAMERAImageEncoder, CAMERATextEncoder
+from .bert_methods import (BertMapping, CAMERAImageEncoder, CAMERATextEncoder, CnnMapping,
+                           FcMapping, RnnMapping, TransformerMapping)
 from .img_encoders import EncoderImagePrecomp, EncoderImagePrecompAttn
 from .layers import DropoutRNG
 from .sgraf import EncoderSimilarity
 from .txt_encoders import EncoderText
 from .vsrn_decoder import S2VTAttModel
+
+
+def sentence_grid(measure: str, img, cap):
+    """The (Ni, Nc) fp32 grid of sentence-level (Ni, E) and (Nc, E)
+    embeddings: order_sim with measure "order", else cosine_sim (VSE++ and
+    VSRN)."""
+    return order_sim(img, cap) if measure == "order" else cosine_sim(img, cap)
+
+
+class VSEPP(nn.Module):
+    """VSE++ on precomputed features (ref Models.py:63-144): one image
+    embedding (B, E) from a Linear over the image's feature vector (B,
+    img_dim), one caption embedding (B, E) from the GRU's output at the last
+    word, l2-normalized (`no_txtnorm` False whatever the config says, as the
+    reference passes it), both made absolute with `use_abs`; a cosine or
+    order grid and the hinge loss on it."""
+
+    def __init__(self, vocab_size: int, img_dim: int = 4096, embed_size: int = 1024,
+                 word_dim: int = 300, measure: str = "cosine", use_abs: bool = False,
+                 no_imgnorm: bool = False, margin: float = 0.2, max_violation: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if measure not in ("cosine", "order"):
+            raise ValueError(f"VSE++ measure must be 'cosine' or 'order', got {measure!r}")
+        self.measure = measure
+        self.margin = margin
+        self.max_violation = max_violation
+        self.img_enc = EncoderImagePrecomp(img_dim, embed_size, no_imgnorm, generator,
+                                           use_abs=use_abs)
+        self.txt_enc = EncoderText(vocab_size, word_dim, embed_size, no_txtnorm=False,
+                                   sentence_level=True, use_abs=use_abs, generator=generator)
+
+    def embed(self, batch: dict) -> dict:
+        img = self.img_enc(batch["images"])
+        cap = self.txt_enc(batch["cap_ids"], batch["cap_mask"])
+        return {"img": img, "cap": cap}
+
+    def forward(self, batch: dict) -> dict:
+        return self.embed(batch)
+
+    def fused_eval_active(self, device: torch.device, train: bool = False) -> bool:
+        """Always False: VSE++'s grid is one product; its kernel (the GRU)
+        runs inside `embed`."""
+        return False
+
+    def similarity(self, img, cap, cap_mask=None, train: bool = False):
+        return sentence_grid(self.measure, img, cap)
+
+    def loss(self, batch: dict, train: bool = True, epoch: int = 0):
+        """The training objective (itrx/models/methods.py:84-88): (hinge loss
+        on the in-batch grid, {"Loss": loss}); `epoch` is unused."""
+        e = self.embed(batch)
+        loss = contrastive_hinge(self.similarity(e["img"], e["cap"]), self.margin,
+                                 self.max_violation)
+        return loss, {"Loss": loss}
 
 
 class SCAN(nn.Module):
@@ -34,7 +89,8 @@ class SCAN(nn.Module):
                  raw_feature_norm: str = "clipped_l2norm", agg_func: str = "LogSumExp",
                  lambda_lse: float = 6.0, lambda_softmax: float = 9.0,
                  margin: float = 0.2, max_violation: bool = False,
-                 use_fused_eval: bool = True, generator: torch.Generator | None = None):
+                 use_fused_eval: bool = True, precomp_enc_type: str = "basic",
+                 generator: torch.Generator | None = None):
         super().__init__()
         if cross_attn not in ("t2i", "i2t"):
             raise ValueError(f"SCAN cross_attn must be 't2i' or 'i2t', got {cross_attn!r}")
@@ -46,7 +102,8 @@ class SCAN(nn.Module):
         self.margin = margin
         self.max_violation = max_violation
         self.use_fused_eval = use_fused_eval
-        self.img_enc = EncoderImagePrecomp(img_dim, embed_size, no_imgnorm, generator)
+        self.img_enc = EncoderImagePrecomp(img_dim, embed_size, no_imgnorm, generator,
+                                           precomp_enc_type=precomp_enc_type)
         self.txt_enc = EncoderText(vocab_size, word_dim, embed_size,
                                    use_bi_gru=bi_gru, no_txtnorm=no_txtnorm,
                                    generator=generator)
@@ -142,10 +199,7 @@ class VSRN(nn.Module):
         return False
 
     def similarity(self, img, cap, cap_mask=None, train: bool = False):
-        """The (Ni, Nc) fp32 grid of (Ni, E) and (Nc, E) embeddings."""
-        if self.measure == "order":
-            return order_sim(img, cap)
-        return cosine_sim(img, cap)
+        return sentence_grid(self.measure, img, cap)
 
     def loss(self, batch: dict, train: bool = True, epoch: int = 0):
         """The training objective (itrx/models/methods.py:270-283): (hinge
@@ -296,3 +350,100 @@ class CAMERA(nn.Module):
         div = diversity_regularization(e["smry_mat"])
         loss = ranking + div * self.smry_lamda
         return loss, {"Loss": loss, "Rank_Loss": ranking, "Div_loss": div}
+
+
+# the last names of SAEM's image-branch parameters that its weight penalty
+# leaves out: `itrx` skips the leaves named bias, gamma, beta, b_ih and b_hh,
+# so a bidirectional GRU's b_ih_reverse and b_hh_reverse stay in, as their
+# port names bias_ih_l0_reverse and bias_hh_l0_reverse do here
+_UNPENALIZED = ("bias", "gamma", "beta", "bias_ih_l0", "bias_hh_l0")
+
+
+class SAEM(nn.Module):
+    """SAEM (ref Models.py:369-464): one image embedding (B, final_dims)
+    from the `img_stru` branch ("trans", "fc", "cnn" or "rnn"), one caption
+    embedding (B, final_dims) from the frozen BERT and the `txt_stru` head
+    (BertMapping), a cosine grid (`pdist_cos`) or, with measure "order",
+    minus the euclidean distance, and the loss hinge + alpha x angular loss
+    + the image branch's weight penalty.  Every dropout (the transformer
+    blocks' and the text branch's) draws its masks from `dropout_rng`,
+    seeded from `dropout_seed`; BERT's parameters take no gradient."""
+
+    def __init__(self, bert_cfg: BertConfig, trans_cfg: BertConfig, img_dim: int = 2048,
+                 final_dims: int = 256, embed_size: int = 1024, txt_stru: str = "cnn",
+                 img_stru: str = "trans", bi_gru: bool = False, margin: float = 0.2,
+                 max_violation: bool = False, measure: str = "cosine", dropout_seed: int = 0,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.margin = margin
+        self.max_violation = max_violation
+        self.measure = measure
+        self.dropout_rng = DropoutRNG(dropout_seed)
+        if img_stru == "trans":
+            self.img_enc = TransformerMapping(img_dim, trans_cfg, final_dims, self.dropout_rng,
+                                              generator)
+        elif img_stru == "fc":
+            self.img_enc = FcMapping(img_dim, final_dims, generator)
+        elif img_stru == "cnn":
+            self.img_enc = CnnMapping(img_dim, final_dims, generator)
+        elif img_stru == "rnn":
+            self.img_enc = RnnMapping(img_dim, final_dims, generator)
+        else:
+            raise ValueError(f"Unknown img_stru: {img_stru}")
+        self.txt_enc = BertMapping(bert_cfg, trans_cfg, final_dims, embed_size, txt_stru,
+                                   bi_gru, self.dropout_rng, generator)
+
+    def embed(self, batch: dict) -> dict:
+        cap = self.txt_enc(batch["cap_ids"], batch["cap_mask"], batch["type_ids"])
+        img = self.img_enc(batch["images"])
+        return {"img": img, "cap": cap}
+
+    def forward(self, batch: dict) -> dict:
+        return self.embed(batch)
+
+    def fused_eval_active(self, device: torch.device, train: bool = False) -> bool:
+        """Always False: SAEM's grid is one product (`itrx` computes it
+        outside any kernel too)."""
+        return False
+
+    def similarity(self, img, cap, cap_mask=None, train: bool = False):
+        """The (Ni, Nc) fp32 grid: pdist_cos, or -pdist with measure
+        "order"."""
+        if self.measure == "order":
+            return -pdist(img, cap)
+        return pdist_cos(img, cap)
+
+    def penalized(self) -> list:
+        """The names of the image branch's parameters that the weight
+        penalty sums (those whose last name is not in _UNPENALIZED)."""
+        return [k for k, _ in self.img_enc.named_parameters()
+                if k.rsplit(".", 1)[-1] not in _UNPENALIZED]
+
+    def weight_reg(self):
+        """0.01 x the sum of the Frobenius norms of `penalized()` (ref
+        Models.py:433-439, itrx's _weight_reg)."""
+        params = dict(self.img_enc.named_parameters())
+        return 0.01 * sum(params[k].norm() for k in self.penalized())
+
+    @staticmethod
+    def alpha(epoch: int) -> float:
+        """The angular loss's weight: 0.5 x 0.1^(epoch // 5), 0 past epoch
+        20 (ref Models.py:419-442)."""
+        return 0.0 if epoch > 20 else 0.5 * 0.1 ** (epoch // 5)
+
+    def loss(self, batch: dict, train: bool = True, epoch: int = 0):
+        """The training objective (itrx/models/bert_methods.py:240-251):
+        (hinge + alpha(epoch) x angular_loss + weight_reg, {"Loss", "Loss1",
+        "Loss2"}).  `train` must agree with the module's mode
+        (model.train())."""
+        if train != self.training:
+            raise ValueError(
+                f"SAEM.loss(train={train}) with the model in "
+                f"{'train' if self.training else 'eval'} mode: call model.train() for "
+                "training")
+        e = self.embed(batch)
+        loss1 = contrastive_hinge(self.similarity(e["img"], e["cap"]), self.margin,
+                                  self.max_violation)
+        loss2 = angular_loss(e["img"], e["cap"], 1.0, True)
+        loss = loss1 + self.alpha(epoch) * loss2 + self.weight_reg()
+        return loss, {"Loss": loss, "Loss1": loss1, "Loss2": loss2}

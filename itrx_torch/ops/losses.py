@@ -1,6 +1,6 @@
 """Training objectives (counterpart of itrx/ops/losses.py: the hinge every
-method trains with, CAMERA's diversity regularizer, and VSRN's
-caption-decoder loss)."""
+method trains with, CAMERA's diversity regularizer, VSRN's caption-decoder
+loss, and SAEM's angular loss with its n-pair sibling)."""
 
 from __future__ import annotations
 
@@ -53,3 +53,48 @@ def language_model_loss(logprobs, targets, mask):
     mask = mask[:, :t].float()
     nll = -torch.gather(logprobs, 2, targets[..., None])[..., 0].float()
     return (nll * mask).sum() / logprobs.shape[0]
+
+
+# the excluded diagonal of a max over negatives (itrx's NEG_INF)
+NEG_INF = -1e18
+
+
+def npair_loss(im, s, max_violation: bool = True):
+    """N-pair loss, the negatives of a row every other row, both directions
+    (itrx/ops/losses.py::npair_loss): x[i, j] = a_i . (p_j - p_i), then the
+    sum of log(1 + the hardest x) with `max_violation`, else the mean of
+    log(1 + sum_j exp x[i, j])."""
+
+    def one_direction(anchors, positives):
+        ap = torch.matmul(anchors, positives.t())
+        x = ap - torch.diagonal(ap)[:, None]
+        eye = torch.eye(x.shape[0], dtype=torch.bool, device=x.device)
+        if max_violation:
+            return torch.log(1.0 + x.masked_fill(eye, NEG_INF).amax(dim=1)).sum()
+        e = torch.exp(x).masked_fill(eye, 0.0).sum(dim=1)
+        return torch.log(1.0 + e).mean()
+
+    return one_direction(im, s) + one_direction(s, im)
+
+
+def angular_loss(im, s, angle_bound: float = 1.0, max_violation: bool = True):
+    """Angular loss (Wang et al., ICCV'17), the negatives of a row every
+    other row, both directions (itrx/ops/losses.py::angular_loss):
+    x[i, j] = 4 tan^2(a) (a_i + p_i) . p_j - 2 (1 + tan^2(a)) a_i . p_i, with
+    `angle_bound` = tan^2(a); then the sum of softplus(the hardest x) with
+    `max_violation`, else the mean of log(1 + sum_j exp x[i, j]) as a
+    log-sum-exp shifted by the row's largest negative."""
+
+    def one_direction(anchors, positives):
+        eye = torch.eye(anchors.shape[0], dtype=torch.bool, device=anchors.device)
+        m = 4.0 * angle_bound * torch.matmul(anchors + positives, positives.t())
+        d = 2.0 * (1.0 + angle_bound) * (anchors * positives).sum(dim=1)
+        x = m - d[:, None]
+        if max_violation:
+            cost = x.masked_fill(eye, NEG_INF).amax(dim=1)
+            return torch.log1p(torch.exp(cost)).sum()
+        t = x.masked_fill(eye, NEG_INF).amax(dim=1, keepdim=True)
+        e = torch.exp(x - t).masked_fill(eye, 0.0).sum(dim=1)
+        return (t[:, 0] + torch.log(torch.exp(-t[:, 0]) + e)).mean()
+
+    return one_direction(im, s) + one_direction(s, im)

@@ -19,6 +19,7 @@ import torch
 
 from ..configs import load_hyperparams
 from ..data import precomp
+from ..data.precomp import RAW_DATASET_NAMES
 from ..eval import engine
 from ..utils.checkpoint import (load_checkpoint, load_state_list,
                                 save_train_checkpoint)
@@ -44,10 +45,10 @@ def check_supported(config: dict) -> None:
         raise NotImplementedError(
             "multi-device training (mesh_shape / multihost) is not ported yet: "
             "ROADMAP queue 1 item 13")
-    if config["name"] not in ("SCAN", "VSRN", "SGRAF", "CAMERA"):
+    if config["name"] in ("VSE_PP", "VSE++") and config.get("data_name") in RAW_DATASET_NAMES:
         raise NotImplementedError(
-            f"training {config['name']} is not ported yet: only SCAN, VSRN, SGRAF and "
-            "CAMERA are (VSE++ is ROADMAP queue 1 item 3, SAEM item 10)")
+            f"training VSE++ on raw images ({config['data_name']}) is not ported yet: "
+            "ROADMAP queue 1 item 12 (the VGG19 / ResNet152 towers)")
 
 
 def make_train_step(state: TrainState, seed: int = 0):

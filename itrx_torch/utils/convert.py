@@ -1,14 +1,17 @@
 """Weights between the JAX package and the port, numpy only (counterpart of
-itrx/utils/ref_convert.py for SCAN, VSRN with its caption model, SGRAF
-with SGR or SAF, and CAMERA with its BERT tower).
+itrx/utils/ref_convert.py for VSE++ on precomputed features, SCAN (`basic`
+or `weight_norm`), VSRN with its caption model, SGRAF with SGR or SAF, and
+SAEM (every image and text branch) and CAMERA with their BERT towers).
 
 The port keeps the reference PyTorch names and layouts: Linear `weight
 (out, in)`, Conv1d `weight (out, in, k)`, `torch.nn.GRU`'s `weight_ih_l0`
 ... (+ `_reverse`), `embed.weight`, BatchNorm `weight`, `bias`,
-`running_mean`, `running_var`, and BERT's LayerNorm `gamma`, `beta`.  The
-JAX package keeps flax's: Dense `kernel (in, out)`, Conv `kernel (k, in,
-out)`, MaskedGRU `w_ih` ..., `embedding`, and BatchNorm `scale`, `bias`
-with `mean`, `var` in the `batch_stats` collection.
+`running_mean`, `running_var`, BERT's LayerNorm `gamma`, `beta`, SAEM's
+text and image convolutions as Conv2d `weight (out, 1, k, width)`, and
+weight_norm's `weight_v (out, in)`, `weight_g ()`.  The JAX package keeps
+flax's: Dense `kernel (in, out)`, Conv `kernel (k, in, out)`, MaskedGRU
+`w_ih` ..., `embedding`, BatchNorm `scale`, `bias` with `mean`, `var` in the
+`batch_stats` collection, and WeightNormLinear `v (in, out)`, `g ()`.
 """
 
 from __future__ import annotations
@@ -142,11 +145,7 @@ def _bert(sd: dict, key: str, bert) -> None:
     _layer_norm(sd, f"{key}.embeddings.LayerNorm", bert["emb_ln"])
     i = 0
     while f"layer_{i}" in bert:
-        layer, base = bert[f"layer_{i}"], f"{key}.encoder.layer.{i}"
-        for ours, theirs in _BERT_LINEARS:
-            _linear(sd, f"{base}.{ours}", layer[theirs])
-        for ours, theirs in _BERT_NORMS:
-            _layer_norm(sd, f"{base}.{ours}", layer[theirs])
+        _bert_layer(sd, f"{key}.encoder.layer.{i}", bert[f"layer_{i}"])
         i += 1
     _linear(sd, f"{key}.pooler.dense", bert["pooler"])
 
@@ -161,6 +160,53 @@ def _agsa(sd: dict, key: str, agsa, stats) -> None:
         _bn(sd, f"{key}.bns.{i}", agsa[f"bn_{i}"]["BatchNorm_0"],
             stats[f"bn_{i}"]["BatchNorm_0"])
         i += 1
+
+
+def _bert_layer(sd: dict, key: str, layer) -> None:
+    """A flax BertLayer -> the port's BertLayer keys under `key`."""
+    for ours, theirs in _BERT_LINEARS:
+        _linear(sd, f"{key}.{ours}", layer[theirs])
+    for ours, theirs in _BERT_NORMS:
+        _layer_norm(sd, f"{key}.{ours}", layer[theirs])
+
+
+def _conv_bank(sd: dict, key: str, node) -> None:
+    """flax Convs conv_{i}, kernel (k, width, out) -> the reference's Conv2d
+    `convs1.{i}`, weight (out, 1, k, width) (ref_convert's _txt_conv2d, the
+    other way)."""
+    i = 0
+    while f"conv_{i}" in node:
+        conv = node[f"conv_{i}"]
+        sd[f"{key}.convs1.{i}.weight"] = _np(conv["kernel"]).transpose(2, 0, 1)[:, None]
+        sd[f"{key}.convs1.{i}.bias"] = _np(conv["bias"])
+        i += 1
+
+
+def _gru_node(sd: dict, key: str, node) -> None:
+    """A flax MaskedGRU (w_ih ..., + _reverse) -> torch.nn.GRU's keys."""
+    for suf in ("", "_reverse"):
+        if f"w_ih{suf}" in node:
+            for ours, theirs in _GRU:
+                sd[f"{key}.{ours}{suf}"] = _np(node[f"{theirs}{suf}"])
+
+
+def _saem(variables) -> dict:
+    """SAEM's image branch (trans, fc, cnn or rnn) and text branch (BERT and
+    its cnn, pooling, rnn or trans head); itrx/utils/ref_convert.py::
+    convert_transformer_mapping and ::convert_bert_mapping, the other way."""
+    img, txt = variables["params"]["img_enc"], variables["params"]["txt_enc"]
+    sd = {}
+    for key, node in (("img_enc", img), ("txt_enc", txt)):
+        for name in ("mapping", "mapping_0", "fc1"):
+            if name in node:
+                _linear(sd, f"{key}.{name}", node[name])
+        if "layer" in node:
+            _bert_layer(sd, f"{key}.layer", node["layer"])
+        if "rnn" in node:
+            _gru_node(sd, f"{key}.rnn", node["rnn"])
+        _conv_bank(sd, key, node)
+    _bert(sd, "txt_enc.bert", txt["bert"])
+    return sd
 
 
 def _camera(variables) -> dict:
@@ -190,23 +236,23 @@ def _camera(variables) -> dict:
 
 
 def from_itrx_variables(variables) -> dict:
-    """A JAX SCAN, VSRN, SGRAF or CAMERA variable tree ({'params': {...}}
-    and, for VSRN, SGRAF and CAMERA, {'batch_stats': {...}}; leaves as
-    arrays) -> the port's state dict (numpy values)."""
+    """A JAX VSE++, SCAN, VSRN, SGRAF, SAEM or CAMERA variable tree
+    ({'params': {...}} and, for VSRN, SGRAF and CAMERA, {'batch_stats':
+    {...}}; leaves as arrays) -> the port's state dict (numpy values)."""
     p = variables["params"]
     img, txt = p["img_enc"], p["txt_enc"]
     if "mvs" in img:
         return {k: np.ascontiguousarray(v) for k, v in _camera(variables).items()}
-    sd = {
-        "img_enc.fc.weight": _np(img["fc"]["kernel"]).T,
-        "img_enc.fc.bias": _np(img["fc"]["bias"]),
-        "txt_enc.embed.weight": _np(txt["embedding"]),
-    }
-    gru = txt["MaskedGRU_0"]
-    for suf in ("", "_reverse"):
-        if f"w_ih{suf}" in gru:
-            for ours, theirs in _GRU:
-                sd[f"txt_enc.rnn.{ours}{suf}"] = _np(gru[f"{theirs}{suf}"])
+    if "bert" in txt:
+        return {k: np.ascontiguousarray(v) for k, v in _saem(variables).items()}
+    sd = {"txt_enc.embed.weight": _np(txt["embedding"])}
+    if "v" in img["fc"]:  # weight_norm: v (in, out) and a scalar g
+        sd["img_enc.fc.weight_v"] = _np(img["fc"]["v"]).T
+        sd["img_enc.fc.weight_g"] = _np(img["fc"]["g"]).reshape(())
+    else:
+        sd["img_enc.fc.weight"] = _np(img["fc"]["kernel"]).T
+    sd["img_enc.fc.bias"] = _np(img["fc"]["bias"])
+    _gru_node(sd, "txt_enc.rnn", txt["MaskedGRU_0"])
     if "sim_enc" in p:
         sim, stats = p["sim_enc"], variables["batch_stats"]["sim_enc"]
         linears, bns = _sgraf_modules(sim["scorer"])
@@ -224,7 +270,8 @@ def from_itrx_variables(variables) -> dict:
 
 def to_itrx_flat(state_dict) -> list:
     """The port's state dict -> the reference checkpoint's state-dict list,
-    [img_enc, txt_enc] for SCAN and CAMERA, [img_enc, txt_enc, sim_enc] for SGRAF and
+    [img_enc, txt_enc] for VSE++, SCAN, SAEM and CAMERA, [img_enc, txt_enc,
+    sim_enc] for SGRAF and
     [img_enc, txt_enc, caption_model] for VSRN (numpy values), which
     `itrx.utils.ref_convert.convert_state_list` flattens to the JAX
     package's {path: array} leaves (the BatchNorm running statistics

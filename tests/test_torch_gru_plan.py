@@ -25,11 +25,14 @@ MODES = ((torch.bfloat16, False), (torch.float32, False), (torch.float32, True))
 def config_widths() -> tuple:
     """The hidden widths of every MaskedGRU that the overlays of the methods
     with a GRU build (SCAN one-way and bi-GRU, SGRAF, VSRN: its text and
-    region GRUs and the caption model's), read off the models on the meta
-    device."""
+    region GRUs and the caption model's; VSE++'s text GRU; SAEM's rnn heads,
+    over BERT's last layer and over the regions), read off the models on the
+    meta device."""
     widths = set()
     for overlay, extra in ((configs.SCAN, {}), (configs.SCAN, {"bi_gru": True}),
-                           (configs.SGRAF, {}), (configs.VSRN, {})):
+                           (configs.SGRAF, {}), (configs.VSRN, {}), (configs.VSE_PP, {}),
+                           (configs.SAEM, {"txt_stru": "rnn", "img_stru": "rnn",
+                                           "bi_gru": True})):
         cfg = configs.base_config()
         cfg.update(overlay())
         cfg.update(extra, vocab_size=100)
@@ -40,8 +43,10 @@ def config_widths() -> tuple:
 
 
 def test_config_widths_are_the_known_ones():
-    """SCAN and SGRAF embed 1024; VSRN embed 2048 and dim_hidden 512."""
-    assert config_widths() == (512, 1024, 2048)
+    """SCAN, SGRAF and VSE++ embed 1024; VSRN embed 2048 and dim_hidden 512;
+    SAEM's text rnn head embed_size 1024, its image rnn head final_dims
+    256."""
+    assert config_widths() == (256, 512, 1024, 2048)
 
 
 @pytest.mark.parametrize("dtype,backward", MODES)

@@ -467,20 +467,24 @@ def test_sgraf_saf_training_names_its_roadmap_item():
 
 
 def test_check_supported_refuses_sgraf_training():
-    """check_supported accepts SGRAF with SAF and with SGR, VSRN and CAMERA
-    (its training, with the AGSA backward kernel, is ported), and still
-    refuses train_bf16, meshes and the methods whose training is not ported
-    (VSE++ and SAEM, each naming its item)."""
+    """check_supported accepts all six methods: SGRAF with SAF and with SGR,
+    VSRN, CAMERA, SCAN, VSE++ on precomputed features and SAEM; it still
+    refuses VSE++ on raw images (ROADMAP item 12), train_bf16 (item 7) and
+    meshes (item 13)."""
     loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SAF"))
     loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SGR"))
     loop.check_supported(dict(_cfg(), name="VSRN"))
     loop.check_supported(dict(_cfg(), name="CAMERA"))
     loop.check_supported(_cfg())
-    for name, item in (("VSE_PP", "VSE\\+\\+ is ROADMAP queue 1 item 3"),
-                       ("SAEM", "SAEM item 10")):
-        with pytest.raises(NotImplementedError,
-                           match=f"only SCAN, VSRN, SGRAF and CAMERA are.*{item}"):
-            loop.check_supported(dict(_cfg(), name=name))
+    for name in ("VSE_PP", "VSE++", "SAEM"):
+        loop.check_supported(dict(_cfg(), name=name, data_name="f30k_precomp"))
+    for data_name in ("coco", "f8k", "f30k"):
+        with pytest.raises(NotImplementedError, match="raw images.*ROADMAP queue 1 item 12"):
+            loop.check_supported(dict(_cfg(), name="VSE_PP", data_name=data_name))
+    with pytest.raises(NotImplementedError, match="train_bf16.*item 7"):
+        loop.check_supported(dict(_cfg(), name="SAEM", train_bf16=True))
+    with pytest.raises(NotImplementedError, match="mesh_shape.*item 13"):
+        loop.check_supported(dict(_cfg(), name="VSE_PP", mesh_shape=[2]))
     with pytest.raises(NotImplementedError, match="train_bf16"):
         loop.check_supported(dict(_cfg(), name="CAMERA", train_bf16=True))
     with pytest.raises(NotImplementedError, match="mesh_shape"):

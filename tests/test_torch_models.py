@@ -11,6 +11,8 @@ import torch
 from itrx.models import get_model as jget_model
 from itrx.models.txt_encoders import EncoderText as JEncoderText
 from itrx.utils.ref_convert import convert_state_list, merge_into_variables
+from itrx_torch.configs import SAEM as SAEM_OVERLAY
+from itrx_torch.configs import base_config
 from itrx_torch.models import agsa, get_model
 from itrx_torch.models.txt_encoders import EncoderText
 from itrx_torch.ops.kernels.agsa_attn import agsa_attention_plain
@@ -126,13 +128,13 @@ def test_sentence_level_text_encoder_matches_jax(rng):
 
 @pytest.mark.parametrize("name", ["VSE_PP", "VSRN", "SAEM", "CAMERA"])
 def test_unported_methods_name_their_roadmap_item(name, monkeypatch):
-    """The two methods not ported yet (VSE++, SAEM) each name their item;
-    VSRN, ported with its training, builds with the reference's parts and
-    keys (SGRAF is ported with SGR and SAF); CAMERA, ported with its
-    training, builds with its two parts, and its train-mode loss (on the
-    meta device, at BERT-base, the AGSA wrapper swapped for its plain
-    version, which runs on any device) returns the loss with its three aux
-    values."""
+    """Every method builds with the reference's parts and keys.  VSE++ (on
+    precomputed features; raw images still name their item, 12) and VSRN on
+    the CPU; SAEM at its overlay's widths (BERT-base, the port's trans_cfg)
+    and CAMERA on the meta device, each with its two parts, and a loss that
+    returns its aux values (SAEM's in eval mode; CAMERA's in train mode, its
+    AGSA wrapper swapped for its plain version, which runs on any
+    device)."""
     cfg = _cfg(False, name=name, module_name="SGR", sim_dim=16, data_name="f30k_precomp",
                measure="cosine", use_abs=False, max_len=7, dim_hidden=16, dim_vid=128,
                dim_word=8, input_dropout_p=0.2)
@@ -152,9 +154,40 @@ def test_unported_methods_name_their_roadmap_item(name, monkeypatch):
         assert sorted(aux) == ["Div_loss", "Loss", "Rank_Loss"] and aux["Loss"] is loss
         assert loss.shape == () and all(v.shape == () for v in aux.values())
         return
-    if name != "VSRN":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(cfg, device="cpu")
+    if name == "SAEM":
+        cfg.update(SAEM_OVERLAY(), trans_cfg=base_config()["trans_cfg"], img_dim=48)
+        with torch.device("meta"):
+            model = get_model(cfg, device="meta")
+        assert [n for n, _ in model.named_children()] == ["img_enc", "txt_enc"]
+        sd = model.state_dict()
+        assert sd["img_enc.mapping.weight"].shape == (256, 48)
+        assert sd["img_enc.layer.attention.self.query.weight"].shape == (256, 256)
+        assert sd["img_enc.layer.intermediate.dense.weight"].shape == (1024, 256)
+        assert sd["txt_enc.convs1.2.weight"].shape == (512, 1, 3, 768)
+        assert sd["txt_enc.mapping.weight"].shape == (256, 3 * 512)
+        assert sd["txt_enc.bert.encoder.layer.11.output.dense.weight"].shape == (768, 3072)
+        b, r, l = 3, 5, 4
+        with torch.device("meta"):
+            batch = {"images": torch.empty(b, r, 48), "cap_mask": torch.empty(b, l),
+                     "cap_ids": torch.zeros(b, l, dtype=torch.long),
+                     "type_ids": torch.zeros(b, l, dtype=torch.long)}
+        # eval mode: the dropouts' generators have no meta device
+        loss, aux = model.loss(batch, train=False)
+        assert sorted(aux) == ["Loss", "Loss1", "Loss2"] and aux["Loss"] is loss
+        assert loss.shape == () and all(v.shape == () for v in aux.values())
+        return
+    if name == "VSE_PP":
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+            get_model(dict(cfg, data_name="f30k"), device="cpu")
+        model = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+        assert not model.training and not model.fused_eval_active(torch.device("cuda"))
+        sd = model.state_dict()
+        assert sorted(sd) == ["img_enc.fc.bias", "img_enc.fc.weight", "txt_enc.embed.weight",
+                              "txt_enc.rnn.bias_hh_l0", "txt_enc.rnn.bias_ih_l0",
+                              "txt_enc.rnn.weight_hh_l0", "txt_enc.rnn.weight_ih_l0"]
+        assert sd["img_enc.fc.weight"].shape == (128, 48)
+        assert sd["txt_enc.rnn.weight_ih_l0"].shape == (3 * 128, 32)
+        assert model.txt_enc.sentence_level and not model.txt_enc.no_txtnorm
         return
     model = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     assert not model.training and not model.fused_eval_active(torch.device("cuda"))

@@ -201,10 +201,11 @@ def _batch(rng, b=6, r=36, l=10):
     }
 
 
-def _pair(rng, cfg):
-    """(JAX model, JAX variables as numpy, port model with the same weights)."""
+def _pair(rng, cfg, batch_fn=_batch):
+    """(JAX model, JAX variables as numpy, port model with the same weights);
+    `batch_fn(rng)` makes the batch that traces the JAX model."""
     jmodel = jget_model(cfg)
-    jb = {k: jnp.asarray(v) for k, v in _batch(rng).items()}
+    jb = {k: jnp.asarray(v) for k, v in batch_fn(rng).items()}
     variables = jax.device_get(
         jmodel.init({"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
                     jb, train=False))
@@ -278,11 +279,11 @@ def test_i2t_train_step_matches_jax(rng):
                                  lambda_softmax=4.0), 1)
 
 
-def _check_train_steps(rng, cfg, n_steps):
+def _check_train_steps(rng, cfg, n_steps, batch_fn=_batch):
     lr = cfg["learning_rate"]
     thr, tight = STEP_LIMITS[n_steps]
-    jmodel, variables, model = _pair(rng, cfg)
-    batches = [_batch(rng) for _ in range(n_steps)]
+    jmodel, variables, model = _pair(rng, cfg, batch_fn)
+    batches = [batch_fn(rng) for _ in range(n_steps)]
 
     jst, tx = jstate.create_train_state(
         jmodel, cfg, {k: jnp.asarray(v) for k, v in batches[0].items()}, steps_per_epoch=2)
