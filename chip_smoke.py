@@ -71,7 +71,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    the plain one bit for bit at the towers' calls and at B 129, the count
    of differing elements printed everywhere), with each launch plan and
    SDPA on the gated image-tower qm, km as a yardstick of the attention
-   half alone; and the GRU kernels
+   half alone; the bf16 modes of train_bf16's path: the GRU adjoint with
+   bf16 W_hh (GRU_BF16_BWD_SHAPES: SCAN's 128 x 48 x H 1024 and VSRN's two
+   H 2048 calls, resident) against gru_bwd_plain at bf16 dot on the bf16
+   forward kernel's residuals, two calls bit-identical, timed beside the
+   fp32 adjoint and cuDNN's bf16 GRU, and VSRN's decoder pair in its
+   bf16-operand mode (VSRN_DEC_BF16_SHAPES) against the plain pair at bf16
+   dot, timed beside the fp32 mode; each printed with the share of entries
+   that differ and the same plain version without the bf16 roundings; and
+   the GRU kernels
    at VSRN's text width (H 2048, 61 steps, fp32: the streamed route)
    against autograd through the plain GRU, timed beside cuDNN;
 4. the evaluation slices at full width on an f30k-1K-shaped synthetic split
@@ -181,7 +189,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    no Adam state; the first step (every dropout at 0, the angular loss at
    epoch 0's weight) matches a CPU copy.  Each new slice's encode, eval,
    pairs/s and step seconds are printed with the card's name and power
-   limit.
+   limit;
+13. train_bf16 (train/loop.py::cast_loss, `itrx`'s
+   make_train_step(compute_dtype="bfloat16")): VSRN's, SCAN's and CAMERA's
+   commands with train_bf16=True through fit, 25 steps each (the GRU pair
+   at H 2048 and the decoder pair in their bf16 modes; the GRU pair and
+   xattn in validation; the AGSA pair in bf16), each with the counters,
+   falling losses, evalrank_single reproducing best_rsum, fp32 masters,
+   BatchNorm buffers and Adam moments after fit, and _bf16_step_witness:
+   the first bf16 step against the same cast step on a CPU copy (loss,
+   every gradient against bf16's own distance from the fp32 step, the
+   statistics written back as bf16 values), the bf16 loss within 3% of
+   the fp32 one; then 3 steps under train_bf16 of SGRAF-SGR (sim_bf16),
+   VSE++ and SAEM (phase_bf16_steps: finite losses, their kernels'
+   counters, fp32 masters).
 
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -235,7 +256,7 @@ from itrx_torch.ops.kernels.vsrn_dec import (vsrn_dec_bwd_fused, vsrn_dec_bwd_pl
 from itrx_torch.ops.kernels.xattn import (xattn_i2t_fused, xattn_i2t_plain,
                                           xattn_t2i_fused, xattn_t2i_plain)
 from itrx_torch.ops.rnn import gru_bwd_plain, gru_fwd_plain, gru_scan
-from itrx_torch.train.loop import fit, make_train_step, prefetch
+from itrx_torch.train.loop import cast_loss, fit, make_train_step, prefetch
 from itrx_torch.train.state import create_train_state
 from itrx_torch.utils.checkpoint import load_checkpoint, load_state_list, save_checkpoint
 
@@ -485,6 +506,11 @@ SOURCES = {"gru": "gru.cu", "gru_bwd": "gru_bwd.cu", "xattn": "xattn.cu",
            "sgraf_align_bwd": "sgraf_align_bwd.cu", "sgr": "sgr.cu", "sgr_bwd": "sgr_bwd.cu",
            "vsrn_dec": "vsrn_dec.cu", "vsrn_dec_bwd": "vsrn_dec_bwd.cu",
            "agsa_attn": "agsa_attn.cu", "agsa_attn_bwd": "agsa_attn_bwd.cu"}
+# the kernels line's rows of bf16 modes, by the kernel whose source, TPU
+# kernel and wrapper they share; the wrapper counts their launches among its
+# own and also in its bf16_launches
+MODE_OF = {"gru_bwd_bf16": "gru_bwd", "vsrn_dec_bf16": "vsrn_dec",
+           "vsrn_dec_bwd_bf16": "vsrn_dec_bwd"}
 COUNTERS = {"gru": gru_scan_fused, "gru_bwd": gru_bwd_fused, "xattn": xattn_t2i_fused,
             "xattn_i2t": xattn_i2t_fused, "sgraf_eval_saf": sgraf_eval_saf_fused,
             "sgraf_eval_sgr": sgraf_eval_sgr_fused, "sgraf_align": sgraf_align_fused,
@@ -547,6 +573,28 @@ GRU_FWD_SHAPES = ((128, 24, 300, 1024), (8, 24, 300, 1024), (1, 24, 300, 1024),
 # slots, H 256 over 36 regions) and the ragged H
 GRU_BWD_SHAPES = ((8, 48, 1024), (1, 48, 1024), (128, 36, 512), (64, 32, 1024),
                   (64, 36, 256), (37, 21, 1036))
+# (B, L, H) the bf16 W_hh adjoint (train_bf16) is held and timed at: SCAN's
+# training call (48 words, H 1024) and VSRN's two H 2048 call sites (the text
+# GRU over 61 slots, the region GRU over 36 regions)
+GRU_BF16_BWD_SHAPES = ((128, 48, 1024), (128, 61, 2048), (128, 36, 2048))
+# the bf16 adjoint against gru_bwd_plain(dot_dtype=bf16) on the bf16
+# forward kernel's residuals, max|kernel - plain| / max|plain| per output.
+# Both round g_gh to bf16 before the product and write ggx and ghn as bf16
+# values, so an entry whose fp32 value the two sides sum in another order
+# may round one bf16 step apart: up to 2^-7 of the largest entry; what
+# holds their rounding points is the share of entries that differ at all
+# (GRU_BF16_UNEQUAL: read at most 0.024 on the H100 at these shapes, on
+# BF16_MODES_SEED's inputs and on another draw; the plain adjoint without
+# the roundings, its output alone rounded, at least 0.064).  g_h0 is fp32
+# and held in the fp32 order's kind: read at most 2.2e-4, the plain adjoint
+# without the roundings (fp32 g_gh and W_hh) at least 4.7e-4.  Each reading
+# must pass its limit, and the plain adjoint without the roundings must
+# fail it
+GRU_BF16_BWD_REL = {"ggx": 2.0 ** -7, "ghn": 2.0 ** -7, "g_h0": 3.3e-4}
+GRU_BF16_UNEQUAL = 0.04
+# the seed of the generator that draws the bf16 modes' inputs, first the
+# adjoint's, then the decoder's
+BF16_MODES_SEED = 25
 # a slice grid slower than this is timed once, not best of 3
 ONE_TIMING_S = 5.0
 # SCAN's published i-t settings (kuanghuei/SCAN README): i-t AVG (the eval
@@ -660,10 +708,25 @@ def check_rel(name: str, got, want, limit: float) -> float:
 def reset_counters():
     for fn in COUNTERS.values():
         fn.launches = 0
+    for mode in MODE_OF.values():
+        COUNTERS[mode].bf16_launches = 0
 
 
 def read_counters() -> dict:
-    return {name: fn.launches for name, fn in COUNTERS.items()}
+    """Each kernel's launches, and those of each bf16 mode (MODE_OF) on
+    their own."""
+    return {**{name: fn.launches for name, fn in COUNTERS.items()},
+            **{name: COUNTERS[mode].bf16_launches for name, mode in MODE_OF.items()}}
+
+
+def check_modes(launches: dict, bf16: bool, what: str) -> None:
+    """A train_bf16 path launches the GRU adjoint and the decoder pair in
+    their bf16 modes only; an fp32 path never in them."""
+    for name, mode in MODE_OF.items():
+        fp32 = launches[mode] - launches[name]
+        if (fp32 if bf16 else launches[name]):
+            raise AssertionError(f"{what}: {mode} launched {fp32} times in its fp32 mode and "
+                                 f"{launches[name]} in its bf16 mode")
 
 
 def phase_build():
@@ -723,13 +786,18 @@ def gru_fwd_bound(x, mask, w_ih, w_hh, b_ih, b_hh, out_bytes: int, peak: str) ->
                  {peak: ops})
 
 
-def gru_bwd_bound(gates_x, mask, hall, ghall, g_out, g_fin, w_hh) -> dict:
+def gru_bwd_bound(gates_x, mask, hall, ghall, g_out, g_fin, w_hh, peak: str = "fp32") -> dict:
     """The adjoint alone: gates_x, mask, the residuals, both cotangents and
     W_hh read once, the gate gradients and the initial state's written once;
-    (B, 3H) x (3H, H) by fp32 FMAs per valid step."""
+    (B, 3H) x (3H, H) per valid step at the peak of its operands' type (fp32
+    FMAs in the fp32 mode; bf16 with bf16 W_hh, whose mode rounds g_gh).
+    In the bf16 mode gates_x and ghall enter, and ggx and ghn leave, as bf16
+    values, so they count 2 bytes an element, whatever type holds them."""
     b, _, h = hall.shape
-    return bound(nbytes(gates_x, mask, hall, ghall, g_out, g_fin, w_hh) + 4 * (
-        gates_x.numel() + hall.numel() + b * h), {"fp32": 2 * float(mask.sum()) * 3 * h * h})
+    gate = 2 if w_hh.dtype == torch.bfloat16 else 4
+    return bound(nbytes(mask, hall, g_out, g_fin, w_hh) + 4 * b * h
+                 + gate * (3 * gates_x.numel() + hall.numel()),  # gates_x, ghall, ggx; ghn
+                 {peak: 2 * float(mask.sum()) * 3 * h * h})
 
 
 def check_co_resident_refusal(g) -> None:
@@ -945,6 +1013,105 @@ def phase_gru_bwd(g, b=128, l=48, d=300, h=1024, timed: bool = True,
         f"(input projection included): kernels {res['fwd_bwd_ms']:.3f} ms{then[1]}, plain "
         f"{res['fwd_bwd_plain_ms']:.3f} ms, cuDNN {res['library_ms']:.3f} ms; adjoint "
         f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+    return res
+
+
+def phase_gru_bwd_bf16(g) -> dict:
+    """The GRU adjoint's bf16 W_hh mode (train_bf16) at GRU_BF16_BWD_SHAPES,
+    both directions, against gru_bwd_plain(..., dot_dtype=bf16) on the
+    residuals of the bf16 forward kernel (itself held to gru_fwd_plain at
+    bf16 dot), two calls bit-identical, a dropped timestep's gradient
+    beside each reading; each shape's plan (resident at H 1024 and 2048)
+    and time beside the fp32 adjoint's; at SCAN's shape the forward +
+    backward through autograd beside cuDNN's bf16 GRU."""
+    log("GRU adjoint, bf16 W_hh mode, vs gru_bwd_plain at bf16 dot")
+    bf = torch.bfloat16
+    res = {"shapes": []}
+    for b, l, h in GRU_BF16_BWD_SHAPES:
+        x, mask, w_ih, w_hh, b_ih, b_hh = _gru_inputs(g, b, l, 300, h)
+        w16 = w_hh.to(bf)
+        g_out = torch.randn(b, l, h, generator=g).to(DEV)
+        g_fin = torch.randn(b, h, generator=g).to(DEV)
+        gates_x = (x @ w_ih.t() + b_ih).contiguous()
+        route = gru_route(b, h, bf, backward=True)
+        if kgru.plan(b, h, bf, backward=True).route != "resident":
+            raise AssertionError(f"the bf16 adjoint at H {h} does not stay resident: {route}")
+        errs = {}
+        for reverse in (False, True):
+            tag = f"gru_bwd bf16 B={b} L={l} H={h} {'reverse' if reverse else 'forward'}"
+            k_out, _, hall, ghall = kgru._launch(gates_x, mask, w16, b_hh, reverse,
+                                                 residuals=True)
+            p_out, _, p_hall, p_ghall = gru_fwd_plain(gates_x, mask, w16, b_hh, reverse,
+                                                      dot_dtype=bf)
+            check(f"{tag}: the bf16 forward's residual ghall", ghall, p_ghall, GRU_BF16_ATOL)
+            kb = gru_bwd_fused(gates_x, mask, hall, ghall, g_out, g_fin, w16, reverse)
+            pb = gru_bwd_plain(gates_x, mask, hall, ghall, g_out, g_fin, w16, reverse,
+                               dot_dtype=bf)
+            lost = g_out.clone()
+            lost[:, l // 2] = 0.0
+            lb = gru_bwd_plain(gates_x, mask, hall, ghall, lost, g_fin, w16, reverse,
+                               dot_dtype=bf)
+            nb = gru_bwd_plain(gates_x, mask, hall, ghall, g_out, g_fin, w16, reverse)
+            for name, a, w_, c_, n_ in zip(("ggx", "ghn", "g_h0"), kb, pb, lb, nb):
+                limit = GRU_BF16_BWD_REL[name]
+                err = check_rel(f"{tag} {name}", a, w_, limit)
+                errs[f"{'reverse' if reverse else 'forward'} {name}"] = err
+                wrong = rel_err(c_, w_)
+                log(f"    {name}: with timestep {l // 2}'s cotangent dropped: rel_err {wrong:.3e}")
+                if name == "g_h0":
+                    check_rounding_points(f"{tag} {name}", rel_err(n_, w_), limit)
+                    continue
+                check_unequal(f"{tag} {name}", a, w_, n_, GRU_BF16_UNEQUAL)
+                if not wrong > limit:
+                    raise AssertionError(f"the limit {limit} does not separate a lost "
+                                         f"timestep ({wrong}) in {name}")
+                if (b, l, h) == GRU_BF16_BWD_SHAPES[0] and name == "ggx" and not reverse:
+                    res["max_abs_err"] = float((a - w_).abs().max())
+            check_bit_identical(tag, kb, gru_bwd_fused(gates_x, mask, hall, ghall, g_out,
+                                                       g_fin, w16, reverse))
+        _, _, hall, ghall = kgru._launch(gates_x, mask, w16, b_hh, False, residuals=True)
+        _, _, hall32, ghall32 = kgru._launch(gates_x, mask, w_hh, b_hh, False, residuals=True)
+        row = {"b": b, "l": l, "h": h, "route": route, "max_rel_err": max(errs.values()),
+               "ms": cuda_ms(lambda: gru_bwd_fused(gates_x, mask, hall, ghall, g_out, g_fin,
+                                                   w16)),
+               "fp32_ms": cuda_ms(lambda: gru_bwd_fused(gates_x, mask, hall32, ghall32, g_out,
+                                                        g_fin, w_hh)),
+               **gru_bwd_bound(gates_x, mask, hall, ghall, g_out, g_fin, w16, peak="bf16")}
+        log(f"  gru_bwd bf16 B={b} L={l} H={h}: {route}; {row['ms']:.3f} ms = "
+            f"{row['ms'] / l * 1e3:.2f} us a step (fp32 adjoint {row['fp32_ms']:.3f} ms); "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, bf16 peak)")
+        res["shapes"].append(row)
+        if (b, l, h) != GRU_BF16_BWD_SHAPES[0]:
+            continue
+        res.update(ms=row["ms"], fp32_ms=row["fp32_ms"], bound_ms=row["bound_ms"],
+                   bound_by=row["bound_by"], rel_err=errs)
+        res["plain_ms"] = cuda_ms(lambda: gru_bwd_plain(gates_x, mask, hall, ghall, g_out,
+                                                        g_fin, w16, dot_dtype=bf), reps=5)
+        ps = [t.detach().clone().requires_grad_() for t in (x, w_ih, w16, b_ih, b_hh)]
+
+        def fwd_bwd():
+            o, fin = gru_scan_fused(ps[0], mask, *ps[1:])
+            return torch.autograd.grad((o * g_out).sum() + (fin * g_fin).sum(), ps)
+
+        res["fwd_bwd_ms"] = cuda_ms(fwd_bwd, reps=10)
+        # the library yardstick: cuDNN's bf16 GRU forward + backward under
+        # autograd on the same padded batch (bf16 input and weights)
+        lib = cudnn_gru(w_ih, w_hh, b_ih, b_hh, bf)
+        xg = x.detach().to(bf).requires_grad_()
+        g_out16, g_fin16 = g_out.to(bf), g_fin.to(bf)
+
+        def lib_fwd_bwd():
+            o, fin = lib(xg)
+            return torch.autograd.grad((o * g_out16).sum() + (fin[0] * g_fin16).sum(),
+                                       [xg, *lib.parameters()])
+
+        res["library_ms"] = cuda_ms(lib_fwd_bwd, reps=10)
+        res["library_call"] = ("torch.nn.GRU (cuDNN) bf16 forward + backward under autograd, "
+                               "beside the kernels' bf16 forward + backward (fwd_bwd_ms)")
+        log(f"  time (B={b}, L={l}, H={h}, bf16 W_hh): adjoint kernel {res['ms']:.3f} ms (fp32 "
+            f"mode {res['fp32_ms']:.3f}), plain {res['plain_ms']:.3f} ms; forward + backward "
+            f"through autograd: kernels {res['fwd_bwd_ms']:.3f} ms, cuDNN bf16 "
+            f"{res['library_ms']:.3f} ms; bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
     return res
 
 
@@ -2440,7 +2607,8 @@ def _vsrn_dec_inputs(g, t, b, r, h, keep):
     return {n: v.to(DEV).contiguous() for n, v in x.items()}, ghs.to(DEV)
 
 
-def vsrn_dec_bound(x: dict, backward: bool = False, fma: bool = False) -> dict:
+def vsrn_dec_bound(x: dict, backward: bool = False, fma: bool = False,
+                   peak: str = "tf32") -> dict:
     """The bound of one decode call (fp32): the inputs read once and the
     outputs written once (the forward's states and residuals; the backward's
     ten cotangents), against the products (forward 2 B H^2 x 7 a step:
@@ -2450,19 +2618,23 @@ def vsrn_dec_bound(x: dict, backward: bool = False, fma: bool = False) -> dict:
     operations per (b, r, h) a step).  The products, which both kernels run
     on the tensor cores as split-bf16 products, count at the TF32
     tensor-core peak (`fma`: all at the fp32 peak, the figure of the
-    per-step FMA designs), the elementwise work at the fp32 peak.  Also
-    "product_flop"."""
+    per-step FMA designs; `peak` "bf16": the bf16 mode, one bf16 pass), the
+    elementwise work at the fp32 peak.  Bytes at each input's own type; in
+    the bf16 mode ghall and g_gxw, bf16 values, at 2 bytes an element.
+    Also "product_flop"."""
     t, b, h3 = x["gxw"].shape
     h, r = h3 // 3, x["enc_out"].shape[1]
     ins = nbytes(*x.values())
+    gate = 2 if peak == "bf16" else 4  # ghall's and g_gxw's bytes an element
     if backward:
-        saves = 4 * t * b * (h + h3 + h)  # hall, ghall, g_hs
-        moved = ins + saves + ins - nbytes(x["cmask"])  # every cotangent but the mask's
+        saves = 4 * t * b * (h + h) + gate * t * b * h3  # hall, g_hs; ghall
+        # every cotangent but the mask's, g_gxw at its values' width
+        moved = ins + saves + ins - nbytes(x["cmask"], x["gxw"]) + gate * t * b * h3
         products, rest = t * 36.0 * b * h * h, t * 16.0 * b * r * h
     else:
-        moved = ins + 4 * t * b * (h + h + h3)  # hs, hall, ghall
+        moved = ins + 4 * t * b * (h + h) + gate * t * b * h3  # hs, hall; ghall
         products, rest = t * 14.0 * b * h * h, t * 6.0 * b * r * h
-    ops = {"fp32": products + rest} if fma else {"tf32": products, "fp32": rest}
+    ops = {"fp32": products + rest} if fma else {peak: products, "fp32": rest}
     return {**bound(moved, ops), "product_flop": products}
 
 
@@ -2481,7 +2653,7 @@ def phase_vsrn_dec(g) -> dict:
         args = tuple(x.values())
         with torch.no_grad():
             got = vsrn_dec_fused(*args)
-        k_fwd = kvsrn._launch_fwd(*args, residuals=True)
+        k_fwd = kvsrn._launch_fwd(*args, residuals=True, dot=None)
         want, hall, ghall = vsrn_dec_plain(*args)
         e_fwd = check_rel(f"{tag} states", got, want, VSRN_FWD_REL)
         for name, a, w in zip(("states with residuals", "hall", "ghall"), k_fwd,
@@ -2526,7 +2698,7 @@ def phase_vsrn_dec(g) -> dict:
         args = tuple(x.values())
         want = vsrn_dec_plain(*args)
         _, hall, ghall = want
-        k_fwd = kvsrn._launch_fwd(*args, residuals=True)
+        k_fwd = kvsrn._launch_fwd(*args, residuals=True, dot=None)
         fwd_errs = [rel_err(a, w_) for a, w_ in zip(k_fwd, want)]
         log(f"  {tag} forward ({kvsrn.fwd_plan(b, r, h, sms=kvsrn._sms(DEV))}): states, hall, "
             f"ghall rel_err {', '.join(f'{e:.3e}' for e in fwd_errs)} (limit {VSRN_FWD_REL:g})")
@@ -2551,10 +2723,10 @@ def phase_vsrn_dec(g) -> dict:
     _, hall, ghall = vsrn_dec_plain(*args)
     with torch.no_grad():
         # the training path's forward writes the residuals
-        res["ms"] = cuda_ms(lambda: kvsrn._launch_fwd(*args, residuals=True), reps=10)
+        res["ms"] = cuda_ms(lambda: kvsrn._launch_fwd(*args, residuals=True, dot=None), reps=10)
         res["fwd_no_residuals_ms"] = cuda_ms(lambda: vsrn_dec_fused(*args), reps=10)
         res["plain_ms"] = cuda_ms(lambda: vsrn_dec_plain(*args), reps=5)
-        res["launch_ms"] = _launch_ms(lambda: kvsrn._launch_fwd(*args, residuals=True))
+        res["launch_ms"] = _launch_ms(lambda: kvsrn._launch_fwd(*args, residuals=True, dot=None))
     res["bwd_ms"] = cuda_ms(lambda: vsrn_dec_bwd_fused(*args, hall, ghall, ghs), reps=10)
     res["bwd_launch_ms"] = _launch_ms(lambda: vsrn_dec_bwd_fused(*args, hall, ghall, ghs))
     res["bwd_plain_ms"] = cuda_ms(lambda: vsrn_dec_bwd_plain(*args, hall, ghall, ghs), reps=5)
@@ -2576,7 +2748,7 @@ def phase_vsrn_dec(g) -> dict:
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        kvsrn._launch_fwd(*args, residuals=True)
+        kvsrn._launch_fwd(*args, residuals=True, dot=None)
         vsrn_dec_bwd_fused(*args, hall, ghall, ghs)
     finally:
         torch.cuda.set_sync_debug_mode(0)
@@ -2604,10 +2776,174 @@ def phase_vsrn_dec(g) -> dict:
     return res
 
 
-def check_fwd_repeats(tag: str, args, first) -> None:
-    """A second forward call with residuals gives the same states, hall and
-    ghall bit for bit."""
-    again = kvsrn._launch_fwd(*args, residuals=True)
+# the decoder's bf16 mode (train_bf16) at the training path's decode with
+# the 0.2 context dropout, a ragged odd shape, and H 1024 over 128 regions
+# and two batch tiles (its half-size fragments resident in both loops, where
+# the fp32 mode streams them)
+VSRN_DEC_BF16_SHAPES = ((59, 128, 36, 512, 0.8), (7, 37, 5, 96, 0.5), (5, 200, 128, 1024, 0.8))
+# the bf16 mode against the plain pair at bf16 dot, max|kernel - plain| /
+# max|plain| per output: both round h, the context and the gradients to
+# bf16 before each product, so an operand that the two sides form in
+# another fp32 order may round one bf16 step apart.  ghall and g_gxw are
+# written as bf16 values (2^-7: one step of the largest entry; their
+# rounding points held by the share of unequal entries,
+# VSRN_BF16_UNEQUAL); the rest is fp32, each limit between the kernel's
+# largest reading and the smallest of the plain pair without the roundings
+# (fp32 products on unrounded operands), on the H100 at
+# VSRN_DEC_BF16_SHAPES, on BF16_MODES_SEED's inputs and on another draw:
+# states 1.8e-4 and 7.6e-4, hall 1.5e-4 and 6.7e-4, g_enc_out 3.9e-4 and
+# 1.07e-3, g_enc_att 3.1e-4 and 9.3e-4, g_h0 3.0e-4 and 4.2e-4, dWatt
+# 1.1e-3 and 2.3e-3, dw2 3.0e-4 and 1.04e-3, dWctx 3.8e-4 and 1.66e-3, dWhh
+# 5.5e-4 and 1.58e-3, dbhh 9.0e-5 and 1.9e-4; the shares of unequal
+# entries, ghall 0.090 and 0.42, g_gxw 0.040 and 0.11 (the plain pair's
+# output alone rounded).  Each reading must pass its limit, and the plain
+# pair without the roundings must fail it
+VSRN_BF16_REL = {"states": 4e-4, "hall": 4e-4, "ghall": 2.0 ** -7, "g_gxw": 2.0 ** -7,
+                 "g_enc_out": 6e-4, "g_enc_att": 6e-4, "g_h0": 3.6e-4, "dWatt": 1.6e-3,
+                 "dw2": 6e-4, "dWctx": 8e-4, "dWhh": 9e-4, "dbhh": 1.3e-4}
+VSRN_BF16_UNEQUAL = {"ghall": 0.2, "g_gxw": 0.07}
+
+
+def unequal_share(got, want) -> float:
+    """The share of entries that differ at all."""
+    return float((got != want).float().mean())
+
+
+def check_rounding_points(tag: str, unrounded: float, limit: float) -> None:
+    """An fp32 output of a bf16 mode: the plain version without the bf16
+    roundings must read beyond the kernel's limit, so that a kernel which
+    skips a rounding (or runs the fp32 mode's products) fails it."""
+    log(f"    {tag}: the plain version without the bf16 roundings: rel_err {unrounded:.3e} "
+        f"(must exceed {limit:g})")
+    if not unrounded > limit:
+        raise AssertionError(f"{tag}: the limit {limit} does not separate the plain version "
+                             f"without the bf16 roundings ({unrounded})")
+
+
+def check_unequal(tag: str, got, want, unrounded, limit: float) -> float:
+    """An output written as bf16 values: the share of its entries unequal to
+    the plain version's within `limit`, and the plain version without the
+    bf16 roundings, its output alone rounded to bf16, beyond it."""
+    share = unequal_share(got, want)
+    far = unequal_share(unrounded.to(torch.bfloat16).to(want.dtype), want)
+    log(f"    {tag}: entries unequal {share:.4f} (limit {limit:g}); the plain version without "
+        f"the bf16 roundings, its output rounded: {far:.4f} (must exceed the limit)")
+    if not share <= limit:
+        raise AssertionError(f"{tag}: {share} of the entries differ, limit {limit}")
+    if not far > limit:
+        raise AssertionError(f"{tag}: the limit {limit} does not separate the plain version "
+                             f"without the bf16 roundings ({far})")
+    return share
+
+
+def _bf16_dec_args(x: dict) -> tuple:
+    """The decoder's operands as its bf16 mode takes them: enc_out, Watt,
+    Wctx and Whh bf16, the rest fp32."""
+    return tuple(v.to(torch.bfloat16) if n in ("enc_out", "watt", "wctx", "whh") else v
+                 for n, v in x.items())
+
+
+def phase_vsrn_dec_bf16(g) -> dict:
+    """VSRN's decoder kernels in their bf16 mode (train_bf16) vs the plain
+    pair at dot_dtype bf16 (itrx's kernel at dot_dtype="bfloat16"): the
+    states and residuals, every cotangent, a dropped step's gradient beside
+    each reading, two forward and two backward calls bit-identical, at
+    VSRN_DEC_BF16_SHAPES; then both timed beside the fp32 mode, with their
+    bounds at the bf16 peak."""
+    log("vsrn_dec decoder kernels, bf16 mode, vs the plain pair at bf16 dot")
+    bf = torch.bfloat16
+    res = {}
+    for t, b, r, h, keep in VSRN_DEC_BF16_SHAPES:
+        tag = f"vsrn_dec bf16 T {t} x B {b} x R {r} x H {h}, keep {keep}"
+        log(f"  {tag}: {kvsrn.fwd_plan(b, r, h, sms=kvsrn._sms(DEV), bf16=True)}, "
+            f"{kvsrn.plan(b, r, h, sms=kvsrn._sms(DEV), bf16=True)}")
+        x, ghs = _vsrn_dec_inputs(g, t, b, r, h, keep)
+        args = _bf16_dec_args(x)
+        with torch.no_grad():
+            got = vsrn_dec_fused(*args)
+        k_fwd = kvsrn._launch_fwd(*args, residuals=True, dot=bf)
+        want, hall, ghall = vsrn_dec_plain(*args, dot_dtype=bf)
+        unrounded = vsrn_dec_plain(*args)
+        e_fwd = check_rel(f"{tag} states", got, want, VSRN_BF16_REL["states"])
+        for name, a, w_, n_ in zip(("states with residuals", "hall", "ghall"), k_fwd,
+                                   (want, hall, ghall), unrounded):
+            key = name.split()[0]
+            check_rel(f"{tag} {name}", a, w_, VSRN_BF16_REL[key])
+            if key == "ghall":
+                check_unequal(f"{tag} ghall", a, w_, n_, VSRN_BF16_UNEQUAL["ghall"])
+            else:
+                check_rounding_points(f"{tag} {name}", rel_err(n_, w_), VSRN_BF16_REL[key])
+        check_fwd_repeats(tag, args, k_fwd, bf)
+        kb = vsrn_dec_bwd_fused(*args, hall, ghall, ghs)
+        pb = vsrn_dec_bwd_plain(*args, hall, ghall, ghs, dot_dtype=bf)
+        lost = ghs.clone()
+        lost[1] = 0.0
+        lb = vsrn_dec_bwd_plain(*args, hall, ghall, lost, dot_dtype=bf)
+        nb = vsrn_dec_bwd_plain(*args, hall, ghall, ghs)
+        if float(kb[1].abs().max()) != 0.0:
+            raise AssertionError(f"{tag}: the mask's cotangent is not 0")
+        errs = {}
+        for name, a, w_, c_, n_ in zip(VSRN_DEC_NAMES, kb, pb, lb, nb):
+            if name == "g_cmask":
+                continue
+            limit = VSRN_BF16_REL[name]
+            errs[name] = rel_err(a.float(), w_.float())
+            wrong = rel_err(c_.float(), w_.float())
+            log(f"  {tag} backward {name}: rel_err {errs[name]:.3e} (limit {limit:g}; with "
+                f"step 1's cotangent dropped: {wrong:.3e})")
+            if not torch.isfinite(a).all() or not errs[name] <= limit:
+                raise AssertionError(f"{tag}: {name} rel_err {errs[name]} > {limit}")
+            if not wrong > limit:
+                raise AssertionError(f"the limit {limit} does not separate a lost step "
+                                     f"({wrong}) in {name}")
+            if name == "g_gxw":
+                check_unequal(f"{tag} {name}", a, w_, n_, VSRN_BF16_UNEQUAL[name])
+            else:
+                check_rounding_points(f"{tag} {name}", rel_err(n_.float(), w_.float()), limit)
+        check_bit_identical(f"{tag} backward", kb, vsrn_dec_bwd_fused(*args, hall, ghall, ghs))
+        if (t, b, r, h, keep) == VSRN_DEC_BF16_SHAPES[0]:
+            res["max_abs_err"] = float((got - want).abs().max())
+            res["fwd_rel_err"] = e_fwd
+            res["bwd_max_abs_err"] = max(float((a - w_).abs().max()) for a, w_ in zip(kb, pb))
+            res["bwd_rel_err"] = errs
+    x, ghs = _vsrn_dec_inputs(g, *VSRN_DEC_BF16_SHAPES[0])
+    args, args32 = _bf16_dec_args(x), tuple(x.values())
+    _, hall, ghall = vsrn_dec_plain(*args, dot_dtype=bf)
+    _, hall32, ghall32 = vsrn_dec_plain(*args32)
+    with torch.no_grad():
+        res["ms"] = cuda_ms(lambda: kvsrn._launch_fwd(*args, residuals=True, dot=bf), reps=10)
+        res["fp32_ms"] = cuda_ms(lambda: kvsrn._launch_fwd(*args32, residuals=True, dot=None), reps=10)
+        res["plain_ms"] = cuda_ms(lambda: vsrn_dec_plain(*args, dot_dtype=bf), reps=5)
+    res["bwd_ms"] = cuda_ms(lambda: vsrn_dec_bwd_fused(*args, hall, ghall, ghs), reps=10)
+    res["bwd_fp32_ms"] = cuda_ms(lambda: vsrn_dec_bwd_fused(*args32, hall32, ghall32, ghs),
+                                 reps=10)
+    res["bwd_launch_ms"] = _launch_ms(lambda: vsrn_dec_bwd_fused(*args, hall, ghall, ghs))
+    res["bwd_plain_ms"] = cuda_ms(
+        lambda: vsrn_dec_bwd_plain(*args, hall, ghall, ghs, dot_dtype=bf), reps=5)
+    bx = dict(zip(x, args))
+    res.update(vsrn_dec_bound(bx, peak="bf16"))
+    for k, v in vsrn_dec_bound(bx, backward=True, peak="bf16").items():
+        res["bwd_" + k] = v
+    t, b, r, h, keep = VSRN_DEC_BF16_SHAPES[0]
+    res["plan"] = kvsrn.fwd_plan(b, r, h, sms=kvsrn._sms(DEV), bf16=True)
+    res["bwd_plan"] = kvsrn.plan(b, r, h, sms=kvsrn._sms(DEV), bf16=True)
+    res["library_ms"] = None
+    log(f"  time T {t} x B {b} x R {r} x H {h} (keep {keep}), bf16 mode: forward kernel "
+        f"{res['ms']:.3f} ms with residuals (fp32 mode {res['fp32_ms']:.3f}), plain "
+        f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}, products "
+        f"at the bf16 peak); backward kernels {res['bwd_ms']:.3f} ms (fp32 mode "
+        f"{res['bwd_fp32_ms']:.3f}), plain {res['bwd_plain_ms']:.3f} ms, bound "
+        f"{res['bwd_bound_ms']:.4f} ms ({res['bwd_bound_by']}); loops {res['plan']}, "
+        f"{res['bwd_plan']}")
+    log("  backward, device ms a call by launch (profiler): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["bwd_launch_ms"].items()))
+    return res
+
+
+def check_fwd_repeats(tag: str, args, first, dot=None) -> None:
+    """A second forward call with residuals (in the mode `dot`) gives the
+    same states, hall and ghall bit for bit."""
+    again = kvsrn._launch_fwd(*args, residuals=True, dot=dot)
     same = all(torch.equal(a, b) for a, b in zip(first, again))
     log(f"  {tag}: two forward calls bit-identical: {same}")
     if not same:
@@ -3104,6 +3440,117 @@ def _first_step_witness(cfg, batch, grad_rel: float = TRAIN_GRAD_REL, floor: flo
             "hardest_negative_agreement": hn_agree}
 
 
+# train_bf16's first-step witness: the card's bf16 step against the same
+# cast step on a CPU copy.  Two correct bf16 steps differ by where each
+# rounds (the card's kernels round h and the gate gradients to bf16 as
+# `itrx`'s TPU kernels do; the CPU copy's plain GRU keeps fp32 carries), and
+# the rounding moves hinge terms, hardest negatives and softmaxes, so each
+# gradient is held to BF16_NOISE_K times the distance bf16 itself puts
+# between the CPU's bf16 step and the card's fp32 step (per tensor, L2), up
+# to BF16_NOISE_FLOOR of the largest gradient norm (gradients zero in exact
+# arithmetic are rounding alone); the tests' reading on the CPU against
+# `itrx`: at most 1.13 (tests/test_torch_train_bf16.py)
+BF16_NOISE_K = 2.0
+BF16_NOISE_FLOOR = 2.0 ** -8
+# the first-step losses: card vs CPU copy under the same cast (rounding
+# points differ: read on the CPU against `itrx` at most 4.1e-3), and bf16 vs
+# fp32 (`itrx`'s own tolerance, tests/test_train_bf16.py)
+BF16_LOSS_REL = 1e-2
+BF16_VS_FP32_LOSS_REL = 0.03
+# the statistics the bf16 forward writes back: bf16 values (one step 2^-8 of
+# an entry), from activations that round apart on the two devices
+BF16_STAT_REL = 2.0 ** -5
+
+
+def _bf16_step_witness(cfg, batch, prepare=None) -> dict:
+    """train_bf16's first step (train/loop.py::cast_loss) on the card
+    against the same cast step on a CPU copy and against the card's fp32
+    step, from one seed's weights and one batch: the losses (BF16_LOSS_REL;
+    bf16 vs fp32 within BF16_VS_FP32_LOSS_REL), every gradient
+    (BF16_NOISE_K, BF16_NOISE_FLOOR), the BatchNorm statistics written back
+    as bf16 values in the fp32 buffers (BF16_STAT_REL), the masters and
+    their gradients fp32."""
+    def step_on(dev, dtype):
+        model = get_model(cfg, device=dev,
+                          generator=torch.Generator().manual_seed(cfg["seed"])).train()
+        if prepare is not None:
+            prepare(model)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        if dtype is None:
+            loss, _ = model.loss(b, train=True)
+        else:
+            loss, _ = cast_loss(model, b, 0, dtype)
+        loss.backward()
+        if any(p.dtype != torch.float32 or (p.grad is not None and p.grad.dtype != p.dtype)
+               for p in model.parameters()):
+            raise AssertionError("a master parameter or its gradient is not fp32")
+        grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+                 if p.grad is not None}
+        stats = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        return float(loss.detach()), grads, stats
+
+    t0 = time.perf_counter()
+    bf = torch.bfloat16
+    reset_counters()
+    lk, gk, sk = step_on(DEV, bf)
+    check_modes(read_counters(), True, "the card's first bf16 step")
+    (lc, gc, sc), (l32, g32, _) = step_on(torch.device("cpu"), bf), step_on(DEV, None)
+    log(f"  bf16 first-step witness (card, a CPU copy, the card's fp32 step): "
+        f"{time.perf_counter() - t0:.1f} s")
+    loss_err = abs(lk - lc) / abs(lc)
+    vs32 = abs(lk - l32) / abs(l32)
+    log(f"  first step loss: card bf16 {lk:.7f}, cpu bf16 {lc:.7f}, rel_err {loss_err:.3e} "
+        f"(limit {BF16_LOSS_REL:g}); card fp32 {l32:.7f}, bf16 vs fp32 {vs32:.3e} (limit "
+        f"{BF16_VS_FP32_LOSS_REL:g})")
+    if not loss_err <= BF16_LOSS_REL or not vs32 <= BF16_VS_FP32_LOSS_REL:
+        raise AssertionError(f"bf16 first-step loss: {loss_err} from the CPU copy, {vs32} "
+                             "from fp32")
+    if set(gk) != set(gc):
+        raise AssertionError("the card and the CPU copy trained different parameters")
+    floor = BF16_NOISE_FLOOR * max(float(g.norm()) for g in gc.values())
+    ratios, on_floor = {}, []
+    for k in gc:
+        err, noise = float((gk[k] - gc[k]).norm()), float((g32[k] - gc[k]).norm())
+        if not torch.isfinite(gk[k]).all() or not err <= BF16_NOISE_K * noise + floor:
+            raise AssertionError(f"bf16 first-step gradient {k}: {err} from the CPU copy, "
+                                 f"bf16's own distance {noise}, floor {floor}")
+        ratios[k] = err / max(noise, 1e-30)
+        if err > BF16_NOISE_K * noise:
+            on_floor.append(k)
+    worst = max(ratios, key=ratios.get)
+    log(f"  first step grads, card bf16 vs cpu bf16 over cpu bf16 vs card fp32 (L2, per "
+        f"tensor): at most {ratios[worst]:.3f} ({worst}; limit {BF16_NOISE_K:g}, floor "
+        f"{floor:.3e}, held by the floor alone: {on_floor or 'none'})")
+    stat_errs = {}
+    for k in sc:
+        if sk[k].dtype != torch.float32 or not torch.equal(sk[k].bfloat16().float(), sk[k]):
+            raise AssertionError(f"{k}: not an fp32 buffer of bf16 values")
+        stat_errs[k] = float((sk[k] - sc[k]).abs().max()) / max(float(sc[k].abs().max()), 1e-3)
+        if not stat_errs[k] <= BF16_STAT_REL:
+            raise AssertionError(f"{k}: {stat_errs[k]} > {BF16_STAT_REL}")
+    if stat_errs:
+        log(f"  BatchNorm statistics after the step, card vs cpu: at most "
+            f"{max(stat_errs.values()):.3e} (limit {BF16_STAT_REL:g}), bf16 values in fp32 "
+            f"buffers")
+    return {"loss_card": lk, "loss_cpu": lc, "loss_fp32": l32, "loss_rel_err": loss_err,
+            "loss_vs_fp32": vs32, "grad_noise_ratio_max": ratios[worst],
+            "stat_rel_err_max": max(stat_errs.values()) if stat_errs else None}
+
+
+def _masters_check(state) -> None:
+    """After fit under train_bf16: every parameter, every buffer that holds
+    values and every Adam moment fp32."""
+    model = state.model
+    bad = [k for k, p in model.named_parameters() if p.dtype != torch.float32]
+    bad += [k for k, b in model.named_buffers() if b.dtype not in (torch.float32, torch.int64)]
+    bad += ["adam" for st in state.optimizer.state.values()
+            if st["exp_avg"].dtype != torch.float32 or st["exp_avg_sq"].dtype != torch.float32]
+    if bad:
+        raise AssertionError(f"train_bf16 left non-fp32 masters: {bad[:4]}")
+    log("  masters, BatchNorm buffers and Adam moments fp32 after fit")
+
+
 def _profile_steps(step_fn, batches) -> dict:
     """Device time by kernel and the idle share over a few steps."""
     from torch.autograd import DeviceType
@@ -3208,6 +3655,26 @@ TRAIN_SLICES = {
     "saem": ("SAEM f30k training configuration", ("SAEM", "bert_path={root}"),
              SAF_TRAIN_STEPS, SAF_TRAIN_VAL_STEP, 8, (), {}, {},
              {"grad_rel": TRAIN_GRAD_REL, "prepare": _no_dropout}),
+    # train_bf16 (itrx's make_train_step(compute_dtype="bfloat16")): the same
+    # commands with the forward and backward in bf16 on fp32 masters; the
+    # witness is _bf16_step_witness.  VSRN's runs the GRU pair at H 2048 and
+    # the decoder pair in their bf16 modes
+    "vsrn_bf16": ("VSRN f30k training configuration, train_bf16",
+                  ("VSRN", "max_violation=True", "lr_update=10", "max_len=60",
+                   "train_bf16=True"), SAF_TRAIN_STEPS, SAF_TRAIN_VAL_STEP, 9,
+                  ("gru", "gru_bwd", "vsrn_dec", "vsrn_dec_bwd"),
+                  {"vsrn_dec": (1, 0), "vsrn_dec_bwd": (1, 0)}, {"input_dropout_p": 0.0},
+                  {"prepare": _vsrn_off_identity}),
+    "scan_bf16": ("SCAN f30k t2i training configuration, train_bf16",
+                  ("SCAN", "bi_gru=True", "max_violation=True", "train_bf16=True"),
+                  SAF_TRAIN_STEPS, SAF_TRAIN_VAL_STEP, 10, ("gru", "gru_bwd", "xattn"), {}, {},
+                  {}),
+    # the AGSA pair in its bf16 mode (the backward's three-launch FMA
+    # design), twice a step each
+    "camera_bf16": ("CAMERA f30k training configuration, train_bf16",
+                    ("CAMERA", "bert_path={root}", "train_bf16=True"), SAF_TRAIN_STEPS,
+                    SAF_TRAIN_VAL_STEP, 11, ("agsa_attn", "agsa_attn_bwd"),
+                    {"agsa_attn": (2, 2), "agsa_attn_bwd": (2, 0)}, {}, {}),
 }
 
 
@@ -3280,7 +3747,10 @@ def phase_train(root: str, card: str, name: str) -> dict:
         f"cap_chunk {cfg['cap_chunk']}")
 
     first = next(train_ds.train_batches(cfg["batch_size"], cfg["seed"], 0))
-    witness = _first_step_witness(dict(cfg, **witness_cfg), first, **limits)
+    if cfg["train_bf16"]:
+        witness = _bf16_step_witness(dict(cfg, **witness_cfg), first, **limits)
+    else:
+        witness = _first_step_witness(dict(cfg, **witness_cfg), first, **limits)
 
     # the main path, counted: the port's train entry
     reset_counters()
@@ -3296,9 +3766,12 @@ def phase_train(root: str, card: str, name: str) -> dict:
             raise AssertionError(f"the training path never launched the {k} kernel")
         if k not in used and launches[k]:
             raise AssertionError(f"the training path launched the {k} kernel")
+    check_modes(launches, cfg["train_bf16"], f"{name}'s training path")
     if state.step != steps:
         raise AssertionError(f"fit ran {state.step} steps, expected {steps}")
     frozen = _frozen_check(cfg, state)
+    if cfg["train_bf16"]:
+        _masters_check(state)
 
     losses, rsums = _losses_from_events(cfg["save_dir"])
     if len(losses) != steps or not all(math.isfinite(v) for v in losses):
@@ -3330,7 +3803,8 @@ def phase_train(root: str, card: str, name: str) -> dict:
         raise AssertionError("evalrank_single does not reproduce the checkpoint's best_rsum")
 
     # step time after warm-up (host clock, each step ending in a synchronize)
-    step_fn = make_train_step(state, cfg["seed"])
+    step_fn = make_train_step(state, cfg["seed"],
+                              torch.bfloat16 if cfg["train_bf16"] else None)
     it = prefetch(train_ds.train_batches(cfg["batch_size"], cfg["seed"], 1), DEV)
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -3359,6 +3833,57 @@ def phase_train(root: str, card: str, name: str) -> dict:
     return out
 
 
+# train_bf16 steps taken at full width without a fit: (the training slice
+# whose command they run, the kernels their steps must launch)
+BF16_QUICK = {"sgr": ("sgr", ("gru", "gru_bwd", "sgraf_align", "sgraf_align_bwd", "sgr",
+                              "sgr_bwd")),
+              "vsepp": ("vsepp", ("gru", "gru_bwd")), "saem": ("saem", ())}
+BF16_QUICK_STEPS = 3
+
+
+def phase_bf16_steps(root: str, card: str, name: str) -> dict:
+    """BF16_QUICK_STEPS steps of make_train_step under train_bf16 on the card
+    at the slice's full width (SGRAF-SGR with sim_bf16, VSE++, SAEM), their
+    parity with `itrx` held in tests/test_torch_train_bf16.py: finite losses,
+    the counters (every kernel of the path launched, no other), fp32 masters
+    after them, and the median step."""
+    slice_name, used = BF16_QUICK[name]
+    title, method, _, _, data_seed = TRAIN_SLICES[slice_name][:5]
+    log(f"train_bf16 steps: {title} at full width, {BF16_QUICK_STEPS} steps")
+    cfg = parse_cli(
+        ["with", *(m.format(root=root) for m in method), "train_bf16=True",
+         "data_name=f30k_precomp", f"data_path={root}",
+         f"vocab_path={os.path.join(REPO, 'itrx', 'vocab')}", "vocab_type=json",
+         f"save_path={root}/runs", "seed=0"], make_dirs=False)
+    synthetic_split(root, BF16_QUICK_STEPS * cfg["batch_size"] // 5 + 5, cfg["img_dim"],
+                    ("train", "dev"), data_seed, flat=cfg["name"] == "VSE_PP")
+    write_tiny_bert_vocab(os.path.join(root, "vocab.txt"))
+    train_ds, _, vocab_size = get_loaders(cfg)
+    cfg["vocab_size"] = vocab_size
+    model = get_model(cfg, device=DEV, generator=torch.Generator().manual_seed(cfg["seed"]))
+    state = create_train_state(model, cfg, BF16_QUICK_STEPS)
+    step_fn = make_train_step(state, cfg["seed"], torch.bfloat16)
+    batches = list(prefetch(train_ds.train_batches(cfg["batch_size"], cfg["seed"], 0), DEV))
+    reset_counters()
+    losses, times = [], []
+    for b in batches[:BF16_QUICK_STEPS]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step_fn(b, log=True)["Loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = read_counters()
+    log(f"  losses {losses}; launches {launches}; step s {times}")
+    if len(losses) != BF16_QUICK_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train_bf16 {name}: losses {losses}")
+    for k in COUNTERS:
+        if (k in used) != (launches[k] > 0):
+            raise AssertionError(f"train_bf16 {name}: {k} launched {launches[k]} times")
+    check_modes(launches, True, f"train_bf16 {name}")
+    _masters_check(state)
+    return {"card": card, "losses": losses, "launches": launches, "step_seconds": times}
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -3374,6 +3899,12 @@ def main():
     results["vsrn_dec_bwd"] = vsrn_bwd_result(results["vsrn_dec"])
     results["agsa_attn"] = phase_agsa(g)
     results["agsa_attn_bwd"] = agsa_bwd_result(results["agsa_attn"])
+    # the bf16 modes of train_bf16's path, on inputs of their own seed (the
+    # readings their limits were taken from)
+    gb = torch.Generator().manual_seed(BF16_MODES_SEED)
+    results["gru_bwd_bf16"] = phase_gru_bwd_bf16(gb)
+    results["vsrn_dec_bf16"] = phase_vsrn_dec_bf16(gb)
+    results["vsrn_dec_bwd_bf16"] = vsrn_bwd_result(results["vsrn_dec_bf16"])
     # the GRU kernels at VSRN's text width (H 2048, 61 slots; the region GRU is
     # the same recurrence over 36 steps): fp32, the streamed route, timed
     # beside cuDNN
@@ -3413,12 +3944,19 @@ def main():
     for name in ("vsepp", "saem"):
         with tempfile.TemporaryDirectory(prefix=f"itrx_smoke_train_{name}_") as root:
             new_train[name] = phase_train(root, card, name)
+    bf16_train = {}
+    for name in ("vsrn_bf16", "scan_bf16", "camera_bf16"):
+        with tempfile.TemporaryDirectory(prefix=f"itrx_smoke_train_{name}_") as root:
+            bf16_train[name] = phase_train(root, card, name)
+    for name in BF16_QUICK:
+        with tempfile.TemporaryDirectory(prefix=f"itrx_smoke_bf16_{name}_") as root:
+            phase_bf16_steps(root, card, name)
     for name, r in new_slices.items():
         log(f"{name} evaluation slice: encode {r['encode_seconds']:.4f} s, eval "
             f"{r['eval_seconds']:.5f} s, {r['pairs_per_sec']:.4g} pairs/s, idle share of "
             f"encode {r['profile_encode']['idle_share']}, gru launches "
             f"{r['launches']['gru']} ({card})")
-    for name, r in new_train.items():
+    for name, r in {**new_train, **bf16_train}.items():
         log(f"{name} training slice: step {r['step_seconds_median']:.5f} s (median), "
             f"{r['samples_per_sec']:.1f} samples/s, fit {r['fit_seconds']:.2f} s, idle share "
             f"{r['profile']['idle_share']}, gru / gru_bwd launches {r['launches']['gru']} / "
@@ -3439,14 +3977,20 @@ def main():
                     vsrn_dec=tr_vsrn["launches"]["vsrn_dec"],
                     vsrn_dec_bwd=tr_vsrn["launches"]["vsrn_dec_bwd"],
                     agsa_attn=cam["launches"]["agsa_attn"],
-                    agsa_attn_bwd=tr_cam["launches"]["agsa_attn_bwd"])
+                    agsa_attn_bwd=tr_cam["launches"]["agsa_attn_bwd"],
+                    # the bf16 modes from train_bf16's paths: SCAN's for the
+                    # GRU adjoint (the shape its row is timed at), VSRN's for
+                    # the decoder pair
+                    gru_bwd_bf16=bf16_train["scan_bf16"]["launches"]["gru_bwd_bf16"],
+                    vsrn_dec_bf16=bf16_train["vsrn_bf16"]["launches"]["vsrn_dec_bf16"],
+                    vsrn_dec_bwd_bf16=bf16_train["vsrn_bf16"]["launches"]["vsrn_dec_bwd_bf16"])
     log(f"card: {card}")
     print(json.dumps({"kernels": [
         {
             "name": name,
             "route": "cuda",
-            "source": f"itrx_torch/csrc/{SOURCES[name]}",
-            "replaces": REPLACES[name],
+            "source": f"itrx_torch/csrc/{SOURCES[MODE_OF.get(name, name)]}",
+            "replaces": REPLACES[MODE_OF.get(name, name)],
             "launches": launches[name],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],

@@ -1,7 +1,8 @@
 // Pieces shared by the persistent GRU kernels (csrc/gru.cu, csrc/gru_bwd.cu):
 // the hand-written grid barrier, the block's weight slice in shared memory
 // (resident, or streamed through a cp.async ring), and the fp32
-// register-tiled product against an exchange row block read from L2.
+// register-tiled product against an exchange row block read from L2, and the
+// bf16 tensor-core product (the bf16 modes).
 //
 // Layout of a launch: kThreads = 256 threads, 8 warps; warp w owns batch rows
 // 16 w .. 16 w + 15 of the launch (at most kRows = 128 rows).  The block's N
@@ -274,6 +275,99 @@ __device__ __forceinline__ void product_f32(float (&res)[R][Q][U / (2 * R)], con
     }
   }
   if (live) reduce_lanes<R, Q, U, S>(acc, res, c);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 product on tensor cores (mma.sync m16n8k16, fp32 accumulation): warp w
+// takes batch rows 16 w .. 16 w + 15 of an exchange of bf16 rows, the k order
+// inside each 32 columns permuted so that a lane's A and B fragments are one
+// 16-byte load each.
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// 64 columns of rows g and g + 8: two 32-column blocks, lane c holding
+// columns 8 c .. 8 c + 7 of each
+struct RowsBf16 {
+  uint4 a[2], b[2];
+};
+
+__device__ __forceinline__ void load64_bf16(RowsBf16& x, const __nv_bfloat16* a0,
+                                            const __nv_bfloat16* a1, bool v0, bool v1) {
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    x.a[i] = v0 ? __ldcg(reinterpret_cast<const uint4*>(a0 + 32 * i)) : z;
+    x.b[i] = v1 ? __ldcg(reinterpret_cast<const uint4*>(a1 + 32 * i)) : z;
+  }
+}
+
+// d[t] = the warp's 16 rows x column tile t (8 weight rows t 8 .. t 8 + 7 of
+// ws, NT tiles) over Kp, bf16 operands, fp32 accumulation.  In each 32-column block lane c holds physical columns
+// 8 c .. 8 c + 7 of its rows (A) and of its weight row (B); the first mma
+// takes 8 c .. 8 c + 3 as the fragment's logical columns {2c, 2c + 1, 2c + 8,
+// 2c + 9}, the second 8 c + 4 .. 8 c + 7.  A and B use the same map, so the
+// sum is the same product over a permuted k.
+template <int NT>
+__device__ __forceinline__ void product_bf16(float (&d)[NT][4], const __nv_bfloat16* A,
+                                             int lda, int row0, int B,
+                                             const __nv_bfloat16* ws, int ld, int Kp, int g,
+                                             int c) {
+#pragma unroll
+  for (int t = 0; t < NT; ++t) d[t][0] = d[t][1] = d[t][2] = d[t][3] = 0.0f;
+  const bool v0 = row0 < B, v1 = row0 + 8 < B;
+  const __nv_bfloat16* a0 = A + (size_t)row0 * lda + 8 * c;
+  const __nv_bfloat16* a1 = a0 + (size_t)8 * lda;
+  const __nv_bfloat16* w = ws + g * ld + 8 * c;
+  const int nblk = Kp / kKAlign;
+  RowsBf16 buf[kDepth];  // kDepth - 1 64-column blocks in flight
+#pragma unroll
+  for (int e = 0; e < kDepth - 1; ++e)
+    if (e < nblk) load64_bf16(buf[e], a0 + e * kKAlign, a1 + e * kKAlign, v0, v1);
+  for (int b0 = 0; b0 < nblk; b0 += kDepth) {
+#pragma unroll
+    for (int e = 0; e < kDepth; ++e) {
+      const int b = b0 + e;
+      if (b >= nblk) continue;
+      const int bl = b + kDepth - 1;
+      if (bl < nblk) {
+        load64_bf16(buf[(e + kDepth - 1) % kDepth], a0 + bl * kKAlign, a1 + bl * kKAlign, v0,
+                    v1);
+      }
+      const RowsBf16& x = buf[e];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          const uint4 v =
+              *reinterpret_cast<const uint4*>(w + t * 8 * ld + b * kKAlign + 32 * i);
+          mma_bf16(d[t], x.a[i].x, x.b[i].x, x.a[i].y, x.b[i].y, v.x, v.y);
+          mma_bf16(d[t], x.a[i].z, x.b[i].z, x.a[i].w, x.b[i].w, v.z, v.w);
+        }
+      }
+    }
+  }
+}
+
+template <typename W>
+__device__ __forceinline__ W to_w(float x);
+template <>
+__device__ __forceinline__ float to_w<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_w<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// x rounded to bf16 (to nearest even) and read back: an operand as the bf16
+// modes read it
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
 }
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }

@@ -405,9 +405,10 @@ __device__ __forceinline__ void fence_acc(float (&acc)[I][4]) {
 //                      (0 past the tile's rows or the depth)
 // Starts and ends with a barrier.  kALo false: the operand is exact in its
 // hi part (bf16 values), so its lo part is neither written nor multiplied
-// (two passes).
+// (two passes); or the operand is to be rounded to bf16 (a bf16 product).
+// kBLo false: W's lo part is zero (bf16 weights) and is not multiplied.
 // (init_weight_bars first, once a block)
-template <bool kALo = true, typename Prod>
+template <bool kALo = true, bool kBLo = true, typename Prod>
 __device__ __forceinline__ void mma_tile(Acc& acc, const Ring& rg,
                                          const uint32_t* __restrict__ wsplit, int Kp, int S8,
                                          int nrows, Prod& prod) {
@@ -457,7 +458,7 @@ __device__ __forceinline__ void mma_tile(Acc& acc, const Ring& rg,
       const uint64_t al = smem_desc(as + (2 * st + 1) * (kMmaRows * 8), 128, 256);
       const uint64_t bh = smem_desc(ws + (2 * st) * (kMaxS * 8), 128, 256);
       const uint64_t bl = smem_desc(ws + (2 * st + 1) * (kMaxS * 8), 128, 256);
-      wgmma_m64n128(acc, ah, bl);
+      if constexpr (kBLo) wgmma_m64n128(acc, ah, bl);
       if constexpr (kALo) wgmma_m64n128(acc, al, bh);
       wgmma_m64n128(acc, ah, bh);
     }

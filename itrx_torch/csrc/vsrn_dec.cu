@@ -32,13 +32,22 @@
 //   3. gx[:, j] = ctx Wctx^T + gxw_t, then the cell on the block's units,
 //      which writes h_t to the state exchange and hs[t], h_{t-1} to hall[t].
 // Both products map a (row, unit) to the same thread, so gh and h_{t-1} of
-// a unit are read back only by the thread that wrote them.  No atomics and
+// a unit are read back only by the thread that wrote them.
+// The bf16 mode (bf16 operands, the train_bf16 step): the TPU kernel at
+// dot_dtype="bfloat16".  The B fragments are the bf16 weights alone, h and
+// the masked context are rounded to bf16 as the products read them, one
+// a_hi b_hi pass each, fp32 accumulation; enc_out comes as its fp32 values
+// and the attention, the cell and the states stay fp32.  gh reaches the
+// cell in fp32 through a B x 3H workspace and is saved in bf16 (ghall16),
+// as the TPU kernel saves it.  No atomics and
 // every sum in a fixed order, so two calls give identical states; nothing is
 // read back to the host.
 #ifdef ITRX_VSRN_DEC_FWD_PHASES
 // the loop's phases as block 0's thread 0 sees them (tools/vsrn_dec_phases.py)
 #define ITRX_VSRN_LOOP_PHASES 6
 #endif
+#include <cuda_bf16.h>
+
 #include "gru_persistent.cuh"
 #include "vsrn_dec.cuh"
 #include "vsrn_dec_loop.cuh"
@@ -51,7 +60,7 @@ using itrx_vsrn::sigmoid_f;
 using itrx_vsrn::warp_max;
 using itrx_vsrn::warp_sum;
 using vsrn_loop::kChunkSteps;
-using vsrn_loop::kStepWords;
+using vsrn_loop::step_words;
 using vsrn_loop::kUnits;
 using vsrn_loop::product_mma;
 using vsrn_loop::ring_issue_frag;
@@ -73,6 +82,7 @@ struct FwdArgs {
   float* hs;            // (T, B, H) out
   float* hall;          // (T, B, H) out, or null
   float* gh;            // ghall (T, B, 3H) out, or a B x 3H workspace (gh_step 0)
+  __nv_bfloat16* gh16;  // the bf16 mode's ghall (T, B, 3H) out, or null
   float* hx;            // (B, Kp) state exchange: h_0 at the launch, zero past H
   float* hq;            // (B, H) exchange
   float* cx;            // (B, Kp) context exchange, zero past H
@@ -153,7 +163,7 @@ struct CellIn {
 // part 0 of the products, thread (warp, lane) owns, of each of its tiles,
 // rows 16 (warp % MT) + lane / 4 + 8 h and units j0 + 2 (lane % 4) + e (h, e
 // in {0, 1}): the products' output map, the same in both.
-template <int MT, bool STREAM>
+template <int MT, bool STREAM, bool BF16>
 __global__ void __launch_bounds__(kThreads, 1) loop_kernel(const FwdArgs p) {
   using namespace gru;
   constexpr int kTile = 16 * MT, kHalves = 8 / MT;
@@ -162,8 +172,8 @@ __global__ void __launch_bounds__(kThreads, 1) loop_kernel(const FwdArgs p) {
   __shared__ float es[kMaxR];
   __shared__ __align__(16) float part_s[4 * 32 * kTilesH * 4];
   const int T = p.T, B = p.B, H = p.H, H3 = 3 * H, Kp = p.Kp;
-  const int words_h = Kp / 16 * kTilesH * kStepWords;
-  const int words_c = Kp / 16 * kTilesC * kStepWords;
+  const int words_h = Kp / 16 * kTilesH * step_words<BF16>();
+  const int words_c = Kp / 16 * kTilesC * step_words<BF16>();
   uint32_t* const wh = reinterpret_cast<uint32_t*>(smem_raw);  // [Watt ; Whh]'s, resident
   uint32_t* const wc = wh + words_h;                           // Wctx's, or the ring
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -186,7 +196,9 @@ __global__ void __launch_bounds__(kThreads, 1) loop_kernel(const FwdArgs p) {
   }
   cp_async_commit();
   if constexpr (STREAM) {
-    for (int i = 0; i < kStages - 1; ++i) ring_issue_frag<kTilesC>(wc, i, total, per, rot, fc);
+    for (int i = 0; i < kStages - 1; ++i) {
+      ring_issue_frag<kTilesC, BF16>(wc, i, total, per, rot, fc);
+    }
   }
   for (int k = tid; k < H; k += kThreads) w2s[k] = p.w2[k];
   const auto row_of = [&](int b0, int h) { return b0 + 16 * mt + g + 8 * h; };
@@ -209,8 +221,8 @@ __global__ void __launch_bounds__(kThreads, 1) loop_kernel(const FwdArgs p) {
     for (int tl = half; tl < n_tiles; tl += kHalves) {
       const int b0 = tl * kTile;
       float d[kTilesH][4];
-      product_mma<MT, kTilesH, false>(d, p.hx + (size_t)b0 * Kp, Kp, B - b0, wh, Kp, rot,
-                                      no_chunk, 0, nullptr, part_s);
+      product_mma<MT, kTilesH, false, BF16>(d, p.hx + (size_t)b0 * Kp, Kp, B - b0, wh, Kp, rot,
+                                            no_chunk, 0, nullptr, part_s);
       if (owner) {
 #pragma unroll
         for (int h = 0; h < 2; ++h)
@@ -222,6 +234,11 @@ __global__ void __launch_bounds__(kThreads, 1) loop_kernel(const FwdArgs p) {
               float* o = gh_t + (size_t)b * H3 + j;
 #pragma unroll
               for (int q = 0; q < 3; ++q) o[q * H] = d[1 + q][2 * h + e] + bh[q][e];
+              if (p.gh16 != nullptr) {
+                __nv_bfloat16* o16 = p.gh16 + (tB + b) * H3 + j;
+#pragma unroll
+                for (int q = 0; q < 3; ++q) o16[q * H] = __float2bfloat16(o[q * H]);
+              }
             }
           }
       }
@@ -255,8 +272,8 @@ __global__ void __launch_bounds__(kThreads, 1) loop_kernel(const FwdArgs p) {
           }
       }
       float d[kTilesC][4];
-      product_mma<MT, kTilesC, STREAM>(d, p.cx + (size_t)b0 * Kp, Kp, B - b0, wc, Kp, rot,
-                                       chunk, total, fc, part_s);
+      product_mma<MT, kTilesC, STREAM, BF16>(d, p.cx + (size_t)b0 * Kp, Kp, B - b0, wc, Kp,
+                                             rot, chunk, total, fc, part_s);
       if (owner) {
 #pragma unroll
         for (int h = 0; h < 2; ++h)
@@ -287,17 +304,17 @@ int round_up_i(int x, int m) { return (x + m - 1) / m * m; }
 
 // dynamic shared memory of the loop (ops/kernels/vsrn_dec.py::fwd_plan
 // computes the same)
-int fwd_smem(int H, bool streamed) {
+int fwd_smem(int H, bool streamed, bool bf16) {
   const int kp = round_up_i(H, gru::kKAlign);
-  const int wh = kp / 16 * kTilesH * kStepWords;
-  const int wc = streamed ? gru::kStages * kTilesC * kChunkSteps * kStepWords
-                          : kp / 16 * kTilesC * kStepWords;
+  const int sw = bf16 ? step_words<true>() : step_words<false>();
+  const int wh = kp / 16 * kTilesH * sw;
+  const int wc = streamed ? gru::kStages * kTilesC * kChunkSteps * sw : kp / 16 * kTilesC * sw;
   return (wh + wc) * 4;
 }
 
-template <int MT, bool S>
+template <int MT, bool S, bool BF16>
 cudaError_t launch_loop(const FwdArgs& a, int blocks, int smem, cudaStream_t stream) {
-  auto* kernel = loop_kernel<MT, S>;
+  auto* kernel = loop_kernel<MT, S, BF16>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -312,10 +329,12 @@ extern "C" {
 
 // In, fp32 and contiguous: gxw (T, B, 3H), cmask (T, B, H), enco, enca (B, R,
 // H), h0 (B, H), w2 (H), bhh (3H); the loop's split B fragments fh of [Watt ;
-// Whh] and fc of Wctx (ops/kernels/vsrn_dec.py::fwd_weights: per group of 8
+// Whh] and fc of Wctx (bf16 != 0: the bf16 mode, fragments of the bf16
+// weights alone) (ops/kernels/vsrn_dec.py::fwd_weights: per group of 8
 // units, kp / 16 k16 steps of 4 and 3 n8 tiles; kp = H rounded up to 64).
 // Out, fp32: hs (T, B, H); hall (T, B, H) when not null; ghall (T, B, 3H)
-// when not null, else the B x 3H workspace ws_gh takes gh.  Workspaces,
+// when not null (bf16 in the bf16 mode, whose gh always goes through ws_gh),
+// else the B x 3H workspace ws_gh takes gh.  Workspaces,
 // fp32: ws_hx and ws_cx of B x kp, ws_hq of B x H; bar two words.  1 <= R <=
 // 128, 1 <= H <= 1024.  One cooperative launch of `blocks` = halves x
 // ceil(H / 8) blocks of 8 hidden units, each taking 1 / `halves` (1 or 2) of
@@ -329,12 +348,13 @@ int itrx_vsrn_dec_fwd(const void* gxw, const void* cmask, const void* enco, cons
                       const void* h0, const void* w2, const void* bhh, const void* fh,
                       const void* fc, void* hs, void* hall, void* ghall, void* ws_hx,
                       void* ws_hq, void* ws_cx, void* ws_gh, void* bar, int T, int B, int R,
-                      int H, int halves, int blocks, int streamed, int smem, int device,
-                      void* stream) {
+                      int H, int halves, int blocks, int streamed, int smem, int bf16,
+                      int device, void* stream) {
   if (T < 1 || B < 1 || R < 1 || R > kMaxR || H < 1 || H > kMaxH ||
       (halves != 1 && halves != 2) || (halves == 2 && streamed) ||
-      blocks != halves * ((H + kUnits - 1) / kUnits) || smem < fwd_smem(H, streamed != 0) ||
-      (ghall == nullptr && ws_gh == nullptr)) {
+      blocks != halves * ((H + kUnits - 1) / kUnits) ||
+      smem < fwd_smem(H, streamed != 0, bf16 != 0) ||
+      (ghall == nullptr && ws_gh == nullptr) || (bf16 && ws_gh == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
@@ -355,15 +375,26 @@ int itrx_vsrn_dec_fwd(const void* gxw, const void* cmask, const void* enco, cons
   const auto cf = [](const void* p) { return static_cast<const float*>(p); };
   const auto f = [](void* p) { return static_cast<float*>(p); };
   const auto cu = [](const void* p) { return static_cast<const uint32_t*>(p); };
+  // fp32 ghall takes gh itself; the bf16 mode's gh goes through ws_gh and
+  // leaves in bf16
+  const bool gh_out = ghall != nullptr && !bf16;
   const FwdArgs a{cf(gxw), cf(cmask), cf(enco), cf(enca), cf(w2), cf(bhh), cu(fh), cu(fc),
-                  f(hs), f(hall), ghall != nullptr ? f(ghall) : f(ws_gh), f(ws_hx), f(ws_hq),
-                  f(ws_cx), static_cast<unsigned*>(bar),
-                  ghall != nullptr ? (long long)B * 3 * H : 0LL, T, B, R, H, kp};
-  if (halves == 2) {
-    err = launch_loop<4, false>(a, blocks, smem, st);
+                  f(hs), f(hall), gh_out ? f(ghall) : f(ws_gh),
+                  bf16 ? static_cast<__nv_bfloat16*>(ghall) : nullptr, f(ws_hx), f(ws_hq),
+                  f(ws_cx), static_cast<unsigned*>(bar), gh_out ? (long long)B * 3 * H : 0LL,
+                  T, B, R, H, kp};
+  if (bf16) {
+    if (halves == 2) {
+      err = launch_loop<4, false, true>(a, blocks, smem, st);
+    } else {
+      err = streamed ? launch_loop<8, true, true>(a, blocks, smem, st)
+                     : launch_loop<8, false, true>(a, blocks, smem, st);
+    }
+  } else if (halves == 2) {
+    err = launch_loop<4, false, false>(a, blocks, smem, st);
   } else {
-    err = streamed ? launch_loop<8, true>(a, blocks, smem, st)
-                   : launch_loop<8, false>(a, blocks, smem, st);
+    err = streamed ? launch_loop<8, true, false>(a, blocks, smem, st)
+                   : launch_loop<8, false, false>(a, blocks, smem, st);
   }
   return (int)err;
 }

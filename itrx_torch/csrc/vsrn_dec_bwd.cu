@@ -57,6 +57,15 @@
 //      they are staged, sgraf_align_bwd.cu's gw_kernel pattern) over fixed
 //      splits of the rows; wsum_reduce and colsum_kernel sum the splits and
 //      parts in order.
+// The bf16 mode (bf16 operands, the train_bf16 step): the TPU kernel at
+// dot_dtype="bfloat16".  The weights are bf16 (the loop's B fragments hold
+// them alone, half the split layout's bytes; the recompute's slabs split
+// them with a zero lo part, which no pass reads); every product and weight
+// sum takes one bf16 pass, its operands rounded as the TPU kernel rounds
+// them (h, the masked context, g_gx, g_gh and g_hq), fp32 accumulation;
+// ghall comes in bf16 (as the forward saves it) and g_gxw is written as bf16
+// values; dbhh sums the unrounded g_gh; the attention and its adjoint stay
+// fp32 (enc_out comes as its fp32 values).
 // No atomics and every sum in a fixed order, so two calls give identical
 // gradients; nothing is read back to the host.  Each launch's time on the
 // card is in PERF.md §6.
@@ -77,7 +86,7 @@ using itrx_vsrn::kMaxR;
 using itrx_vsrn::sigmoid_f;
 using itrx_vsrn::warp_sum;
 using vsrn_loop::kChunkSteps;
-using vsrn_loop::kStepWords;
+using vsrn_loop::step_words;
 using vsrn_loop::kUnits;
 using vsrn_loop::product_mma;
 using vsrn_loop::ring_issue_frag;
@@ -116,7 +125,8 @@ constexpr int kProjBytes = (mma::kWStages * mma::kWStage + 2 * mma::kAStage) * 4
 // out (rows x N, row stride N) = A (rows x K, row stride lda) W^T (+ add, the
 // layout of out), one 64-row tile and one chunk of S8 columns a block; W
 // split by the wrapper into chunks of S8 rows of Kp words (mma_tile's slab
-// layout).  Two blocks an SM.
+// layout).  Two blocks an SM.  BF16: A rounded to bf16, W bf16, one pass.
+template <bool BF16>
 __global__ void __launch_bounds__(kThreads, 2)
 proj_kernel(const float* __restrict__ A, int lda, int K, const uint32_t* __restrict__ wsplit,
             int Kp, int S8, const float* __restrict__ add, float* __restrict__ out, int N,
@@ -130,7 +140,7 @@ proj_kernel(const float* __restrict__ A, int lda, int K, const uint32_t* __restr
   mma::init_weight_bars();
   RowsF32 prod{A, t0, nrows, lda, K, {}};
   mma::Acc acc;
-  mma::mma_tile(acc, rg, wsplit + (size_t)j * S8 * Kp, Kp, S8, nrows, prod);
+  mma::mma_tile<!BF16, !BF16>(acc, rg, wsplit + (size_t)j * S8 * Kp, Kp, S8, nrows, prod);
   mma::tile_out(acc, rg, nrows, [&](const float* y, int n) {
     const int c = threadIdx.x, col = j * S8 + c;
     if (c >= S8 || col >= N) return;
@@ -144,7 +154,7 @@ proj_kernel(const float* __restrict__ A, int lda, int K, const uint32_t* __restr
 // ---------------------------------------------------------------- 2
 struct LoopArgs {
   const float* gx;      // (T, B, 3H) recomputed input gates
-  const float* ghall;   // (T, B, 3H)
+  const void* ghall;    // (T, B, 3H): fp32, bf16 in the bf16 mode
   const float* hall;    // (T, B, H)
   const float* ghs;     // (T, B, H)
   const float* cmask;   // (T, B, H)
@@ -180,7 +190,7 @@ struct CellIn {
 // tiles, rows 16 (warp % MT) + lane / 4 + 8 h and units j0 + 2 (lane % 4) + e
 // (h, e in {0, 1}): the products' output map, the same in every phase, so the
 // carry's local term gp never leaves its thread.
-template <int MT, bool STREAM>
+template <int MT, bool STREAM, bool BF16>
 __global__ void __launch_bounds__(kThreads, 1) loop_kernel(const LoopArgs p) {
   using namespace gru;
   constexpr int kTile = 16 * MT, kHalves = 8 / MT, NT1 = 2;
@@ -189,9 +199,9 @@ __global__ void __launch_bounds__(kThreads, 1) loop_kernel(const LoopArgs p) {
   __shared__ float al[kMaxR], ga[kMaxR];
   __shared__ __align__(16) float part_s[4 * 32 * NT1 * 4];
   const int T = p.T, B = p.B, Rg = p.R, H = p.H, H3 = 3 * H, Kp1 = p.Kp1, Kp4 = p.Kp4;
-  const int words3 = Kp1 / 16 * kStepWords;
-  const int words1 =
-      STREAM ? kStages * NT1 * kChunkSteps * kStepWords : Kp4 / 16 * NT1 * kStepWords;
+  constexpr int kSW = step_words<BF16>();
+  const int words3 = Kp1 / 16 * kSW;
+  const int words1 = STREAM ? kStages * NT1 * kChunkSteps * kSW : Kp4 / 16 * NT1 * kSW;
   uint32_t* const w3 = reinterpret_cast<uint32_t*>(smem_raw);  // Watt^T's fragments, resident
   uint32_t* const w1 = w3 + words3;                            // w1's fragments, or the ring
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -201,17 +211,21 @@ __global__ void __launch_bounds__(kThreads, 1) loop_kernel(const LoopArgs p) {
   const int j0 = group * kUnits;
   const int n_tiles = (B + kTile - 1) / kTile;
   const int my_tiles = n_tiles > half ? (n_tiles - half + kHalves - 1) / kHalves : 0;
+  // x as the mode keeps it: rounded to bf16 in the bf16 mode
+  const auto as_dot = [](float x) { return BF16 ? gru::bf16_round(x) : x; };
   const int per1 = Kp4 / kKAlign, total1 = STREAM ? T * my_tiles * per1 : 0;
   // where the block's walks over the depth start (chunks of kKAlign columns)
   const int rot1 = group % per1, rot3 = group % (Kp1 / kKAlign);
-  const uint32_t* f1 = p.f1 + (size_t)group * (Kp4 / 16) * NT1 * kStepWords;
+  const uint32_t* f1 = p.f1 + (size_t)group * (Kp4 / 16) * NT1 * kSW;
   const uint32_t* f3 = p.f3 + (size_t)group * words3;
   int chunk1 = 0, chunk3 = 0;
 
   for (int i = 4 * tid; i < words3; i += 4 * kThreads) cp_async16(w3 + i, f3 + i, 16);
   if constexpr (STREAM) {
     cp_async_commit();
-    for (int i = 0; i < kStages - 1; ++i) ring_issue_frag<NT1>(w1, i, total1, per1, rot1, f1);
+    for (int i = 0; i < kStages - 1; ++i) {
+      ring_issue_frag<NT1, BF16>(w1, i, total1, per1, rot1, f1);
+    }
   } else {
     for (int i = 4 * tid; i < words1; i += 4 * kThreads) cp_async16(w1 + i, f1 + i, 16);
     cp_async_commit();
@@ -228,7 +242,12 @@ __global__ void __launch_bounds__(kThreads, 1) loop_kernel(const LoopArgs p) {
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
       v.x[q] = p.gx[bt * H3 + q * H + j];
-      v.hh[q] = p.ghall[bt * H3 + q * H + j];
+      if constexpr (BF16) {
+        v.hh[q] = __bfloat162float(
+            static_cast<const __nv_bfloat16*>(p.ghall)[bt * H3 + q * H + j]);
+      } else {
+        v.hh[q] = static_cast<const float*>(p.ghall)[bt * H3 + q * H + j];
+      }
     }
     v.hp = p.hall[bt * H + j];
     v.gs = p.ghs[bt * H + j];
@@ -248,9 +267,9 @@ __global__ void __launch_bounds__(kThreads, 1) loop_kernel(const LoopArgs p) {
     const float g_prer = g_r * r * (1.0f - r);
     const float g_prez = g_z * z * (1.0f - z);
     float* o = p.ggxw + bt * H3;
-    o[j] = g_prer;
-    o[H + j] = g_prez;
-    o[2 * H + j] = g_pren;
+    o[j] = as_dot(g_prer);
+    o[H + j] = as_dot(g_prez);
+    o[2 * H + j] = as_dot(g_pren);
     float* e = p.eg + (size_t)b * Kp4;
     e[j] = g_prer;
     e[H + j] = g_prez;
@@ -287,8 +306,8 @@ __global__ void __launch_bounds__(kThreads, 1) loop_kernel(const LoopArgs p) {
     for (int tl = half; tl < n_tiles; tl += kHalves) {
       const int b0 = tl * kTile;
       float d[NT1][4];
-      product_mma<MT, NT1, STREAM>(d, p.eg + (size_t)b0 * Kp4, Kp4, B - b0, w1, Kp4, rot1,
-                                   chunk1, total1, f1, part_s);
+      product_mma<MT, NT1, STREAM, BF16>(d, p.eg + (size_t)b0 * Kp4, Kp4, B - b0, w1, Kp4,
+                                         rot1, chunk1, total1, f1, part_s);
       if (owner) {
 #pragma unroll
         for (int h = 0; h < 2; ++h)
@@ -378,8 +397,8 @@ __global__ void __launch_bounds__(kThreads, 1) loop_kernel(const LoopArgs p) {
           for (int e = 0; e < 2; ++e) load_cell(t - 1, row_of(b0, h), unit_of(e), next[h][e]);
       }
       float d[1][4];
-      product_mma<MT, 1, false>(d, p.cat + (tB + b0) * Kp4, Kp4, B - b0, w3, Kp1, rot3, chunk3,
-                                0, f3, part_s);
+      product_mma<MT, 1, false, BF16>(d, p.cat + (tB + b0) * Kp4, Kp4, B - b0, w3, Kp1, rot3,
+                                      chunk3, 0, f3, part_s);
       PHASE(6)
       if (owner) {
 #pragma unroll
@@ -465,13 +484,15 @@ __global__ void colsum_kernel(const float* __restrict__ part, int n, int H,
 // part[z] (M x N) = sum over the rows of split z of A[row, m] Bm[row, n], a
 // 64 (m) x 256 (n) tile a block on wgmma, both operands split as they are
 // staged (a slab of 32 rows ahead, in registers); with bpart, also
-// bpart[z, m] = sum over the rows of A[row, m] (blocks with blockIdx.y 0).
+// bpart[z, m] = sum over the rows of A[row, m] (blocks with blockIdx.y 0,
+// the unrounded A).  BF16: both operands rounded to bf16, one pass.
 constexpr int kGsM = mma::kMmaRows;
 constexpr int kGsN = 256;
 constexpr int kGsA = kGsM * mma::kSlab;
 constexpr int kGsB = kGsN * mma::kSlab;
 constexpr int kGsBytes = 2 * (kGsA + kGsB) * 4;
 
+template <bool BF16>
 __global__ void __launch_bounds__(kThreads, 1)
 gsum_kernel(const float* __restrict__ A, int lda, int M, const float* __restrict__ Bm, int ldb,
             int N, long long n_rows, int splits, float* __restrict__ part,
@@ -555,8 +576,10 @@ gsum_kernel(const float* __restrict__ A, int lda, int M, const float* __restrict
       const uint64_t alo = mma::smem_desc(as + (2 * st + 1) * (kGsM * 8), 128, 256);
       const uint64_t bh = mma::smem_desc(bs + (2 * st) * (kGsN * 8), 128, 256);
       const uint64_t blo = mma::smem_desc(bs + (2 * st + 1) * (kGsN * 8), 128, 256);
-      mma::wgmma_m64n128(acc, ah, blo);
-      mma::wgmma_m64n128(acc, alo, bh);
+      if constexpr (!BF16) {
+        mma::wgmma_m64n128(acc, ah, blo);
+        mma::wgmma_m64n128(acc, alo, bh);
+      }
       mma::wgmma_m64n128(acc, ah, bh);
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -622,16 +645,17 @@ int round_up_i(int x, int m) { return (x + m - 1) / m * m; }
 
 // dynamic shared memory of the loop (ops/kernels/vsrn_dec.py::plan computes
 // the same)
-int loop_smem(int H, bool streamed) {
+int loop_smem(int H, bool streamed, bool bf16) {
   const int kp1 = round_up_i(H, gru::kKAlign), kp4 = round_up_i(4 * H, gru::kKAlign);
-  const int w3 = kp1 / 16 * kStepWords;
-  const int w1 = streamed ? gru::kStages * 2 * kChunkSteps * kStepWords : kp4 / 16 * 2 * kStepWords;
+  const int sw = bf16 ? step_words<true>() : step_words<false>();
+  const int w3 = kp1 / 16 * sw;
+  const int w1 = streamed ? gru::kStages * 2 * kChunkSteps * sw : kp4 / 16 * 2 * sw;
   return (w3 + w1) * 4;
 }
 
-template <int MT, bool S>
+template <int MT, bool S, bool BF16>
 cudaError_t launch_loop(const LoopArgs& a, int blocks, int smem, cudaStream_t stream) {
-  auto* kernel = loop_kernel<MT, S>;
+  auto* kernel = loop_kernel<MT, S, BF16>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -640,11 +664,98 @@ cudaError_t launch_loop(const LoopArgs& a, int blocks, int smem, cudaStream_t st
                                      stream);
 }
 
+// itrx_vsrn_dec_bwd in the mode BF16
+template <bool BF16>
+int run_bwd(const void* gxw, const void* cmask, const void* enco, const void* enca,
+            const void* hall, const void* ghall, const void* ghs, const void* w2,
+            const void* wattS, const void* wctxS, const void* f1, const void* f3, void* ggxw,
+            void* gh0, void* genco, void* genca, void* dwatt, void* dw2, void* dwctx,
+            void* dwhh, void* dbhh, void* ws_hq, void* ws_ctx, void* ws_gctx, void* ws_alpha,
+            void* ws_ge, void* ws_gx, void* ws_cat, void* ws_eg, void* ws_gp, void* ws_dw2p,
+            void* part0, void* bpart, void* part1, void* bar, int T, int B, int R, int H,
+            int s8a, int s8c, int kpw, int splits, int halves, int blocks, int streamed,
+            int smem, int device, void* stream) {
+  const int kp1 = round_up_i(H, gru::kKAlign), kp4 = round_up_i(4 * H, gru::kKAlign);
+  if (T < 1 || B < 1 || R < 1 || R > kMaxR || H < 1 || H > kMaxH || splits < 1 ||
+      (halves != 1 && halves != 2) || blocks != halves * ((H + kUnits - 1) / kUnits) ||
+      smem < loop_smem(H, streamed != 0, BF16) || s8a < 8 || s8a > 256 || s8a % 8 ||
+      s8c < 8 || s8c > 256 || s8c % 8 || kpw != round_up_i(H, mma::kSlab)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto cf = [](const void* p) { return static_cast<const float*>(p); };
+  const auto f = [](void* p) { return static_cast<float*>(p); };
+  const auto cu = [](const void* p) { return static_cast<const uint32_t*>(p); };
+  const long long rows = (long long)T * B;
+  const int H3 = 3 * H;
+
+  // 1. the recomputation over all rows: hq, alpha and ctx, gx
+  err = cudaFuncSetAttribute(proj_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kProjBytes);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned row_tiles = blocks_for(rows, mma::kMmaRows);
+  proj_kernel<BF16><<<dim3(row_tiles, blocks_for(H, s8a)), kThreads, kProjBytes, st>>>(
+      cf(hall), H, H, cu(wattS), kpw, s8a, nullptr, f(ws_hq), H, rows);
+  itrx_vsrn::attend_kernel<<<(unsigned)rows, itrx_vsrn::kThreads, 0, st>>>(
+      cf(enca), cf(enco), f(ws_hq), cf(w2), cf(cmask), f(ws_ctx), f(ws_alpha), B, R, H);
+  proj_kernel<BF16><<<dim3(row_tiles, blocks_for(H3, s8c)), kThreads, kProjBytes, st>>>(
+      cf(ws_ctx), H, H, cu(wctxS), kpw, s8c, cf(gxw), f(ws_gx), H3, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // 2. the reverse loop; the exchanges' pad columns read as zero
+  if (kp4 > 4 * H) {
+    err = cudaMemsetAsync(ws_eg, 0, sizeof(float) * B * kp4, st);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaMemsetAsync(ws_cat, 0, sizeof(float) * rows * kp4, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  err = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned), st);
+  if (err != cudaSuccess) return (int)err;
+  const LoopArgs a{cf(ws_gx), ghall, cf(hall), cf(ghs), cf(cmask), cf(enco), cf(enca),
+                   cf(ws_hq), cf(ws_alpha), cf(w2), cu(f1), cu(f3), f(ggxw), f(gh0),
+                   f(ws_eg), f(ws_cat), f(ws_gctx), f(ws_ge), f(ws_gp),
+                   static_cast<unsigned*>(bar), T, B, R, H, kp1, kp4};
+  if (halves == 2) {
+    // two blocks a unit slice only where the weights stay resident (H <= 528)
+    err = streamed ? cudaErrorInvalidValue : launch_loop<4, false, BF16>(a, blocks, smem, st);
+  } else {
+    err = streamed ? launch_loop<8, true, BF16>(a, blocks, smem, st)
+                   : launch_loop<8, false, BF16>(a, blocks, smem, st);
+  }
+  if (err != cudaSuccess) return (int)err;
+
+  // 3. the attention's sums over t
+  const int rgroups = (R + kSumRegions - 1) / kSumRegions;
+  attn_sums_kernel<<<dim3(blocks_for(H, kSumCols), rgroups, B), kSumCols, 0, st>>>(
+      cf(enca), f(ws_hq), f(ws_alpha), f(ws_gctx), f(ws_ge), cf(w2), f(genco), f(genca),
+      f(ws_dw2p), T, B, R, H);
+  colsum_kernel<<<blocks_for(H, 256), 256, 0, st>>>(f(ws_dw2p), B * rgroups, H, f(dw2));
+
+  // 4. the weight sums over every row, in fixed splits summed in order
+  err = cudaFuncSetAttribute(gsum_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, kGsBytes);
+  if (err != cudaSuccess) return (int)err;
+  gsum_kernel<BF16><<<dim3(blocks_for(4 * H, kGsM), blocks_for(H, kGsN), splits), kThreads, kGsBytes,
+                st>>>(f(ws_cat), kp4, 4 * H, cf(hall), H, H, rows, splits, f(part0), f(bpart));
+  gsum_kernel<BF16><<<dim3(blocks_for(H3, kGsM), blocks_for(H, kGsN), splits), kThreads, kGsBytes,
+                st>>>(f(ggxw), H3, H3, f(ws_ctx), H, H, rows, splits, f(part1), nullptr);
+  const size_t n0 = (size_t)4 * H * H + H3, n1 = (size_t)H3 * H;
+  wsum_reduce<<<blocks_for(n0, 256), 256, 0, st>>>(0, f(part0), f(bpart), splits, H, f(dwatt),
+                                                  f(dwhh), f(dbhh), nullptr);
+  wsum_reduce<<<blocks_for(n1, 256), 256, 0, st>>>(1, f(part1), nullptr, splits, H, nullptr,
+                                                  nullptr, nullptr, f(dwctx));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// The backward of itrx_vsrn_dec_fwd.  In, fp32 and contiguous: gxw (T, B, 3H),
+// The backward of itrx_vsrn_dec_fwd (bf16 != 0: its bf16 mode, wattS and wctxS
+// split from bf16 weights, f1 and f3 the bf16 weights' fragments alone, ghall
+// bf16).  In, fp32 (but ghall) and contiguous: gxw (T, B, 3H),
 // cmask (T, B, H), enco, enca (B, R, H), hall (T, B, H), ghall (T, B, 3H),
 // ghs (T, B, H), w2 (H); wattS and wctxS Watt (H, H) and Wctx (3H, H) split
 // for the tensor cores (ops/kernels/vsrn_dec.py::split_rows: chunks of s8a
@@ -674,79 +785,17 @@ int itrx_vsrn_dec_bwd(const void* gxw, const void* cmask, const void* enco, cons
                       void* ws_cat, void* ws_eg, void* ws_gp, void* ws_dw2p, void* part0,
                       void* bpart, void* part1, void* bar, int T, int B, int R, int H,
                       int s8a, int s8c, int kpw, int splits, int halves, int blocks,
-                      int streamed, int smem, int device, void* stream) {
-  const int kp1 = round_up_i(H, gru::kKAlign), kp4 = round_up_i(4 * H, gru::kKAlign);
-  if (T < 1 || B < 1 || R < 1 || R > kMaxR || H < 1 || H > kMaxH || splits < 1 ||
-      (halves != 1 && halves != 2) || blocks != halves * ((H + kUnits - 1) / kUnits) ||
-      smem < loop_smem(H, streamed != 0) || s8a < 8 || s8a > 256 || s8a % 8 ||
-      s8c < 8 || s8c > 256 || s8c % 8 || kpw != round_up_i(H, mma::kSlab)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto cf = [](const void* p) { return static_cast<const float*>(p); };
-  const auto f = [](void* p) { return static_cast<float*>(p); };
-  const auto cu = [](const void* p) { return static_cast<const uint32_t*>(p); };
-  const long long rows = (long long)T * B;
-  const int H3 = 3 * H;
-
-  // 1. the recomputation over all rows: hq, alpha and ctx, gx
-  err = cudaFuncSetAttribute(proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kProjBytes);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned row_tiles = blocks_for(rows, mma::kMmaRows);
-  proj_kernel<<<dim3(row_tiles, blocks_for(H, s8a)), kThreads, kProjBytes, st>>>(
-      cf(hall), H, H, cu(wattS), kpw, s8a, nullptr, f(ws_hq), H, rows);
-  itrx_vsrn::attend_kernel<<<(unsigned)rows, itrx_vsrn::kThreads, 0, st>>>(
-      cf(enca), cf(enco), f(ws_hq), cf(w2), cf(cmask), f(ws_ctx), f(ws_alpha), B, R, H);
-  proj_kernel<<<dim3(row_tiles, blocks_for(H3, s8c)), kThreads, kProjBytes, st>>>(
-      cf(ws_ctx), H, H, cu(wctxS), kpw, s8c, cf(gxw), f(ws_gx), H3, rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  // 2. the reverse loop; the exchanges' pad columns read as zero
-  if (kp4 > 4 * H) {
-    err = cudaMemsetAsync(ws_eg, 0, sizeof(float) * B * kp4, st);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaMemsetAsync(ws_cat, 0, sizeof(float) * rows * kp4, st);
-    if (err != cudaSuccess) return (int)err;
-  }
-  err = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned), st);
-  if (err != cudaSuccess) return (int)err;
-  const LoopArgs a{cf(ws_gx), cf(ghall), cf(hall), cf(ghs), cf(cmask), cf(enco), cf(enca),
-                   cf(ws_hq), cf(ws_alpha), cf(w2), cu(f1), cu(f3), f(ggxw), f(gh0),
-                   f(ws_eg), f(ws_cat), f(ws_gctx), f(ws_ge), f(ws_gp),
-                   static_cast<unsigned*>(bar), T, B, R, H, kp1, kp4};
-  if (halves == 2) {
-    // two blocks a unit slice only where the weights stay resident (H <= 528)
-    err = streamed ? cudaErrorInvalidValue : launch_loop<4, false>(a, blocks, smem, st);
-  } else {
-    err = streamed ? launch_loop<8, true>(a, blocks, smem, st)
-                   : launch_loop<8, false>(a, blocks, smem, st);
-  }
-  if (err != cudaSuccess) return (int)err;
-
-  // 3. the attention's sums over t
-  const int rgroups = (R + kSumRegions - 1) / kSumRegions;
-  attn_sums_kernel<<<dim3(blocks_for(H, kSumCols), rgroups, B), kSumCols, 0, st>>>(
-      cf(enca), f(ws_hq), f(ws_alpha), f(ws_gctx), f(ws_ge), cf(w2), f(genco), f(genca),
-      f(ws_dw2p), T, B, R, H);
-  colsum_kernel<<<blocks_for(H, 256), 256, 0, st>>>(f(ws_dw2p), B * rgroups, H, f(dw2));
-
-  // 4. the weight sums over every row, in fixed splits summed in order
-  err = cudaFuncSetAttribute(gsum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGsBytes);
-  if (err != cudaSuccess) return (int)err;
-  gsum_kernel<<<dim3(blocks_for(4 * H, kGsM), blocks_for(H, kGsN), splits), kThreads, kGsBytes,
-                st>>>(f(ws_cat), kp4, 4 * H, cf(hall), H, H, rows, splits, f(part0), f(bpart));
-  gsum_kernel<<<dim3(blocks_for(H3, kGsM), blocks_for(H, kGsN), splits), kThreads, kGsBytes,
-                st>>>(f(ggxw), H3, H3, f(ws_ctx), H, H, rows, splits, f(part1), nullptr);
-  const size_t n0 = (size_t)4 * H * H + H3, n1 = (size_t)H3 * H;
-  wsum_reduce<<<blocks_for(n0, 256), 256, 0, st>>>(0, f(part0), f(bpart), splits, H, f(dwatt),
-                                                  f(dwhh), f(dbhh), nullptr);
-  wsum_reduce<<<blocks_for(n1, 256), 256, 0, st>>>(1, f(part1), nullptr, splits, H, nullptr,
-                                                  nullptr, nullptr, f(dwctx));
-  return (int)cudaGetLastError();
+                      int streamed, int smem, int bf16, int device, void* stream) {
+  return bf16 ? run_bwd<true>(gxw, cmask, enco, enca, hall, ghall, ghs, w2, wattS, wctxS, f1, f3,
+                              ggxw, gh0, genco, genca, dwatt, dw2, dwctx, dwhh, dbhh, ws_hq,
+                              ws_ctx, ws_gctx, ws_alpha, ws_ge, ws_gx, ws_cat, ws_eg, ws_gp,
+                              ws_dw2p, part0, bpart, part1, bar, T, B, R, H, s8a, s8c, kpw,
+                              splits, halves, blocks, streamed, smem, device, stream)
+              : run_bwd<false>(gxw, cmask, enco, enca, hall, ghall, ghs, w2, wattS, wctxS, f1,
+                               f3, ggxw, gh0, genco, genca, dwatt, dw2, dwctx, dwhh, dbhh, ws_hq,
+                               ws_ctx, ws_gctx, ws_alpha, ws_ge, ws_gx, ws_cat, ws_eg, ws_gp,
+                               ws_dw2p, part0, bpart, part1, bar, T, B, R, H, s8a, s8c, kpw,
+                               splits, halves, blocks, streamed, smem, device, stream);
 }
 
 #ifdef ITRX_VSRN_DEC_PHASES

@@ -48,16 +48,21 @@ namespace vsrn_loop {
 namespace mma = itrx_sgraf_mma;
 
 constexpr int kUnits = 8;        // hidden units a loop block owns: one n8 tile
-constexpr int kStepWords = 128;  // one n8 tile's split B fragments of a k16 step, 32 lanes
 constexpr int kChunkSteps = gru::kKAlign / 16;  // k16 steps in one streamed chunk
+
+// one n8 tile's B fragments of a k16 step, 32 lanes, in 32-bit words: split
+// (hi and lo, 16 bytes a lane) in the fp32 mode, the bf16 values alone (8
+// bytes a lane) in the bf16 mode
+template <bool BF16>
+__host__ __device__ constexpr int step_words() { return BF16 ? 64 : 128; }
 
 // Chunk `chunk` of a streamed run of a product's weight fragments (NT tiles)
 // into ring slot chunk % kStages: k16 steps ((chunk % per + rot) % per) 4 ..
-// + 3, one contiguous piece of NT kChunkSteps kStepWords words.
-template <int NT>
+// + 3, one contiguous piece of NT kChunkSteps step_words words.
+template <int NT, bool BF16 = false>
 __device__ __forceinline__ void ring_issue_frag(uint32_t* ring, int chunk, int total, int per,
                                                 int rot, const uint32_t* __restrict__ src) {
-  constexpr int kWords = NT * kChunkSteps * kStepWords;
+  constexpr int kWords = NT * kChunkSteps * step_words<BF16>();
   if (chunk < total) {
     uint32_t* slot = ring + (chunk % gru::kStages) * kWords;
     const uint32_t* from = src + (size_t)((chunk % per + rot) % per) * kWords;
@@ -83,14 +88,16 @@ __device__ __forceinline__ void ring_issue_frag(uint32_t* ring, int chunk, int t
 // read different lines.  The parts are summed in order through shared
 // memory (part_s), ending with a barrier of the block; warps of part 0 end
 // with the tile's sums: d[nt][2 h + e] at row 16 mt + g + 8 h, column 2t + e
-// of tile nt.
-template <int MT, int NT, bool STREAM>
+// of tile nt.  BF16 (the bf16 mode): the B fragments are the bf16 weights
+// alone (step_words<true>), one pass a_hi b_hi, the A rows rounded to bf16
+// (the TPU kernel's dot_dtype="bfloat16").
+template <int MT, int NT, bool STREAM, bool BF16 = false>
 __device__ __forceinline__ void product_mma(float (&d)[NT][4], const float* A, int lda,
                                             int nrows, const uint32_t* ws, int Kp, int rot,
                                             int& chunk, int total, const uint32_t* src,
                                             float* part_s) {
   using namespace gru;
-  constexpr int KS = 8 / MT, DEPTH = 8;
+  constexpr int KS = 8 / MT, DEPTH = 8, kSW = step_words<BF16>();
   static_assert(!STREAM || KS == 1, "a streamed ring feeds every warp the same chunk");
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int mt = warp % MT, part = warp / MT;
@@ -137,14 +144,14 @@ __device__ __forceinline__ void product_mma(float (&d)[NT][4], const float* A, i
           if (s % kChunkSteps == 0) {
             cp_async_wait<kStages - 2>();
             __syncthreads();
-            ring_issue_frag<NT>(const_cast<uint32_t*>(ws), chunk + kStages - 1, total,
-                                Kp / kKAlign, rot, src);
+            ring_issue_frag<NT, BF16>(const_cast<uint32_t*>(ws), chunk + kStages - 1, total,
+                                      Kp / kKAlign, rot, src);
             ++chunk;
           }
-          w = ws + ((chunk - 1) % kStages) * (NT * kChunkSteps * kStepWords) +
-              (s % kChunkSteps) * NT * kStepWords;
+          w = ws + ((chunk - 1) % kStages) * (NT * kChunkSteps * kSW) +
+              (s % kChunkSteps) * NT * kSW;
         } else {
-          w = ws + (size_t)step_of(s) * NT * kStepWords;
+          w = ws + (size_t)step_of(s) * NT * kSW;
         }
         const float4 xa = bufa[i], xb = bufb[i];
         uint32_t ah[4], al[4];
@@ -154,15 +161,20 @@ __device__ __forceinline__ void product_mma(float (&d)[NT][4], const float* A, i
         mma::split2(xb.z, xb.w, ah[3], al[3]);
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
-          const uint4 b = *reinterpret_cast<const uint4*>(w + n * kStepWords + 4 * lane);
+          if constexpr (BF16) {
+            const uint2 b = *reinterpret_cast<const uint2*>(w + n * kSW + 2 * lane);
+            mma::mma16(dhi[n], ah, b.x, b.y);
+          } else {
+            const uint4 b = *reinterpret_cast<const uint4*>(w + n * kSW + 4 * lane);
 #ifdef ITRX_VSRN_DEC_PROBE_NO_PRODUCTS
-          // a measurement build: the operands formed and kept, no products
-          dhi[n][0] += __uint_as_float(ah[0] ^ al[1] ^ ah[2] ^ al[3] ^ b.x ^ b.y ^ b.z ^ b.w);
+            // a measurement build: the operands formed and kept, no products
+            dhi[n][0] += __uint_as_float(ah[0] ^ al[1] ^ ah[2] ^ al[3] ^ b.x ^ b.y ^ b.z ^ b.w);
 #else
-          mma::mma16(dlo[n], ah, b.z, b.w);
-          mma::mma16(dlo[n], al, b.x, b.y);
-          mma::mma16(dhi[n], ah, b.x, b.y);
+            mma::mma16(dlo[n], ah, b.z, b.w);
+            mma::mma16(dlo[n], al, b.x, b.y);
+            mma::mma16(dhi[n], ah, b.x, b.y);
 #endif
+          }
         }
       }
     }

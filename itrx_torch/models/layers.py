@@ -96,7 +96,9 @@ class TorchBatchNorm(nn.BatchNorm1d):
     in eval mode the running statistics.  The fp32 statistics are cast to the
     input's dtype before they normalize it, so a bf16 input (bf16 encode, its
     weight and bias cast to bf16, the running statistics left fp32) runs in
-    bf16 where torch's batch_norm refuses the mix.  The state-dict keys are
+    bf16 where torch's batch_norm refuses the mix.  Under train_bf16 the
+    statistics themselves are bf16 copies (train/loop.py::cast_loss): the
+    update runs in fp32 and rounds once.  The state-dict keys are
     BatchNorm1d's."""
 
     def forward(self, x):
@@ -106,9 +108,12 @@ class TorchBatchNorm(nn.BatchNorm1d):
             var, mean = torch.var_mean(xf, dim=0, correction=0)
             n = xf.shape[0]
             with torch.no_grad():
+                # the update in fp32, rounded once to the statistics' type
+                # (bf16 copies under train_bf16, as itrx's astype)
                 m = self.momentum
-                self.running_mean.mul_(1.0 - m).add_(m * mean.detach())
-                self.running_var.mul_(1.0 - m).add_(m * var.detach() * (n / max(n - 1, 1)))
+                rm, rv = self.running_mean, self.running_var
+                rm.copy_(rm.float() * (1.0 - m) + m * mean.detach())
+                rv.copy_(rv.float() * (1.0 - m) + m * var.detach() * (n / max(n - 1, 1)))
                 self.num_batches_tracked += 1
         else:
             mean, var = self.running_mean.float(), self.running_var.float()

@@ -151,11 +151,17 @@ class AttentionFiltration(nn.Module):
             decay = 1.0 - BN_MOMENTUM
             w = BN_MOMENTUM * decay ** torch.arange(cap_rows - 1, -1, -1, dtype=torch.float32,
                                                      device=x.device)
-            bn.running_mean.mul_(decay ** cap_rows).add_((w * mean).sum())
-            bn.running_var.mul_(decay ** cap_rows).add_((w * unbiased).sum())
+            # in fp32, rounded once to the statistics' type (bf16 copies
+            # under train_bf16)
+            rm, rv = bn.running_mean, bn.running_var
+            rm.copy_(rm.float() * decay ** cap_rows + (w * mean).sum())
+            rv.copy_(rv.float() * decay ** cap_rows + (w * unbiased).sum())
             bn.num_batches_tracked.add_(cap_rows)
-        out = (xc - mean[:, None, None]) * torch.rsqrt(var + BN_EPS)[:, None, None]
-        return (out * bn.weight + bn.bias).reshape(b, n)
+        # the normalization in x's dtype, as `itrx`'s
+        dt = x.dtype
+        out = (x.reshape(xc.shape) - mean.to(dt)[:, None, None]) \
+            * torch.rsqrt(var + BN_EPS).to(dt)[:, None, None]
+        return (out * bn.weight.to(dt) + bn.bias.to(dt)).reshape(b, n)
 
     def forward(self, sim_emb, node_mask, cap_rows: int = 1):
         """sim_emb (B, N, S), node_mask (B, N) -> (B, S).  In train mode the
@@ -171,8 +177,10 @@ class AttentionFiltration(nn.Module):
 
 def _norm(x, dim: int):
     """l2 normalization as x * 1 / (sqrt(sum x^2) + eps) (the JAX package's
-    `_norm` of the score chain)."""
-    return x * (1.0 / (safe_sqrt(torch.sum(x * x, dim=dim, keepdim=True)) + EPS))
+    `_norm` of the score chain): the squares summed in fp32, the scale in
+    x's dtype."""
+    sq = torch.sum((x * x).float(), dim=dim, keepdim=True)
+    return x * (1.0 / (safe_sqrt(sq) + EPS)).to(x.dtype)
 
 
 class EncoderSimilarity(nn.Module):
@@ -210,15 +218,23 @@ class EncoderSimilarity(nn.Module):
         else:
             self.SAF_module = AttentionFiltration(sim_dim, generator)
 
+    def _compute_dtype(self, dt: torch.dtype) -> torch.dtype:
+        """The chains' arithmetic: values of type `dt` meet the weights in
+        their promoted type, as in the JAX package: fp32 with fp32 weights,
+        bf16 when both are (train_bf16 casts the weights)."""
+        return torch.promote_types(dt, self.sim_eval_w.weight.dtype)
+
     def global_embeddings(self, img, cap, cap_mask):
-        """(img_glo (Ni, D), cap_glo (Nc, D)), fp32.  The region mean and the
-        masked word mean are taken in the embeddings' dtype, as in the JAX
-        package (its mask is cast to that dtype, so a bf16 stack stays bf16)."""
+        """(img_glo (Ni, D), cap_glo (Nc, D)), in the compute dtype.  The
+        region mean and the masked word mean are taken in the embeddings'
+        dtype, as in the JAX package (its mask is cast to that dtype, so a
+        bf16 stack stays bf16)."""
+        ct = self._compute_dtype(img.dtype)
         img_ave = img.mean(dim=1)
         denom = torch.clamp(cap_mask.float().sum(dim=1, keepdim=True), min=1.0)
         cap_ave = (cap * cap_mask.to(cap.dtype)[..., None]).sum(dim=1) / denom.to(cap.dtype)
-        img_glo = self.v_global_w(img.float(), img_ave.float())
-        cap_glo = self.t_global_w(cap.float(), cap_ave.float(), cap_mask)
+        img_glo = self.v_global_w(img.to(ct), img_ave.to(ct))
+        cap_glo = self.t_global_w(cap.to(ct), cap_ave.to(ct), cap_mask.to(ct))
         return img_glo, cap_glo
 
     def _module_weights(self) -> tuple:
@@ -254,10 +270,12 @@ class EncoderSimilarity(nn.Module):
                 self.sim_tranglo_w.weight, self.sim_tranglo_w.bias, *self._module_weights(),
                 self.sim_eval_w.weight, self.sim_eval_w.bias,
             ).t()
-        # the plain chain: fp32 on the grid dtype's values
-        on_grid = lambda t: t.to(dt).float()  # noqa: E731
+        # the plain chain: fp32 on the grid dtype's values, or bf16 with
+        # bf16 weights (train_bf16)
+        ct = self._compute_dtype(dt)
+        on_grid = lambda t: t.to(dt).to(ct)  # noqa: E731
         img, img_glo, cap_glo = on_grid(img), on_grid(img_glo), on_grid(cap_glo)
-        cap, mask = on_grid(cap), cap_mask.float()
+        cap, mask = on_grid(cap), cap_mask.to(ct)
         blocks = [
             self._score_chunk(img, img_glo, cap[c0:c0 + self.cap_chunk],
                               mask[c0:c0 + self.cap_chunk], cap_glo[c0:c0 + self.cap_chunk])
@@ -282,7 +300,7 @@ class EncoderSimilarity(nn.Module):
         if self.training and self.sim_bf16:
             bf = torch.bfloat16
             sim_loc = sgraf_align_fused(cap.to(bf), mask, img.to(bf), self.sim_tranloc_w.weight,
-                                        self.sim_tranloc_w.bias).float()
+                                        self.sim_tranloc_w.bias).to(cap.dtype)
         else:
             a = torch.einsum("ird,cld->cirl", img, cap)  # (C, Ni, R, L)
             a = _norm(F.leaky_relu(a, negative_slope=0.1) * mask[:, None, None, :], dim=3)
@@ -302,4 +320,4 @@ class EncoderSimilarity(nn.Module):
             sim_vec = sim_emb[:, 0]
         else:
             sim_vec = self.SAF_module(sim_emb, node_mask, cap_rows=c)
-        return torch.sigmoid(self.sim_eval_w(sim_vec))[:, 0].reshape(c, ni).t()
+        return torch.sigmoid(self.sim_eval_w(sim_vec).float())[:, 0].reshape(c, ni).t()

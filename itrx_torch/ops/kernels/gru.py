@@ -75,16 +75,15 @@ class Plan:
 
 def plan(batch: int, hidden: int, dtype: torch.dtype, *, backward: bool = False,
          sms: int = H100_SMS) -> Plan:
-    """The launch plan of the forward (W_hh in `dtype`, fp32 or bf16) or the
-    adjoint (fp32 only) over `batch` rows at hidden width `hidden` on a card
-    of `sms` SMs.  Raises ValueError for a request no variant takes."""
+    """The launch plan of the forward or the adjoint (`backward`), W_hh in
+    `dtype` (fp32 or bf16), over `batch` rows at hidden width `hidden` on a
+    card of `sms` SMs.  A bf16 slice is always resident (the adjoint's at H
+    2048: 16 units x (6144 + 32) x 2 = 197,632 B).  Raises ValueError for a
+    request no variant takes."""
     if batch < 1 or hidden < 1:
         raise ValueError(f"GRU plan: empty batch {batch} or width {hidden}")
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"GRU plan: W_hh dtype {dtype} unsupported")
-    if backward and dtype != torch.float32:
-        raise ValueError("GRU plan: the adjoint takes fp32 W_hh only (bf16 training is "
-                         "ROADMAP queue 1 item 7, train_bf16)")
     units = next((u for u in UNITS if hidden <= u * sms), None)
     if units is None:
         raise ValueError(f"GRU plan: H {hidden} needs more than {UNITS[-1]} units on each of "
@@ -125,13 +124,13 @@ def _opt_ptr(t) -> ctypes.c_void_p:
 def _entry(name: str):
     """The C entry of csrc/<name>.cu with its argument types: itrx_gru_fwd
     (3 pointers, 2 ints, 7 pointers, 9 ints, the stream) or itrx_gru_bwd (7
-    pointers, an int, 5 pointers, 9 ints, the stream)."""
+    pointers, 2 ints, 5 pointers, 9 ints, the stream)."""
     lib = load(name)
     V, I = ctypes.c_void_p, ctypes.c_int
     if name == "gru":
         fn, types = lib.itrx_gru_fwd, [V] * 3 + [I] * 2 + [V] * 7 + [I] * 9 + [V]
     else:
-        fn, types = lib.itrx_gru_bwd, [V] * 7 + [I] + [V] * 5 + [I] * 9 + [V]
+        fn, types = lib.itrx_gru_bwd, [V] * 7 + [I] * 2 + [V] * 5 + [I] * 9 + [V]
     fn.argtypes, fn.restype = types, I
     return lib, fn
 
@@ -176,8 +175,11 @@ def gru_bwd_fused(gates_x, mask, hall, ghall, g_outs, g_final, w_hh,
     """The GRU adjoint from the forward's residuals: (ggx (B, L, 3H),
     ghn (B, L, H), g_h0 (B, H)), as `itrx_torch.ops.rnn.gru_bwd_plain`
     returns them.  g_outs / g_final may be None (zero).  A CPU tensor takes
-    `gru_bwd_plain`; a CUDA tensor launches the kernel (all fp32, contiguous;
-    one launch per batch chunk of `plan`); any other device raises."""
+    `gru_bwd_plain` without rounding, as the forward's CPU route computes
+    (the JAX package's scan); a CUDA tensor launches the kernel (all fp32
+    but W_hh, contiguous; one launch per batch chunk of `plan`): fp32 W_hh
+    the fp32 adjoint, bf16 W_hh the bf16 mode, which is `gru_bwd_plain(...,
+    dot_dtype=torch.bfloat16)`; any other device or W_hh dtype raises."""
     if gates_x.device.type == "cpu":
         return gru_bwd_plain(gates_x, mask, hall, ghall, g_outs, g_final, w_hh,
                              reverse=reverse)
@@ -185,11 +187,9 @@ def gru_bwd_fused(gates_x, mask, hall, ghall, g_outs, g_final, w_hh,
         raise ValueError(f"gru_bwd_fused: no kernel for device {gates_x.device}")
     B, L, H3 = gates_x.shape
     H = H3 // 3
-    if w_hh.dtype != torch.float32:
-        raise TypeError(
-            f"gru_bwd_fused: W_hh dtype {w_hh.dtype}: the backward kernel takes "
-            "fp32 only (bf16 training is ROADMAP queue 1 item 7, train_bf16)"
-        )
+    if w_hh.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"gru_bwd_fused: W_hh dtype {w_hh.dtype}: the backward kernel "
+                        "takes fp32 or bf16")
     shapes = {"mask": (mask, (B, L)), "hall": (hall, (B, L, H)),
               "ghall": (ghall, (B, L, H3)), "w_hh": (w_hh, (H3, H))}
     if g_outs is not None:
@@ -199,19 +199,21 @@ def gru_bwd_fused(gates_x, mask, hall, ghall, g_outs, g_final, w_hh,
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"gru_bwd_fused: {name} {tuple(t.shape)} != {shape}")
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != gates_x.device:
-            raise ValueError(f"gru_bwd_fused: {name} must be contiguous fp32 on "
+        want = w_hh.dtype if name == "w_hh" else torch.float32
+        if t.dtype != want or not t.is_contiguous() or t.device != gates_x.device:
+            raise ValueError(f"gru_bwd_fused: {name} must be contiguous {want} on "
                              f"{gates_x.device}")
     if gates_x.dtype != torch.float32 or not gates_x.is_contiguous():
         raise ValueError("gru_bwd_fused: gates_x must be contiguous fp32")
     dev = gates_x.device
-    p = plan(B, H, torch.float32, backward=True, sms=_sms(dev))
+    bf16 = w_hh.dtype == torch.bfloat16
+    p = plan(B, H, w_hh.dtype, backward=True, sms=_sms(dev))
     lib, fn = _entry("gru_bwd")
     wt = _aligned_rows(w_hh.t().contiguous())  # columns of W_hh as rows
     ggx = torch.empty(B, L, H3, dtype=torch.float32, device=dev)
     ghn = torch.empty(B, L, H, dtype=torch.float32, device=dev)
     g_h0 = torch.empty(B, H, dtype=torch.float32, device=dev)
-    ebuf = torch.empty(2, min(B, ROWS), p.k_padded, dtype=torch.float32, device=dev)
+    ebuf = torch.empty(2, min(B, ROWS), p.k_padded, dtype=w_hh.dtype, device=dev)
     bar = torch.empty(2, dtype=torch.int32, device=dev)
 
     def rows(t, b0, b1):
@@ -220,13 +222,15 @@ def gru_bwd_fused(gates_x, mask, hall, ghall, g_outs, g_final, w_hh,
     for b0, b1 in p.chunks:
         code = fn(
             ptr(gates_x[b0:b1]), ptr(mask[b0:b1]), ptr(hall[b0:b1]), ptr(ghall[b0:b1]),
-            rows(g_outs, b0, b1), rows(g_final, b0, b1), ptr(wt), wt.shape[1], ptr(ebuf),
+            rows(g_outs, b0, b1), rows(g_final, b0, b1), ptr(wt), wt.shape[1],
+            int(bf16), ptr(ebuf),
             ptr(bar), ptr(ggx[b0:b1]), ptr(ghn[b0:b1]), ptr(g_h0[b0:b1]),
             b1 - b0, L, H, p.units, p.blocks, int(p.route == "streamed"), p.smem,
             int(reverse), dev.index, current_stream(dev),
         )
         check(lib, "gru_bwd_kernel", code)
         gru_bwd_fused.launches += 1
+        gru_bwd_fused.bf16_launches += bf16
     return ggx, ghn, g_h0
 
 
@@ -277,8 +281,8 @@ def gru_scan_fused(x, mask, w_ih, w_hh, b_ih, b_hh, reverse: bool = False):
     """Masked GRU over x (B, L, D) with mask (B, L); weights in
     torch.nn.GRU layout.  Returns (outputs (B, L, H) in x's dtype, zero at
     pads; final (B, H)).  A CPU tensor takes the plain recurrence; a CUDA
-    tensor launches the kernels (fp32 or bf16 W_hh without grad, fp32 with
-    grad; fp32 carry); any other device raises.  Differentiable with
+    tensor launches the kernels (fp32 or bf16 W_hh, with grad or without;
+    fp32 carry); any other device raises.  Differentiable with
     respect to x and all four weights."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gru_scan_fused: no kernel for device {x.device}")
@@ -309,5 +313,7 @@ def gru_scan_fused(x, mask, w_ih, w_hh, b_ih, b_hh, reverse: bool = False):
 # kernel launches since the last reset: one per call and batch chunk of
 # `plan` (one persistent launch runs all L steps)
 gru_scan_fused.launches = 0
-# adjoint kernel launches, counted the same way
+# adjoint kernel launches, counted the same way; those of the bf16 W_hh mode
+# also on their own
 gru_bwd_fused.launches = 0
+gru_bwd_fused.bf16_launches = 0

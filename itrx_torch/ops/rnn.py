@@ -57,22 +57,34 @@ def gru_fwd_plain(gates_x, mask, w_hh, b_hh, reverse: bool = False,
 
 
 def gru_bwd_plain(gates_x, mask, hall, ghall, g_outs, g_final, w_hh,
-                  reverse: bool = False):
-    """Plain GRU adjoint of `gru_fwd_plain` (no rounding of the product),
-    the computation of itrx/ops/pallas/gru.py::_bwd_kernel, in gates_x's
-    dtype.
+                  reverse: bool = False, dot_dtype: torch.dtype | None = None):
+    """Plain GRU adjoint of `gru_fwd_plain`, the computation of
+    itrx/ops/pallas/gru.py::_bwd_kernel, in gates_x's dtype.
 
     From the residuals and the cotangents g_outs (B, L, H) and g_final
     (B, H) (either may be None: zero), walks the steps in the opposite order
     of the forward and returns (ggx (B, L, 3H) = [g_prer | g_prez | g_pren],
     the gradient of gates_x; ghn (B, L, H) = g_pren * r; g_h0 (B, H), the
     carry gradient it ends with, i.e. that of the zero initial state).
+
+    `dot_dtype` None: no rounding.  `torch.bfloat16`: the TPU kernel's
+    arithmetic at dot_dtype="bfloat16" (and the CUDA adjoint's with bf16
+    W_hh): gates_x and ghall enter as bf16 values, W_hh is rounded to bf16,
+    the carry gradient stays in gates_x's dtype, g_gh = [g_prer | g_prez |
+    ghn] is rounded to bf16 before its product with W_hh (accumulated in
+    gates_x's dtype), and ggx and ghn leave as bf16 values.
     """
     B, L, _ = gates_x.shape
     H = w_hh.shape[1]
-    w = w_hh.to(gates_x.dtype)
-    m = mask.to(gates_x.dtype)
-    g_carry = g_final.to(gates_x.dtype) if g_final is not None else gates_x.new_zeros(B, H)
+    ct = gates_x.dtype
+
+    def rnd(t):
+        return t if dot_dtype is None else t.to(dot_dtype).to(ct)
+
+    gates_x, ghall = rnd(gates_x), rnd(ghall.to(ct))
+    w = rnd(w_hh.to(ct))
+    m = mask.to(ct)
+    g_carry = g_final.to(ct) if g_final is not None else gates_x.new_zeros(B, H)
     ggx, ghn = [None] * L, [None] * L
     for t in (range(L) if reverse else range(L - 1, -1, -1)):
         h = hall[:, t]
@@ -88,9 +100,9 @@ def gru_bwd_plain(gates_x, mask, hall, ghall, g_outs, g_final, w_hh,
         g_hn = g_pren * r
         g_prer = g_pren * hn * r * (1.0 - r)
         g_prez = g_hnew * (h - n) * z * (1.0 - z)
-        ggx[t] = torch.cat([g_prer, g_prez, g_pren], dim=-1)
-        ghn[t] = g_hn
-        g_gh = torch.cat([g_prer, g_prez, g_hn], dim=-1)
+        ggx[t] = rnd(torch.cat([g_prer, g_prez, g_pren], dim=-1))
+        ghn[t] = rnd(g_hn)
+        g_gh = rnd(torch.cat([g_prer, g_prez, g_hn], dim=-1))
         g_carry = (1.0 - mt) * g_carry + g_hnew * z + torch.matmul(g_gh, w)
     if not L:
         return gates_x.new_zeros(B, 0, 3 * H), gates_x.new_zeros(B, 0, H), g_carry

@@ -116,7 +116,7 @@ def fwd_step_phases(args) -> list:
     kv.load = lambda name: lib if name == "vsrn_dec" else real(name)
 
     def fwd(p):
-        return run_plan(p, lambda: kv._launch_fwd(*args, residuals=True), "fwd_plan")
+        return run_plan(p, lambda: kv._launch_fwd(*args, residuals=True, dot=None), "fwd_plan")
 
     rows = []
     try:
@@ -143,7 +143,7 @@ def fwd_step_phases(args) -> list:
 def main_forward(args) -> None:
     """The forward's device ms by launch, its step by phase for each plan,
     then the kernel the port runs (no timers) at each plan in turns."""
-    by_launch = launch_ms(lambda: kv._launch_fwd(*args, residuals=True))
+    by_launch = launch_ms(lambda: kv._launch_fwd(*args, residuals=True, dot=None))
     print(json.dumps({"shape": SHAPE, "fwd_ms_by_launch": {k: round(v, 4)
                                                           for k, v in by_launch.items()},
                       "fwd_ms_sum": round(sum(by_launch.values()), 4)}), flush=True)
@@ -156,7 +156,7 @@ def main_forward(args) -> None:
     ms = {f"halves {p.halves}": [] for p in plans}
     for p in plans + plans[::-1]:
         def fwd(p=p):
-            return run_plan(p, lambda: kv._launch_fwd(*args, residuals=True), "fwd_plan")
+            return run_plan(p, lambda: kv._launch_fwd(*args, residuals=True, dot=None), "fwd_plan")
         for _ in range(2):
             fwd()
         ms[f"halves {p.halves}"].append(round(timed_ms(fwd, 10), 3))

@@ -4,7 +4,9 @@ One train step (forward, backward through the GRU kernels, clip, step-decay
 rate, Adam), the epoch loop with periodic validation and checkpoints, and
 `fit` with resume.  As in the JAX package: validation returns (rsum,
 i2t r1) in that order, checkpoints store `best_r1`, and the batch order is
-the dataset's numpy order for (seed, epoch).
+the dataset's numpy order for (seed, epoch).  `train_bf16` runs the forward
+and backward in bf16 on fp32 master parameters, as `itrx`'s
+make_train_step(compute_dtype="bfloat16") does (`cast_loss`).
 """
 
 from __future__ import annotations
@@ -20,7 +22,11 @@ import torch
 from ..configs import load_hyperparams
 from ..data import precomp
 from ..data.precomp import RAW_DATASET_NAMES
+from torch import nn
+from torch.func import functional_call
+
 from ..eval import engine
+from ..eval.engine import KEEP_F32
 from ..utils.checkpoint import (load_checkpoint, load_state_list,
                                 save_train_checkpoint)
 from ..utils.cli import default_device
@@ -36,10 +42,6 @@ _END = object()
 def check_supported(config: dict) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for what the
     port's training does not do yet."""
-    if config.get("train_bf16"):
-        raise NotImplementedError(
-            "train_bf16 is not ported yet: ROADMAP queue 1 item 7 (bf16 W_hh in "
-            "both GRU kernels)")
     if config.get("mesh_shape") or config.get("multihost") or config.get(
             "coordinator_address"):
         raise NotImplementedError(
@@ -51,14 +53,53 @@ def check_supported(config: dict) -> None:
             "ROADMAP queue 1 item 12 (the VGG19 / ResNet152 towers)")
 
 
-def make_train_step(state: TrainState, seed: int = 0):
+class _Loss(nn.Module):
+    """The model's training loss as a module's forward, so that
+    functional_call can run it on swapped parameters and buffers."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch: dict, epoch: int):
+        return self.model.loss(batch, train=True, epoch=epoch)
+
+
+def cast_loss(model: nn.Module, batch: dict, epoch: int, dtype: torch.dtype):
+    """model.loss(batch, train=True) in mixed precision, as
+    itrx/train/loop.py::make_train_step casts at the loss boundary: every fp32
+    parameter (frozen ones too) and every fp32 buffer (the BatchNorm
+    statistics) is cast to `dtype`, and every fp32 batch field but the box
+    geometry (KEEP_F32), masks included.  The casts are differentiable, so
+    the gradients reach the fp32 masters in fp32, each rounded to `dtype` as
+    the cast's transpose rounds it.  The statistics the forward updates in
+    its `dtype` copies are written back into the fp32 buffers.  The loss's
+    reductions stay fp32 (ops/losses.py upcasts)."""
+    def cast(t):
+        return t.to(dtype) if t.dtype == torch.float32 else t
+
+    params = {f"model.{k}": cast(p) for k, p in model.named_parameters()}
+    buffers = {f"model.{k}": (b, cast(b)) for k, b in model.named_buffers()}
+    b = {k: v if k in KEEP_F32 else cast(v) for k, v in batch.items()}
+    out = functional_call(_Loss(model), {**params, **{k: c for k, (_, c) in buffers.items()}},
+                          (b, epoch))
+    with torch.no_grad():
+        for master, copy in buffers.values():
+            if copy is not master:
+                master.copy_(copy)
+    return out
+
+
+def make_train_step(state: TrainState, seed: int = 0,
+                    compute_dtype: torch.dtype | None = None):
     """step(batch, log, epoch) -> aux floats when `log`, else None.  One update in
     train mode (BatchNorm on batch statistics, dropout on): reseed the
     model's dropout stream from (seed, update count), so a resumed run draws
     the masks an uninterrupted one draws; zero the grads, loss forward and
-    backward, then clip, rate and Adam (TrainState.apply_gradients).  The
-    epoch reaches the loss, as in `itrx`'s step.  Nothing waits for the
-    device unless `log`."""
+    backward (in `compute_dtype` on the fp32 masters when given:
+    `cast_loss`), then clip, rate and Adam (TrainState.apply_gradients, on
+    the fp32 masters).  The epoch reaches the loss, as in `itrx`'s step.
+    Nothing waits for the device unless `log`."""
     model = state.model
     model.train()
 
@@ -68,7 +109,10 @@ def make_train_step(state: TrainState, seed: int = 0):
         if hasattr(model, "dropout_rng"):
             model.dropout_rng.manual_seed(seed * 100003 + state.step)
         state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = state.model.loss(batch, train=True, epoch=epoch)
+        if compute_dtype is None:
+            loss, aux = model.loss(batch, train=True, epoch=epoch)
+        else:
+            loss, aux = cast_loss(model, batch, epoch, compute_dtype)
         loss.backward()
         state.apply_gradients()
         if log:
@@ -147,7 +191,8 @@ def train_epoch(config: dict, state: TrainState, train_dataset, val_dataset,
     batch_time = AverageMeter()
     data_time = AverageMeter()
     train_logger = LogCollector()
-    step_fn = make_train_step(state, config["seed"])
+    step_fn = make_train_step(state, config["seed"],
+                              torch.bfloat16 if config.get("train_bf16") else None)
     n_batches = len(train_dataset) // config["batch_size"]
     it = prefetch(
         train_dataset.train_batches(config["batch_size"], config["seed"], epoch), device

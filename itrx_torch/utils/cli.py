@@ -16,7 +16,9 @@ def default_device(device, prog: str) -> torch.device:
     GPU, None raises rather than falling back to the CPU.  On the card it
     turns TF32 off, so that fp32 configurations compute in fp32 as on the
     CPU and in the JAX package (cuDNN rounds fp32 convolutions to TF32
-    unless told not to)."""
+    unless told not to), and makes cuBLAS's bf16 products accumulate in
+    fp32 throughout, as `itrx`'s bf16 dots do (preferred_element_type
+    fp32)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(NO_GPU.format(prog))
@@ -25,6 +27,7 @@ def default_device(device, prog: str) -> torch.device:
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return device
 
 

@@ -264,11 +264,19 @@ def test_evalrank_ensemble_fold5_matches_jax(testall, cheap_sims):
 
 
 @pytest.mark.parametrize("override,item", [
-    ("train_bf16=True", "item 7"),
+    ("train_bf16=True", None),
     ("mesh_shape={'dp': 2}", "item 13"),
     ("multihost=True", "item 13"),
 ])
 def test_fit_names_the_roadmap_item_of_what_is_not_ported(synth, override, item):
+    """fit refuses what is not ported, naming its ROADMAP item; train_bf16,
+    ported, trains (one epoch, finite losses, fp32 weights)."""
+    if item is None:
+        state, _ = fit(parse_cli(_args(synth, "bf16", num_epochs=1) + [override]), device="cpu")
+        assert state.step == 5
+        assert all(p.dtype == torch.float32 and torch.isfinite(p).all()
+                   for p in state.model.parameters())
+        return
     cfg = parse_cli(_args(synth, "refused") + [override], make_dirs=False)
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         fit(cfg, device="cpu")

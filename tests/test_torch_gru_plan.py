@@ -17,8 +17,10 @@ from itrx_torch.ops.rnn import MaskedGRU
 # batch rows a call takes on the main paths: a full batch (batch_size 128),
 # the last batch of encode's 128-row batches over 5000 captions, one row
 BATCHES = (128, 5000 % 128, 1)
-# (W_hh dtype, adjoint): encode's bf16 forward, the fp32 forward, the adjoint
-MODES = ((torch.bfloat16, False), (torch.float32, False), (torch.float32, True))
+# (W_hh dtype, adjoint): encode's (and train_bf16's) bf16 forward, the fp32
+# forward, the fp32 adjoint, train_bf16's bf16 adjoint
+MODES = ((torch.bfloat16, False), (torch.float32, False), (torch.float32, True),
+         (torch.bfloat16, True))
 
 
 @functools.cache
@@ -70,11 +72,16 @@ def test_every_config_shape_fits_one_h100(batch, dtype, backward):
     (1152, torch.float32, True, "resident", 16 * (3456 + 4) * 4),
     (1152, torch.float32, False, "resident", 48 * (1152 + 4) * 4),
     (1216, torch.float32, False, "streamed", 4 * 48 * (64 + 4) * 4),
+    # the bf16 adjoint (train_bf16): resident at every width, VSRN's too
+    (256, torch.bfloat16, True, "resident", 8 * (768 + 32) * 2),
+    (1024, torch.bfloat16, True, "resident", 8 * (3072 + 32) * 2),
+    (2048, torch.bfloat16, True, "resident", 16 * (6144 + 32) * 2),
 ])
 def test_route_and_shared_memory(hidden, dtype, backward, route, smem):
     """A slice stays resident while it fits; past 1152 units at 16 a block
     the fp32 slices (VSRN's H 2048 training GRUs: 393 KB a block) stream
-    through the ring."""
+    through the ring.  The bf16 adjoint's slices fit at every width: 49,664
+    B a block at H 1024 (8 units), 197,632 B at H 2048 (16 units)."""
     p = gru.plan(128, hidden, dtype, backward=backward)
     assert (p.route, p.smem) == (route, smem)
 
@@ -113,7 +120,7 @@ def test_plan_follows_the_cards_sm_count():
     (0, 1024, torch.float32, False),
     (128, 0, torch.float32, False),
     (128, 1024, torch.float16, False),
-    (128, 1024, torch.bfloat16, True),  # the adjoint is fp32 only
+    (128, 1024, torch.float16, True),  # the adjoint takes fp32 or bf16
 ])
 def test_impossible_requests_raise(batch, hidden, dtype, backward):
     with pytest.raises(ValueError, match="GRU plan"):

@@ -205,6 +205,25 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
 
 
 @pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
+def test_card_entry_keeps_bf16_products_in_fp32(device, monkeypatch):
+    """On the card the entry points make cuBLAS's bf16 products accumulate
+    in fp32 throughout (PyTorch's default allows reduced-precision
+    reductions), as `itrx`'s bf16 dots do (preferred_element_type fp32);
+    the CPU leaves the switch as it is."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    flag = torch.backends.cuda.matmul
+    saved = flag.allow_bf16_reduced_precision_reduction
+    try:
+        flag.allow_bf16_reduced_precision_reduction = True
+        assert default_device("cpu", "test") == torch.device("cpu")
+        assert flag.allow_bf16_reduced_precision_reduction
+        assert default_device(device, "test").type == "cuda"
+        assert not flag.allow_bf16_reduced_precision_reduction
+    finally:
+        flag.allow_bf16_reduced_precision_reduction = saved
+
+
+@pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
 def test_card_entry_turns_tf32_off(device, monkeypatch):
     """Every entry point resolves its device through default_device (the
     test above); on the card it leaves fp32 products and convolutions in
@@ -468,9 +487,9 @@ def test_sgraf_saf_training_names_its_roadmap_item():
 
 def test_check_supported_refuses_sgraf_training():
     """check_supported accepts all six methods: SGRAF with SAF and with SGR,
-    VSRN, CAMERA, SCAN, VSE++ on precomputed features and SAEM; it still
-    refuses VSE++ on raw images (ROADMAP item 12), train_bf16 (item 7) and
-    meshes (item 13)."""
+    VSRN, CAMERA, SCAN, VSE++ on precomputed features and SAEM, with
+    train_bf16 too; it still refuses VSE++ on raw images (ROADMAP item 12)
+    and meshes (item 13)."""
     loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SAF"))
     loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SGR"))
     loop.check_supported(dict(_cfg(), name="VSRN"))
@@ -481,12 +500,10 @@ def test_check_supported_refuses_sgraf_training():
     for data_name in ("coco", "f8k", "f30k"):
         with pytest.raises(NotImplementedError, match="raw images.*ROADMAP queue 1 item 12"):
             loop.check_supported(dict(_cfg(), name="VSE_PP", data_name=data_name))
-    with pytest.raises(NotImplementedError, match="train_bf16.*item 7"):
-        loop.check_supported(dict(_cfg(), name="SAEM", train_bf16=True))
+    loop.check_supported(dict(_cfg(), name="SAEM", train_bf16=True))
     with pytest.raises(NotImplementedError, match="mesh_shape.*item 13"):
         loop.check_supported(dict(_cfg(), name="VSE_PP", mesh_shape=[2]))
-    with pytest.raises(NotImplementedError, match="train_bf16"):
-        loop.check_supported(dict(_cfg(), name="CAMERA", train_bf16=True))
+    loop.check_supported(dict(_cfg(), name="CAMERA", train_bf16=True))
     with pytest.raises(NotImplementedError, match="mesh_shape"):
         loop.check_supported(dict(_cfg(), name="SGRAF", module_name="SGR", mesh_shape=[2]))
 
@@ -763,6 +780,28 @@ def test_vsrn_dec_wrappers_raise_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="no kernel"):
         vsrn_dec.vsrn_dec_bwd_fused(*_dec_args("meta"), *res)
     assert (vsrn_dec.vsrn_dec_fused.launches, vsrn_dec.vsrn_dec_bwd_fused.launches) == before
+
+
+def test_bf16_modes_count_only_where_they_launch():
+    """The GRU adjoint's and the decoder pair's bf16 modes count their
+    launches also on their own (`bf16_launches`, at the launch alone): bf16
+    calls on the CPU, the decoder's with grad through its backward, count
+    none."""
+    fns = (gru.gru_bwd_fused, vsrn_dec.vsrn_dec_fused, vsrn_dec.vsrn_dec_bwd_fused)
+    before = [(f.launches, f.bf16_launches) for f in fns]
+    assert all(isinstance(n, int) for pair in before for n in pair)
+    g = torch.Generator().manual_seed(5)
+    b, l, h = 2, 3, 4
+    gates_x, hall = torch.randn(b, l, 3 * h, generator=g), torch.randn(b, l, h, generator=g)
+    gru.gru_bwd_fused(gates_x, torch.ones(b, l), hall, torch.randn(b, l, 3 * h, generator=g),
+                      torch.randn(b, l, h, generator=g), None,
+                      torch.randn(3 * h, h, generator=g).bfloat16())
+    args = list(_dec_args())
+    args[2] = args[2].bfloat16()
+    args[5].requires_grad_()
+    vsrn_dec.vsrn_dec_fused(*args).sum().backward()
+    assert args[5].grad is not None
+    assert [(f.launches, f.bf16_launches) for f in fns] == before
 
 
 def _vsrn(**kw):

@@ -122,7 +122,7 @@ def test_gradcheck_float64(rng):
     derivative of its forward, in float64, with a context-dropout mask."""
     args = _port(_data(rng, 3, 2, 3, 4, 0.5), torch.float64)
     leaves = [a.requires_grad_(i != 1) for i, a in enumerate(args)]
-    assert torch.autograd.gradcheck(lambda *a: kv._VSRNDecode.apply(*a), leaves, eps=1e-6,
+    assert torch.autograd.gradcheck(lambda *a: kv._VSRNDecode.apply(None, *a), leaves, eps=1e-6,
                                     atol=1e-7)
 
 
